@@ -1,0 +1,192 @@
+"""Request objects (a copy of ``deepspeed_tpu/serving/request.py``, kept in
+this package so the port imports nothing of the JAX package).
+
+A ``Request`` is one user generation: a token prompt plus an output
+budget. The engine streams generated tokens into it as they are read
+back from the device (``on_token`` fires per token), and stamps the
+timing fields the metrics layer aggregates (TTFT, end-to-end latency).
+
+QoS (serving/qos.py) adds a ``priority`` field (higher = more
+important) and two traffic-management states: ``shed`` (terminal —
+refused by SLO-aware admission or the degradation ladder, an explicit
+early answer instead of a silent queue-TTL expiry) and ``preempted``
+(transient — pushed back to the queue by priority preemption or engine
+recovery with its generated tokens retained; resumption re-prefills
+``prompt + partial output`` and continues token-exactly under greedy
+sampling).
+"""
+
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+
+QUEUED = "queued"
+RUNNING = "running"
+FINISHED = "finished"
+TIMEOUT = "timeout"        # queued past its deadline; never ran
+CANCELLED = "cancelled"    # client cancel()ed it (queued or mid-generation)
+SHED = "shed"              # refused by QoS admission / degradation ladder
+PREEMPTED = "preempted"    # back in the queue (priority preemption or
+                           # recovery); NOT terminal — it resumes
+
+TERMINAL = (FINISHED, TIMEOUT, CANCELLED, SHED)
+
+
+class Request:
+    """One generation request and its streamed result."""
+
+    def __init__(self, prompt, max_new_tokens: int, request_id,
+                 on_token: Optional[Callable] = None,
+                 deadline_steps: Optional[int] = None,
+                 priority: int = 0, trace_id: Optional[str] = None):
+        self.request_id = request_id
+        # distributed trace id (observability/fleet.py): follows the
+        # request across replicas — through the worker protocol and the
+        # handoff wire format — so one id joins its spans fleet-wide.
+        # None until the engine (or fleet) stamps one at submit.
+        self.trace_id = trace_id
+        self.prompt = prompt                      # 1-D int32 numpy array
+        self.max_new_tokens = int(max_new_tokens)
+        self.on_token = on_token
+        # queue TTL in engine iterations: a request still QUEUED when the
+        # engine clock passes submitted_iteration + deadline_steps
+        # completes with TIMEOUT status instead of waiting forever
+        self.deadline_steps = (int(deadline_steps)
+                               if deadline_steps is not None else None)
+        # scheduler key: higher priority admits first; the QoS config
+        # maps it to a named class with SLO targets (engine stamps
+        # qos_class when the qos block is on)
+        self.priority = int(priority)
+        self.qos_class: Optional[str] = None
+        self.status = QUEUED
+        self.shed_reason: Optional[str] = None
+        self.tokens: List[int] = []               # generated tokens, in order
+        self.slot: Optional[int] = None
+        self.preemptions = 0                      # times preempted-to-queue
+        self.resumptions = 0                      # times re-admitted after
+        self.preempted_iteration: Optional[int] = None
+        # submit-order sequence stamped by the engine: the deterministic
+        # requeue key recovery uses to restore arrival order
+        self._seq: Optional[int] = None
+        # stamped by the engine at submit: True when the request arrived
+        # while others were already waiting or every slot was busy — the
+        # population the p95-TTFT-under-load gauge aggregates (an idle
+        # server's instant TTFTs would wash the load signal out)
+        self.submitted_under_load = False
+        # host wall-clock stamps (time.perf_counter); the _ns twins are
+        # perf_counter_ns on the SAME clock so the tracer can emit
+        # retroactive queue-wait / decode-residency spans without any
+        # extra clock reads on the hot path
+        self.submitted_at = time.perf_counter()
+        self.submitted_at_ns = time.perf_counter_ns()
+        self.admitted_at_ns: Optional[int] = None
+        self.preempted_at_ns: Optional[int] = None
+        self.admitted_at: Optional[float] = None
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
+        # engine-iteration stamps (deterministic run-to-run)
+        self.submitted_iteration: Optional[int] = None
+        self.admitted_iteration: Optional[int] = None
+        self.first_token_iteration: Optional[int] = None
+        self.finished_iteration: Optional[int] = None
+
+    # -- engine-side hooks -------------------------------------------------
+    def _admitted(self, slot: int, iteration: int):
+        if self.status == PREEMPTED:
+            self.resumptions += 1
+        self.slot = slot
+        self.status = RUNNING
+        self.admitted_at = time.perf_counter()
+        self.admitted_at_ns = time.perf_counter_ns()
+        self.admitted_iteration = iteration
+
+    def _emit(self, token: int, iteration: int):
+        if self.first_token_at is None:
+            self.first_token_at = time.perf_counter()
+            self.first_token_iteration = iteration
+        self.tokens.append(int(token))
+        if self.on_token is not None:
+            self.on_token(self, int(token))
+
+    def _finished(self, iteration: int):
+        self.slot = None
+        self.status = FINISHED
+        self.finished_at = time.perf_counter()
+        self.finished_iteration = iteration
+
+    def _timed_out(self, iteration: int):
+        self.status = TIMEOUT
+        self.finished_at = time.perf_counter()
+        self.finished_iteration = iteration
+
+    def _cancelled(self, iteration: int):
+        self.slot = None
+        self.status = CANCELLED
+        self.finished_at = time.perf_counter()
+        self.finished_iteration = iteration
+
+    def _shed(self, iteration: int, reason: Optional[str] = None):
+        self.slot = None
+        self.status = SHED
+        self.shed_reason = reason
+        self.finished_at = time.perf_counter()
+        self.finished_iteration = iteration
+
+    def _preempted(self, iteration: int):
+        """Back to the queue with generated tokens retained; resumption
+        re-prefills ``effective_prompt()`` with ``remaining_budget()``."""
+        self.slot = None
+        self.status = PREEMPTED
+        self.preemptions += 1
+        self.preempted_iteration = iteration
+        self.preempted_at_ns = time.perf_counter_ns()
+
+    def deadline_iteration(self) -> Optional[int]:
+        """Absolute engine iteration past which a still-queued request
+        expires (None = no deadline)."""
+        if self.deadline_steps is None or self.submitted_iteration is None:
+            return None
+        return self.submitted_iteration + self.deadline_steps
+
+    # -- resumption views (preemption-to-queue) ----------------------------
+    def effective_prompt(self) -> np.ndarray:
+        """What a (re-)admission prefills: the prompt plus any tokens
+        already generated before a preemption. Page-granular prefix-cache
+        hits make the recompute cheap on the paged engine."""
+        if not self.tokens:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.tokens, np.int32)])
+
+    def remaining_budget(self) -> int:
+        """Output tokens still owed (``max_new_tokens`` minus what was
+        generated before preemption); >= 1 for any resumable request."""
+        return self.max_new_tokens - len(self.tokens)
+
+    # -- client-side views -------------------------------------------------
+    @property
+    def done(self) -> bool:
+        return self.status in TERMINAL
+
+    @property
+    def output_tokens(self) -> List[int]:
+        return list(self.tokens)
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.first_token_at is None:
+            return None
+        return self.first_token_at - self.submitted_at
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        if self.finished_at is None:
+            return None
+        return self.finished_at - self.submitted_at
+
+    def __repr__(self):
+        return (f"Request(id={self.request_id!r}, status={self.status}, "
+                f"priority={self.priority}, "
+                f"prompt_len={len(self.prompt)}, "
+                f"generated={len(self.tokens)}/{self.max_new_tokens})")
