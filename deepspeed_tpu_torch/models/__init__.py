@@ -1,1 +1,1 @@
-from .gpt import GPT, GPT2_PRESETS, GPTConfig  # noqa: F401
+from .gpt import GPT, GPT2_PRESETS, GPTConfig, gpt_loss_fn  # noqa: F401

@@ -4,6 +4,14 @@ The layers are an unrolled ``nn.ModuleList`` (the JAX package's
 ``scan_layers``, remat and parameter offload have no counterpart here).
 With a ``cache`` (``inference.cache.KVCache``) the forward writes each
 layer's new K/V into it in place and advances its write index.
+
+Attention dropout (``attn_dropout_rate``) is live in training mode only.
+The forward takes the step's seed words and gives layer ``i`` the words
+``ops.dropout.fold_seed(dropout_seed, i)``: the port's own derivation,
+since flax's ``make_rng`` folding cannot be reproduced without JAX.
+Residual, MLP and embedding dropout (``dropout_rate``) are flax Bernoulli
+samples no port reproduces bit for bit; they come with a later slice and
+raise here.
 """
 
 from dataclasses import dataclass
@@ -12,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.dropout import fold_seed
 from .layers import Block, LayerNorm, QDense
 
 
@@ -23,6 +32,8 @@ class GPTConfig:
     n_layers: int = 12
     n_heads: int = 12
     d_ff: Optional[int] = None           # default 4*d_model
+    dropout_rate: float = 0.0            # residual/MLP/embedding: later slice
+    attn_dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16  # compute dtype (params are fp32)
     use_bias: bool = True
     ln_epsilon: float = 1e-5
@@ -61,6 +72,11 @@ class GPT(nn.Module):
 
     def __init__(self, config: GPTConfig, seed: int = 0):
         super().__init__()
+        if config.dropout_rate > 0.0:
+            raise NotImplementedError(
+                "GPTConfig.dropout_rate > 0 (residual, MLP and embedding "
+                "dropout) comes with the residual-dropout slice of the "
+                "port; attn_dropout_rate is supported")
         self.config = cfg = config
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
         self.wpe = (nn.Parameter(torch.empty(cfg.max_seq_len, cfg.d_model))
@@ -72,7 +88,8 @@ class GPT(nn.Module):
                   use_bias=cfg.use_bias, ln_epsilon=cfg.ln_epsilon,
                   parallel_residual=cfg.parallel_residual,
                   shared_parallel_ln=cfg.shared_parallel_ln,
-                  attn_use_bias=cfg.attn_use_bias, alibi=cfg.alibi)
+                  attn_use_bias=cfg.attn_use_bias, alibi=cfg.alibi,
+                  attn_dropout_rate=cfg.attn_dropout_rate)
             for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.ln_epsilon)
         self.lm_head = (None if cfg.tie_embeddings else
@@ -98,11 +115,12 @@ class GPT(nn.Module):
             p.copy_(val)
 
     def forward(self, input_ids, *, attention_mask=None, positions=None,
-                cache=None):
+                cache=None, dropout_seed=None):
         """input_ids [b, s] (in range: callers validate, as the reference's
         clipping gather never fails). ``positions``: [s] or [b, s]
         (default arange(s)). ``attention_mask`` [b, s] (1 = attend) for the
-        cache-free forward."""
+        cache-free forward. ``dropout_seed``: the (s0, s1) words of this
+        forward, needed in training mode when attention dropout is on."""
         cfg = self.config
         s = input_ids.shape[1]
         h = self.wte[input_ids].to(cfg.dtype)
@@ -117,10 +135,29 @@ class GPT(nn.Module):
         for i, block in enumerate(self.h):
             kv = (cache.k[i], cache.v[i]) if cache is not None else None
             h = block(h, mask=mask, positions=positions, kv_cache=kv,
-                      cache_index=cache.index if cache is not None else None)
+                      cache_index=cache.index if cache is not None else None,
+                      dropout_seed=(None if dropout_seed is None
+                                    else fold_seed(dropout_seed, i)))
         if cache is not None:
             cache.index = cache.index + s
         h = self.ln_f(h)
         if self.lm_head is None:
             return h @ self.wte.to(cfg.dtype).t()
         return self.lm_head(h)
+
+
+def gpt_loss_fn(logits, labels, loss_mask=None, z_loss=0.0):
+    """Next-token cross entropy in fp32 (gpt.py:340): logsumexp over the
+    vocab, optional ``z_loss * logz**2``, mean over the tokens (or over
+    ``loss_mask`` when given). ``labels`` are already shifted."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - label_logits
+    if z_loss > 0.0:
+        nll = nll + z_loss * logz.square()
+    if loss_mask is not None:
+        loss_mask = loss_mask.float()
+        nll = nll * loss_mask
+        return nll.sum() / loss_mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -11,6 +11,9 @@ then cast back, tanh-GELU. Attention is causal (decoder models only).
 a cache and a shared integer write position (prefill, and the classic
 equal-length decode), and with a cache and a per-row ``[B]`` position
 tensor (the serving slot batch and ragged decode, one token per row).
+Attention dropout (``attn_dropout_rate``) is live only in training mode
+(``module.train()``), only without a cache, and draws its keep bits from
+the counter hash with the layer's seed words (layers.py:517-565).
 """
 
 import math
@@ -64,9 +67,11 @@ class SelfAttention(nn.Module):
     """Causal fused-QKV multi-head attention with a contiguous KV cache."""
 
     def __init__(self, n_heads: int, d_model: int, dtype=torch.bfloat16,
-                 use_bias: bool = True, alibi: bool = False):
+                 use_bias: bool = True, alibi: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.n_heads, self.d_model, self.alibi = n_heads, d_model, alibi
+        self.dropout_rate = dropout_rate
         self.qkv = QDense(d_model, 3 * d_model, use_bias, dtype)
         self.out = QDense(d_model, d_model, use_bias, dtype)
         if alibi:
@@ -74,23 +79,32 @@ class SelfAttention(nn.Module):
                                  persistent=False)
 
     def forward(self, x, mask=None, positions=None, kv_cache=None,
-                cache_index=None):
+                cache_index=None, dropout_seed=None):
         """x [b, s, d_model]. ``kv_cache`` is this layer's (k, v) cache
         pair [B, H, S, head_dim], written in place; ``cache_index`` the
         write position: an int shared by every row, or an int [B] tensor
         (one token per row, clamped into the cache like the reference's
-        ``dynamic_update_slice``)."""
+        ``dynamic_update_slice``). ``dropout_seed``: this layer's (s0, s1)
+        words, needed when attention dropout is live."""
         b, s, _ = x.shape
         # thirds of 3*d_model, then heads (layers.py:293-297)
         q, k, v = (t.unflatten(-1, (self.n_heads, -1))
                    for t in self.qkv(x).split(self.d_model, dim=-1))
+        drop = self.dropout_rate > 0.0 and self.training
         if kv_cache is None:
             bias = None
             if self.alibi:
                 q_pos = (positions if positions is not None
                          else torch.arange(s, device=x.device))
                 bias = self._alibi_bias(q_pos.expand(s), s)
-            out = attention(q, k, v, bias=bias, mask=mask, causal=True)
+            out = attention(q, k, v, bias=bias, mask=mask, causal=True,
+                            dropout_rate=self.dropout_rate,
+                            dropout_seed=dropout_seed,
+                            deterministic=not drop)
+        elif drop:
+            raise NotImplementedError(
+                "attention dropout with the KV cache: serve the model in "
+                "eval() mode (init_inference does)")
         elif mask is not None:
             raise NotImplementedError(
                 "an external attention mask with the KV cache comes with a "
@@ -179,7 +193,8 @@ class Block(nn.Module):
                  dtype=torch.bfloat16, use_bias: bool = True,
                  ln_epsilon: float = 1e-5, parallel_residual: bool = False,
                  shared_parallel_ln: bool = False,
-                 attn_use_bias: Optional[bool] = None, alibi: bool = False):
+                 attn_use_bias: Optional[bool] = None, alibi: bool = False,
+                 attn_dropout_rate: float = 0.0):
         super().__init__()
         self.parallel_residual = parallel_residual
         self.ln_1 = LayerNorm(d_model, ln_epsilon)
@@ -187,14 +202,15 @@ class Block(nn.Module):
                      else LayerNorm(d_model, ln_epsilon))
         self.attn = SelfAttention(
             n_heads, d_model, dtype,
-            use_bias if attn_use_bias is None else attn_use_bias, alibi)
+            use_bias if attn_use_bias is None else attn_use_bias, alibi,
+            attn_dropout_rate)
         self.mlp = MLP(d_model, d_ff, dtype, use_bias)
 
     def forward(self, x, mask=None, positions=None, kv_cache=None,
-                cache_index=None):
+                cache_index=None, dropout_seed=None):
         h1 = self.ln_1(x)
         a = self.attn(h1, mask=mask, positions=positions, kv_cache=kv_cache,
-                      cache_index=cache_index)
+                      cache_index=cache_index, dropout_seed=dropout_seed)
         if self.parallel_residual:
             h2 = h1 if self.ln_2 is None else self.ln_2(x)
             return x + a + self.mlp(h2)

@@ -7,7 +7,11 @@
 // (causal_shift = sk - sq), one additive bias [b|1, h|1, sq|1, sk] read
 // with stride 0 on its broadcast dims, fully masked rows giving O = 0 and
 // LSE = NEG_INF, and the probabilities cast to the value dtype before the
-// PV product. No dropout (the training slice adds it).
+// PV product. Attention dropout is fused: each score's keep bit is the
+// counter hash (common.cuh dropout_keep) at its absolute (row, col), the
+// normaliser l sums the un-dropped probabilities, and the PV product takes
+// keep ? p / (1 - rate) : 0 (JAX _online_step :205). No mask tensor is
+// ever written to memory; rate 0 compiles to the path without the hash.
 //
 // What bounds it on the H100: at serving-prefill shapes (GPT-2, d = 64,
 // sq = sk <= 1024) the work is 4*b*h*sq*sk_visible*d FLOPs against
@@ -40,7 +44,7 @@ constexpr size_t flash_smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
@@ -49,7 +53,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh,
                  long long b_sb, long long b_sh, long long b_sq, float scale,
-                 int causal) {
+                 int causal, DropoutParams dp) {
   constexpr int DP = D + 1;   // padded Q/K row
   constexpr int PP = BK + 1;  // padded P row
   constexpr int DC = D / 16;  // output columns per thread
@@ -71,6 +75,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
   const float* bb = bias ? bias + b * b_sb + h * b_sh : nullptr;
+  const uint32_t bh = DROP ? dropout_bh(dp, b, h) : 0u;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
@@ -146,8 +151,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rsum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = seen ? expf(s[i][j] - m_new) : 0.f;
-        rsum += p;
+        float p = seen ? expf(s[i][j] - m_new) : 0.f;
+        rsum += p;  // l sums the un-dropped probabilities
+        if (DROP)
+          p = dropout_keep(dp, bh, row, k0 + tx + 16 * j) ? p * dp.inv_keep
+                                                          : 0.f;
         Ps[(ty + 16 * i) * PP + tx + 16 * j] = round_to<T>(p);
       }
 #pragma unroll
@@ -190,23 +198,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            void* o, float* lse, int b, int h, int sq, int sk,
            long long q_sb, long long q_ss, long long q_sh, long long k_sb,
            long long k_ss, long long k_sh, long long v_sb, long long v_ss,
            long long v_sh, long long b_sb, long long b_sh, long long b_sq,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, DropoutParams dp, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<D>();
-  cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaFuncSetAttribute(flash_fwd_kernel<T, D, DROP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(o), lse, h, sq, sk,
       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, b_sb, b_sh, b_sq,
-      scale, causal);
+      scale, causal, dp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,25 +224,36 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
 // q/k/v are [b, s, h, d] with unit stride along d and the given strides
 // (in elements) for batch, sequence and head; bias is fp32 with unit
 // stride along sk and stride 0 on its broadcast dims (nullptr for none);
-// o is contiguous [b, sq, h, d] and lse contiguous [b, h, sq].
+// o is contiguous [b, sq, h, d] and lse contiguous [b, h, sq]. dropout != 0
+// turns on the keep hash with the given words, threshold and offsets.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     void* lse, int dtype, int b, int h, int sq, int sk, int d,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long b_sb, long long b_sh, long long b_sq,
-    float scale, int causal, void* stream) {
+    float scale, int causal, DS_DROPOUT_PARAMS, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bi = static_cast<const float*>(bias);
   float* ls = static_cast<float*>(lse);
+  const DropoutParams dp = DS_DROPOUT_STRUCT;
 #define DS_FLASH_ARGS                                                      \
   q, k, v, bi, o, ls, b, h, sq, sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,    \
-      v_sb, v_ss, v_sh, b_sb, b_sh, b_sq, scale, causal, st
-  if (dtype == 0 && d == 64) return launch<float, 64>(DS_FLASH_ARGS);
-  if (dtype == 0 && d == 128) return launch<float, 128>(DS_FLASH_ARGS);
-  if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64>(DS_FLASH_ARGS);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(DS_FLASH_ARGS);
+      v_sb, v_ss, v_sh, b_sb, b_sh, b_sq, scale, causal, dp, st
+#define DS_FLASH_DISPATCH(DROP)                                            \
+  if (dtype == 0 && d == 64) return launch<float, 64, DROP>(DS_FLASH_ARGS); \
+  if (dtype == 0 && d == 128)                                              \
+    return launch<float, 128, DROP>(DS_FLASH_ARGS);                        \
+  if (dtype == 1 && d == 64)                                               \
+    return launch<__nv_bfloat16, 64, DROP>(DS_FLASH_ARGS);                 \
+  if (dtype == 1 && d == 128)                                              \
+    return launch<__nv_bfloat16, 128, DROP>(DS_FLASH_ARGS);
+  if (dropout) {
+    DS_FLASH_DISPATCH(true)
+  } else {
+    DS_FLASH_DISPATCH(false)
+  }
+#undef DS_FLASH_DISPATCH
 #undef DS_FLASH_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,17 +28,31 @@ _BUILD_DIR = os.path.join(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-_p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_p, _i, _u, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
+    ctypes.c_longlong, ctypes.c_float
+
+# dropout: enabled, s0, s1, threshold, 1/(1-rate), total_heads,
+# head/batch/q/k offsets (common.cuh DS_DROPOUT_PARAMS)
+_DROPOUT = [_i, _u, _u, _u, _f, _i, _i, _i, _i, _i]
+# dtype, b, h, sq, sk, d, then (batch, seq, head) strides of q, k, v, dO,
+# (batch, head, q) strides of the bias, scale, causal, dropout, stream
+_BWD = [_i] * 6 + [_ll] * 15 + [_f, _i] + _DROPOUT + [_p]
 
 # argtypes of every C entry point; each returns cudaGetLastError() as int
 SIGNATURES = {
     # q, k, v, bias, o, lse, dtype, b, h, sq, sk, d,
     # q/k/v strides (batch, seq, head), bias strides (batch, head, q),
-    # scale, causal, stream
+    # scale, causal, dropout, stream
     "flash_attention_fwd": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                             _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
-                            _ll, _ll, _ll, _f, _i, _p],
+                            _ll, _ll, _ll, _f, _i, *_DROPOUT, _p],
+    # q, k, v, dO, lse, delta, bias, dk, dv, then _BWD
+    "flash_attention_bwd_dkv": [_p] * 9 + _BWD,
+    # q, k, v, dO, lse, delta, bias, dq, then _BWD
+    "flash_attention_bwd_dq": [_p] * 8 + _BWD,
+    # table, block_start, n_entries, n_blocks, grad_norm, lr, b1, 1-b1,
+    # b2, 1-b2, c1, c2, eps, wd, l2, max_norm, stream
+    "fused_adam": [_p, _p, _i, _i, _p] + [_f] * 11 + [_p],
     # q, k, v, lengths, slopes, o, dtype, B, H, S, d,
     # q strides (batch, head), k/v strides (batch, head, seq), scale, stream
     "decode_attention": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
