@@ -31,8 +31,24 @@ Phases, each fatal on failure:
    0.1, 8 steps on one seeded batch: finite losses that fall, exact
    launch counts of the flash forward, both backward kernels and fused
    Adam, step time and tokens/s under torch's default GEMM settings
-   (``--profile`` adds the device-busy share of one step); (b) the card against the CPU in fp32 with dropout
-   on: the loss of each step within 1e-4, the parameters within 4 lr.
+   (``--profile`` adds the device-busy share of one step); (b) the card
+   against the CPU in fp32 with dropout on: the loss of each step within
+   1e-4, the parameters within 4 lr;
+6. the paged slice end to end: GPT-2 125M served from a paged pool (16
+   slots on 64 pages of 128 tokens, the memory of 8 full-length rows;
+   prefix cache, prefill chunks of 256), 24 requests sharing a 256-token
+   system prompt, with the launch counters of every run exact:
+   (a) fp32, token-exact against ``generate()`` (near-tie rule);
+   (b) bf16, first tokens exact, tokens/s, decode wall ms, pool bytes
+   (``--profile``: the device time of one paged decode iteration);
+   (c) bf16 with int8 weights, token-exact against ``generate()`` over the
+   same int8 model (near-tie rule), decode wall ms (``--profile``: its
+   device time);
+   (d) bf16 with int8 weights and int8 KV pages: greedy agreement with
+   (c) >= 0.9 and one decode step's logits within 0.2 of the bf16 pool.
+   Phase 3 holds the paged-attention kernel (fp32, bf16 and int8 pages
+   over NaN-poisoned pools) and both int8 matmul kernels against their
+   plain versions first, and times them at phase 6's shapes.
 
 The line before last is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -192,6 +208,213 @@ def check_decode(dev, gen):
                 gate.case(dtype, [o[:, 0]], [ro],
                           f"d={d:3d} S={S} alibi={alibi!s:5s}", show=True)
     gate.close()
+
+
+def _paged_case(dev, gen, dtype, quant, page_len, d, lengths, B=8, H=12,
+                capacity=1024, poison=True):
+    """A page pool for ``paged_attention``: each slot owns ceil(length /
+    page_len) pages of a shuffled pool, the rest of its table row is the
+    null page 0; with ``poison`` every (page, offset) no slot may read,
+    the null page included, holds NaN (int8 pools: NaN scales). Returns
+    (q, k_new, v_new, k, v, k_scale, v_scale, table, lengths)."""
+    max_pages = capacity // page_len
+    owned = [-(-int(n) // page_len) for n in lengths]
+    num_pages = sum(owned) + 1
+    perm = torch.randperm(num_pages - 1, generator=torch.Generator()
+                          .manual_seed(len(lengths) * page_len + d)) + 1
+    table = torch.zeros(B, max_pages, dtype=torch.int32)
+    valid = torch.zeros(num_pages, page_len, dtype=torch.bool)
+    at = 0
+    for b, (n, own) in enumerate(zip(lengths, owned)):
+        pages = perm[at:at + own]
+        at += own
+        table[b, :own] = pages
+        for i, p in enumerate(pages.tolist()):
+            valid[p, :min(page_len, int(n) - i * page_len)] = True
+    shape = (num_pages, H, page_len, d)
+    mask = valid.to(dev)[:, None, :] | (not poison)   # [pages, 1, page_len]
+    q, kn, vn = (torch.randn(B, H, d, generator=gen, device=dev, dtype=dtype)
+                 for _ in range(3))
+    if quant:
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.where(mask, torch.rand(shape[:3], generator=gen,
+                                               device=dev) * 0.03, np.nan)
+                  for _ in range(2))
+    else:
+        k, v = (torch.where(mask[..., None],
+                            torch.randn(shape, generator=gen, device=dev),
+                            np.nan).to(dtype) for _ in range(2))
+        ks = vs = None
+    return (q, kn, vn, k, v, ks, vs, table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def check_paged(dev, gen):
+    """The paged kernel against its plain version over fp32, bf16 and int8
+    pages, page_len 16 and 128, d 64 and 128, ALiBi on and off, lengths 0,
+    1, ragged and a full table, with NaN in every unreadable position."""
+    from deepspeed_tpu_torch.models.layers import alibi_slopes
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_reference)
+    gate = Gate("paged")
+    lengths = [0, 1, 77, 1024, 500, 333, 1000, 128]
+    for dtype in (torch.float32, torch.bfloat16):
+        for quant in (False, True):
+            for page_len in (16, 128):
+                for d in (64, 128):
+                    for alibi in (False, True):
+                        args = _paged_case(dev, gen, dtype, quant, page_len,
+                                           d, lengths)
+                        q, kn, vn, k, v, ks, vs, table, lens = args
+                        slopes = alibi_slopes(12).to(dev) if alibi else None
+                        o = paged_attention(q, k, v, table, lens, kn, vn,
+                                            alibi_slopes=slopes, k_scale=ks,
+                                            v_scale=vs)
+                        ro = paged_attention_reference(
+                            q, k, v, table, lens, kn, vn,
+                            alibi_slopes=slopes, k_scale=ks, v_scale=vs)
+                        torch.cuda.synchronize()
+                        if not torch.equal(o[0], vn[0]):
+                            raise AssertionError("paged_attention: a slot of "
+                                                 "length 0 does not return "
+                                                 "its own value")
+                        gate.case(dtype, [o], [ro],
+                                  f"pages={'int8' if quant else 'same'} "
+                                  f"page_len={page_len:3d} d={d:3d} "
+                                  f"alibi={alibi!s:5s}",
+                                  show=page_len == 128 and not alibi)
+    gate.close()
+
+
+def check_int8(dev, gen):
+    """Both int8 kernels against the plain version over m 1, 8, 16, 256,
+    1000, the four GPT-2 125M weight shapes and fp32 and bf16 x; and the
+    summation order: rows of an m = 16 call (small-m kernel) and of an
+    m = 1 call equal the same rows of an m = 1000 call (tiled) bit for
+    bit."""
+    from deepspeed_tpu_torch.ops.wo_int8_matmul import (
+        wo_int8_matmul, wo_int8_matmul_reference)
+    gate = Gate("wo_int8")
+    for dtype in (torch.float32, torch.bfloat16):
+        for k, n in GPT2_WEIGHTS:
+            q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            scale = torch.rand(1, n, generator=gen, device=dev) * 0.01
+            x = torch.randn(1000, k, generator=gen, device=dev, dtype=dtype)
+            outs = {}
+            for m in (1, 8, 16, 256, 1000):
+                outs[m] = wo_int8_matmul(x[:m], q, scale)
+                ref = wo_int8_matmul_reference(x[:m], q, scale)
+                torch.cuda.synchronize()
+                gate.case(dtype, [outs[m]], [ref],
+                          f"k={k:4d} n={n:4d} m={m:4d}",
+                          show=m in (16, 256) and dtype == torch.bfloat16)
+            if not (torch.equal(outs[16], outs[1000][:16])
+                    and torch.equal(outs[1], outs[1000][:1])
+                    and torch.equal(outs[256][:16], outs[16])):
+                raise AssertionError(
+                    f"wo_int8_matmul k={k} n={n} {dtype}: a row's result "
+                    "depends on m (the kernels' summation orders differ)")
+    gate.close()
+    log("  wo_int8: rows of m = 1, 16, 256 and 1000 calls bit-equal (one "
+        "summation order in both kernels)")
+
+
+GPT2_WEIGHTS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def served_lengths(n, seed):
+    """Pool lengths of ``n`` slots drawn like phase 6's traffic: the
+    shared system prompt, a tail and part of the output."""
+    rs = np.random.RandomState(seed)
+    return (SYSTEM_PROMPT + rs.randint(16, 401, size=n)
+            + rs.randint(1, 65, size=n))
+
+
+def time_paged(dev, gen, quant):
+    """The paged decode shape of phase 6: 16 slots, 12 heads, d 64,
+    page_len 128, capacity 1024, bf16 compute, bf16 or int8 pages. The
+    library comparison is two calls: the page gather (an index, with the
+    dequantizing product for int8) and SDPA over the gathered rows."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_reference)
+    B, H, d, page_len, dt = 16, 12, 64, 128, torch.bfloat16
+    lengths = [int(n) for n in served_lengths(B, SEED + 6)]
+    q, kn, vn, k, v, ks, vs, table, lens = _paged_case(
+        dev, gen, dt, quant, page_len, d, lengths, B=B, poison=False)
+    kw = dict(k_scale=ks, v_scale=vs)
+    kernel = gpu_ms(lambda: paged_attention(q, k, v, table, lens, kn, vn,
+                                            **kw))
+    plain = gpu_ms(lambda: paged_attention_reference(
+        q, k, v, table, lens, kn, vn, **kw), iters=10)
+    ptab = table.long()
+    S = ptab.shape[1] * page_len
+
+    def gather(pool, scale):
+        g = pool[ptab]                                   # [B, M, H, p, d]
+        if scale is not None:
+            g = (g.float() * scale[ptab][..., None]).to(dt)
+        return g.permute(0, 2, 1, 3, 4).reshape(B, H, S, d)
+
+    kg, vg = gather(k, ks), gather(v, vs)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    qt = q[:, :, None]
+    lib_gather = gpu_ms(lambda: (gather(k, ks), gather(v, vs)))
+    lib_sdpa = gpu_ms(lambda: F.scaled_dot_product_attention(
+        qt, kg, vg, attn_mask=mask))
+    total = sum(lengths)
+    psize = k.element_size()
+    nbytes = (2 * total * H * d * psize + (2 * total * H * 4 if quant else 0)
+              + 4 * B * H * d * 2 + table.numel() * 4 + B * 4)
+    bound, by = bound_ms(4 * (total + B) * H * d, nbytes, PEAK_BF16_FLOPS)
+    err = (paged_attention(q, k, v, table, lens, kn, vn, **kw).float()
+           - paged_attention_reference(q, k, v, table, lens, kn, vn, **kw)
+           .float()).abs().max().item()
+    return dict(shape=f"B={B} H={H} d={d} page_len={page_len} bf16, "
+                f"{'int8' if quant else 'bf16'} pages, sum(lengths)={total}; "
+                f"library = gather {lib_gather:.4f} ms + SDPA "
+                f"{lib_sdpa:.4f} ms",
+                ms=kernel, plain_ms=plain, library_ms=lib_gather + lib_sdpa,
+                bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
+def time_int8(dev, gen, m):
+    """One layer's four GPT-2 125M matrices at ``m`` rows (16: a decode
+    step of phase 6's slot batch, the small-m kernel; 256: a prefill
+    chunk, the tiled kernel), bf16 x. Library: dequantize + torch.matmul;
+    also the bf16 torch.matmul with the dense weight alone."""
+    from deepspeed_tpu_torch.ops.wo_int8_matmul import (
+        wo_int8_matmul, wo_int8_matmul_reference)
+    dt = torch.bfloat16
+    mats = []
+    for k, n in GPT2_WEIGHTS:
+        q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand(1, n, generator=gen, device=dev) * 0.01
+        x = torch.randn(m, k, generator=gen, device=dev, dtype=dt)
+        mats.append((x, q, scale, (q.float() * scale).to(dt)))
+    kernel = gpu_ms(lambda: [wo_int8_matmul(x, q, s) for x, q, s, _ in mats])
+    plain = gpu_ms(lambda: [wo_int8_matmul_reference(x, q, s)
+                            for x, q, s, _ in mats], iters=10)
+    library = gpu_ms(lambda: [x @ (q.float() * s).to(dt)
+                              for x, q, s, _ in mats])
+    dense = gpu_ms(lambda: [x @ w for x, _, _, w in mats])
+    nbytes = sum(k * n + 4 * n + 2 * m * k + 2 * m * n
+                 for k, n in GPT2_WEIGHTS)
+    flops = sum(2 * m * k * n for k, n in GPT2_WEIGHTS)
+    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    err = max((wo_int8_matmul(x, q, s).float()
+               - wo_int8_matmul_reference(x, q, s).float()).abs().max().item()
+              for x, q, s, _ in mats)
+    return dict(shape=f"m={m}, one layer's four matrices "
+                "768x2304, 768x768, 768x3072, 3072x768, bf16 x; library = "
+                f"dequantize + matmul; dense bf16 matmul {dense:.4f} ms",
+                ms=kernel, plain_ms=plain, library_ms=library,
+                dense_matmul_ms=dense, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
 
 
 def _alibi_bias(h, s, dev):
@@ -909,6 +1132,252 @@ def phase_train_parity():
 
 
 # --------------------------------------------------------------------------
+# phase 6: paged serving with a prefix cache, chunked prefill, int8 KV pages
+# and int8 weights
+# --------------------------------------------------------------------------
+
+SYSTEM_PROMPT = 256           # tokens of the system prompt every request shares
+PAGED_CONFIG = {
+    "num_slots": 16, "max_len": 1024, "prefill_bucket": 128,
+    # 64 usable pages of 128 tokens: the memory of 8 full-length rows
+    "paging": {"page_len": 128, "prefill_chunk": 256, "num_pages": 65,
+               "max_chunks_per_iter": 1, "enable_prefix_cache": True}}
+INT8_KV_AGREE = 0.9           # the JAX package's rungs
+INT8_KV_LOGIT_ERR = 0.2
+
+
+def paged_traffic(vocab, n=24, seed=SEED):
+    """24 greedy requests: a seeded 256-token system prompt shared by all,
+    plus a 16-400-token tail each; 16-64 new tokens each."""
+    rs = np.random.RandomState(seed + 10)
+    system = rs.randint(0, vocab, size=SYSTEM_PROMPT)
+    prompts = [np.concatenate([system, rs.randint(0, vocab, size=rs.randint(
+        16, 401))]).astype(np.int32) for _ in range(n)]
+    outs = [int(rs.randint(16, 65)) for _ in range(n)]
+    return prompts, outs
+
+
+def serve_paged(engine, prompts, outs, config):
+    """Serve the traffic on the paged engine with every launch counter
+    set to 0 just before and read just after the run; checks the exact
+    counts, the prefix hits and the allocator. Returns (requests, server,
+    counts, wall seconds)."""
+    from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
+                                         paged_attention, wo_int8_matmul)
+    srv = engine.serve(config)
+    torch.cuda.synchronize()
+    flash_attention.launches = decode_attention.launches = 0
+    paged_attention.launches = 0
+    wo_int8_matmul.small_m_launches = wo_int8_matmul.tiled_launches = 0
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, max_new_tokens=o) for p, o in zip(prompts, outs)]
+    srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention": flash_attention.launches,
+              "decode_attention": decode_attention.launches,
+              "paged_attention": paged_attention.launches,
+              "wo_int8_matmul_small_m": wo_int8_matmul.small_m_launches,
+              "wo_int8_matmul": wo_int8_matmul.tiled_launches}
+    snap = srv.metrics.snapshot()
+    n_layers = engine.module.config.n_layers
+    chunks, iters = snap["prefill_chunks"], snap["decode_iterations"]
+    int8 = srv.config.weights_int8
+    want = {"flash_attention": n_layers * chunks, "decode_attention": 0,
+            "paged_attention": n_layers * iters,
+            "wo_int8_matmul_small_m": 4 * n_layers * iters if int8 else 0,
+            "wo_int8_matmul": 4 * n_layers * chunks if int8 else 0}
+    log(f"  launches over the serving run: {counts} (want {want}: "
+        f"{n_layers} layers x {iters} decode iterations, x {chunks} "
+        f"prefill chunks{'; 4 int8 matrices a layer' if int8 else ''})")
+    if counts != want:
+        raise AssertionError("the paged serving run did not go through its "
+                             "kernels the expected number of times")
+    if snap["requests_finished"] != len(prompts):
+        raise AssertionError(f"only {snap['requests_finished']} of "
+                             f"{len(prompts)} requests finished")
+    log(f"  prefix cache: {snap['prefix_lookups']} lookups, "
+        f"{snap['prefix_hits']} hits, {snap['prefix_pages_reused']} pages "
+        f"reused, {snap['prefix_pages_evicted']} evicted; "
+        f"{snap['prefill_tokens_reused']} prompt tokens reused, "
+        f"{snap['prefill_tokens_computed']} computed; peak "
+        f"{snap['concurrent_requests_peak']} concurrent requests")
+    if snap["prefix_hits"] < 1:
+        raise AssertionError("no request hit the shared system prompt")
+    srv._paged.allocator.check()
+    if srv._paged.allocator.pages_in_use != snap["prefix_nodes"]:
+        raise AssertionError("pages still held after every request ended")
+    return reqs, srv, counts, wall
+
+
+def check_against_generate(engine, reqs, prompts, outs, gap_stop, what):
+    """Every request token-exact against ``engine.generate()`` up to its
+    first near-tie step (reference top-2 logit gap < ``gap_stop``). Every
+    request is logged before a mismatch fails the phase."""
+    stops = compared = 0
+    bad = []
+    for i, (req, p, o) in enumerate(zip(reqs, prompts, outs)):
+        ref = engine.generate(p[None], max_new_tokens=o)[0, len(p):]
+        ref = ref.cpu().numpy()
+        gaps = top2_gaps(engine.module, p, ref)
+        near = np.nonzero(gaps < gap_stop)[0]
+        upto = int(near[0]) if near.size else o
+        stops += bool(near.size)
+        compared += upto
+        got = np.asarray(req.output_tokens)
+        diff = np.nonzero(got[:o] != ref[:len(got)])[0] if got.shape == (o,) \
+            else np.array([0])
+        if diff.size:
+            j = int(diff[0])
+            log(f"  {what} request {i}: first difference at step {j} of {o}"
+                f" (reference top-2 gap there {gaps[j]:.4g}, smallest gap "
+                f"before it {gaps[:j].min() if j else float('nan'):.4g}); "
+                f"compared up to {upto}")
+            if j < upto:
+                bad.append(i)
+    log(f"  {what}: {len(reqs) - len(bad)}/{len(reqs)} requests token-exact "
+        f"against generate() up to their first near-tie step (top-2 gap < "
+        f"{gap_stop}); {stops} stopped early; {compared} of {sum(outs)} "
+        "tokens compared")
+    if bad:
+        raise AssertionError(f"{what}: requests {bad} differ from generate()"
+                             " before a near tie")
+
+
+def _paged_decode_runner(srv, model, lengths):
+    """A decode iteration of the server's paged path at 16 active slots
+    with pool ``lengths`` (page-table rows cycling through the pool)."""
+    from deepspeed_tpu_torch.serving.paging.manager import \
+        _paged_decode_iter_impl
+    mgr, dev = srv._paged, srv.device
+    n, usable = srv.config.num_slots, mgr.num_pages - 1
+    table = torch.tensor([[1 + (b * mgr.max_pages + j) % usable
+                           for j in range(mgr.max_pages)] for b in range(n)],
+                         dtype=torch.int32, device=dev)
+    state = {"lengths": torch.tensor(lengths, dtype=torch.int32, device=dev),
+             "last_token": torch.randint(0, model.config.vocab_size, (n,),
+                                         device=dev),
+             "active": torch.ones(n, dtype=torch.bool, device=dev),
+             "remaining": torch.full((n,), 10 ** 6, dtype=torch.int32,
+                                     device=dev)}
+    return lambda: _paged_decode_iter_impl(model, mgr.pool, table, state,
+                                           srv._gen, -1, srv._mode, True)
+
+
+def phase_paged_fp32(model_fp32, prompts, outs):
+    from deepspeed_tpu_torch import init_inference
+    log("phase 6a: paged fp32 serving, token-exact against generate()")
+    engine = init_inference(model_fp32, dtype=torch.float32)
+    reqs, _, _, wall = serve_paged(engine, prompts, outs, PAGED_CONFIG)
+    check_against_generate(engine, reqs, prompts, outs, GAP_STOP, "6a fp32")
+    log(f"  served {sum(len(r.output_tokens) for r in reqs)} tokens in "
+        f"{wall:.3f} s")
+
+
+def phase_paged_bf16(model_bf16, prompts, outs, card, profile=False):
+    from deepspeed_tpu_torch import init_inference
+    log("phase 6b: paged bf16 serving")
+    engine = init_inference(model_bf16)
+    reqs, srv, counts, wall = serve_paged(engine, prompts, outs,
+                                          PAGED_CONFIG)
+    for i, (req, p) in enumerate(zip(reqs, prompts)):
+        ref = engine.generate(p[None], max_new_tokens=1)[0, len(p)].item()
+        if req.output_tokens[0] != ref:
+            raise AssertionError(f"request {i}: first token "
+                                 f"{req.output_tokens[0]} != generate() {ref}")
+    tokens = srv.metrics.tokens_generated
+    cfg = engine.module.config
+    contiguous = (2 * cfg.n_layers * PAGED_CONFIG["num_slots"] * cfg.n_heads
+                  * PAGED_CONFIG["max_len"] * cfg.head_dim * 2)
+    log(f"  first tokens: {len(reqs)}/{len(reqs)} exact against generate()")
+    log(f"  serving: {tokens} tokens, {srv.metrics.decode_iterations} decode "
+        f"iterations, {srv.metrics.prefill_chunks} prefill chunks, wall "
+        f"{wall:.3f} s, {tokens / wall:.1f} tokens/s [{card}]")
+    log(f"  KV pool {srv._paged.pool_bytes()} bytes for 16 slots against "
+        f"{contiguous} bytes for 16 contiguous bf16 rows of 1024")
+    run_decode = _paged_decode_runner(srv, engine.module,
+                                      served_lengths(16, SEED + 7))
+    decode = wall_ms(run_decode, iters=20)
+    log(f"  paged decode wall ms per iteration (16 slots): {decode:.3f} "
+        f"[{card}]")
+    if profile:
+        device_profile("paged decode", run_decode, decode, card)
+    return counts, decode, tokens / wall
+
+
+def phase_paged_int8_weights(model_bf16, prompts, outs, card,
+                             profile=False):
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.module_inject.module_quantize import \
+        quantized_nbytes
+    log("phase 6c: paged bf16 serving, int8 weights")
+    engine = init_inference(model_bf16, quantize_weights=True)
+    config = {**PAGED_CONFIG, "quantize": {"weights": "int8"}}
+    reqs, srv, counts, wall = serve_paged(engine, prompts, outs, config)
+    if srv.module is not engine.module:
+        raise AssertionError("the server re-quantized an int8 model")
+    nb = quantized_nbytes(engine.module)
+    log(f"  weights {nb['quantized']} bytes int8 against "
+        f"{nb['dense_equivalent']} bf16-equivalent; served "
+        f"{srv.metrics.tokens_generated} tokens in {wall:.3f} s "
+        f"({srv.metrics.tokens_generated / wall:.1f} tokens/s) [{card}]")
+    check_against_generate(engine, reqs, prompts, outs, GAP_STOP,
+                           "6c int8 weights")
+    run_decode = _paged_decode_runner(srv, engine.module,
+                                      served_lengths(16, SEED + 7))
+    decode = wall_ms(run_decode, iters=20)
+    log(f"  paged decode wall ms per iteration (16 slots, int8 weights): "
+        f"{decode:.3f} [{card}]")
+    if profile:
+        device_profile("paged decode int8 weights", run_decode, decode, card)
+    return engine, [list(r.output_tokens) for r in reqs], counts
+
+
+def decode_logit_err(model, prompt):
+    """One paged decode step's logits over an int8 pool against a pool in
+    the compute dtype, both holding the same 256 prompt tokens written
+    through the chunk scatter."""
+    from deepspeed_tpu_torch.inference.cache import (
+        gather_pages, init_page_pool, make_paged_view, scatter_chunk_pages)
+    dev = model.wte.device
+    ids = torch.tensor(prompt[None, :256], device=dev).long()
+    table = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+    table[0, :3] = torch.tensor([1, 2, 3])
+    logits = []
+    with torch.no_grad():
+        for kv_int8 in (False, True):
+            pool = init_page_pool(model, 4, 128, kv_int8=kv_int8)
+            row = gather_pages(pool, table, dequant_dtype=model.config.dtype)
+            row.index = 0
+            model(ids, positions=torch.arange(256, device=dev), cache=row)
+            scatter_chunk_pages(pool, row.k[:, 0, :, :256],
+                                row.v[:, 0, :, :256], table[0, :2])
+            view = make_paged_view(pool, table,
+                                   torch.tensor([256], device=dev))
+            logits.append(model(ids[:, -1:], positions=torch.tensor(
+                [[256]], device=dev), cache=view).float())
+    return (logits[0] - logits[1]).abs().max().item()
+
+
+def phase_paged_int8_kv(engine_int8, ref_tokens, prompts, outs, card):
+    log("phase 6d: paged bf16 serving, int8 weights and int8 KV pages")
+    config = {**PAGED_CONFIG, "quantize": {"weights": "int8", "kv": "int8"}}
+    reqs, srv, counts, wall = serve_paged(engine_int8, prompts, outs, config)
+    pairs = [(a, b) for r, ref in zip(reqs, ref_tokens)
+             for a, b in zip(r.output_tokens, ref)]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    err = decode_logit_err(engine_int8.module, prompts[0])
+    log(f"  KV pool {srv._paged.pool_bytes()} bytes (int8 pages + fp32 "
+        f"scales); greedy agreement with 6c {agree:.4f} (gate >= "
+        f"{INT8_KV_AGREE}); one decode step's logit max abs err against the "
+        f"bf16 pool {err:.4f} (gate < {INT8_KV_LOGIT_ERR}); "
+        f"{srv.metrics.tokens_generated / wall:.1f} tokens/s [{card}]")
+    if agree < INT8_KV_AGREE or not err < INT8_KV_LOGIT_ERR:
+        raise AssertionError("int8 KV pages outside the bounded-error rungs")
+    return counts
+
+
+# --------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -957,12 +1426,19 @@ def main():
     check_flash_dropout(dev, gen)
     check_flash_bwd(dev, gen)
     check_fused_adam(dev, gen)
+    check_paged(dev, gen)
+    check_int8(dev, gen)
     flash_t = time_flash(dev, gen)
     decode_t = time_decode(dev, gen)
     train_t = time_flash_train(dev, gen)
     train_t["fused_adam"] = time_fused_adam(dev, gen)
+    paged_t = {"paged_attention": time_paged(dev, gen, quant=False),
+               "paged_attention_int8": time_paged(dev, gen, quant=True),
+               "wo_int8_matmul_small_m": time_int8(dev, gen, 16),
+               "wo_int8_matmul": time_int8(dev, gen, 256)}
     for name, t in (("flash_attention (serving prefill)", flash_t),
-                    ("decode_attention", decode_t), *train_t.items()):
+                    ("decode_attention", decode_t), *train_t.items(),
+                    *paged_t.items()):
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
@@ -988,6 +1464,21 @@ def main():
     set_gemm_flags((False, False, False))
     phase_train_parity()
 
+    log("phase 6: GPT-2 125M served from a paged pool (prefix cache, "
+        "chunked prefill, int8 weights, int8 KV pages)")
+    model_fp32 = GPT(dataclasses.replace(base, dtype=torch.float32),
+                     seed=SEED)
+    model_bf16 = GPT(base, seed=SEED)
+    prompts, outs = paged_traffic(base.vocab_size)
+    phase_paged_fp32(model_fp32, prompts, outs)
+    del model_fp32
+    paged_counts, _, _ = phase_paged_bf16(
+        model_bf16, prompts, outs, card, profile="--profile" in sys.argv[1:])
+    engine_int8, int8_tokens, int8_counts = phase_paged_int8_weights(
+        model_bf16, prompts, outs, card, profile="--profile" in sys.argv[1:])
+    kv_counts = phase_paged_int8_kv(engine_int8, int8_tokens, prompts, outs,
+                                    card)
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -995,6 +1486,12 @@ def main():
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq", "fused_adam"):
         train_t[name]["launches"] = train_counts[name]
+    # the paged slice's kernels: phase 3's timings at phase 6's shapes;
+    # launches of 6b (bf16 pages), 6d (int8 pages) and 6c (int8 weights)
+    paged_t["paged_attention"]["launches"] = paged_counts["paged_attention"]
+    paged_t["paged_attention_int8"]["launches"] = kv_counts["paged_attention"]
+    for name in ("wo_int8_matmul_small_m", "wo_int8_matmul"):
+        paged_t[name]["launches"] = int8_counts[name]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     kernels = []
@@ -1010,7 +1507,15 @@ def main():
             ("flash_attention_bwd_dq", train_t["flash_attention_bwd_dq"],
              csrc + "flash_attention_bwd.cu", pallas + "flash_attention.py:773"),
             ("fused_adam", train_t["fused_adam"], csrc + "fused_adam.cu",
-             pallas + "fused_adam.py:46")):
+             pallas + "fused_adam.py:46"),
+            ("paged_attention", paged_t["paged_attention"],
+             csrc + "paged_attention.cu", pallas + "paged_attention.py:169"),
+            ("paged_attention_int8", paged_t["paged_attention_int8"],
+             csrc + "paged_attention.cu", pallas + "paged_attention.py:169"),
+            ("wo_int8_matmul_small_m", paged_t["wo_int8_matmul_small_m"],
+             csrc + "wo_int8_matmul.cu", pallas + "wo_int8_matmul.py:138"),
+            ("wo_int8_matmul", paged_t["wo_int8_matmul"],
+             csrc + "wo_int8_matmul.cu", pallas + "wo_int8_matmul.py:167")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": t["launches"],

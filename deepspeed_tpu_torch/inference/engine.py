@@ -6,6 +6,8 @@ import dataclasses
 
 import torch
 
+from ..module_inject.module_quantize import (adopt_int8_layout,
+                                             quantize_for_serving)
 from ..ops._common import resolve_device
 
 
@@ -18,7 +20,11 @@ class InferenceEngine:
     dtype: compute dtype; None keeps the model's. A different dtype
         rebuilds the model with it (master weights stay fp32).
     params: optional state dict to load (e.g. ``models.convert.
-        params_from_jax``).
+        params_from_jax``, int8 ``q``/``scale`` buffers included).
+    quantize_weights: serve an int8 copy of the model (weight-only, per
+        output channel, every ``QDense`` kernel of at least
+        ``quantize_min_size`` elements; JAX engine.py:77-97); the caller's
+        model is not changed.
     device: None means CUDA (raises without a card); "cpu" runs the
         kernels' plain versions.
     """
@@ -26,12 +32,12 @@ class InferenceEngine:
     def __init__(self, model, mp_size: int = 1, dtype=None, params=None,
                  replace_with_kernel_inject: bool = False,
                  max_tokens: int = 1024, quantize_weights: bool = False,
+                 quantize_min_size: int = 4096,
                  offload_params: bool = False, device=None):
         later = {
             "mp_size > 1": (mp_size > 1, "the multi-GPU slice"),
             "replace_with_kernel_inject": (replace_with_kernel_inject,
                                            "the checkpoint-injection slice"),
-            "quantize_weights": (quantize_weights, "the int8 serving slice"),
             "offload_params": (offload_params,
                                "the offload and tiering slice"),
         }
@@ -44,10 +50,15 @@ class InferenceEngine:
         if dtype is not None and dtype != model.config.dtype:
             rebuilt = type(model)(dataclasses.replace(model.config,
                                                       dtype=dtype))
-            rebuilt.load_state_dict(model.state_dict())
+            state = model.state_dict()
+            adopt_int8_layout(rebuilt, state)
+            rebuilt.load_state_dict(state)
             model = rebuilt
         if params is not None:
+            adopt_int8_layout(model, params)
             model.load_state_dict(params)
+        if quantize_weights:
+            model = quantize_for_serving(model, min_size=quantize_min_size)
         self.module = model.to(self.device).eval().requires_grad_(False)
         self.max_tokens = max_tokens
 

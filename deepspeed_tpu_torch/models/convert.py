@@ -15,7 +15,12 @@ import torch
 def _flatten(tree, prefix, out):
     for key, val in tree.items():
         name = f"{prefix}{key}"
-        if isinstance(val, dict):
+        if key == "kernel" and isinstance(val, dict) \
+                and set(val) == {"q", "scale"}:
+            # a weight-only int8 kernel (module_quantize's {"q", "scale"}
+            # node) is the port's QDense buffers q and scale
+            out[f"{prefix}q"], out[f"{prefix}scale"] = val["q"], val["scale"]
+        elif isinstance(val, dict):
             _flatten(val, name + ".", out)
         else:
             out[name] = val
@@ -24,8 +29,10 @@ def _flatten(tree, prefix, out):
 
 def params_from_jax(tree, config) -> dict:
     """``tree``: the flax ``params`` of a JAX ``GPT`` as nested dicts of
-    numpy arrays (unboxed). Returns an fp32 state dict for
-    ``deepspeed_tpu_torch.models.gpt.GPT(config)``."""
+    numpy arrays (unboxed), int8 ``{"q", "scale"}`` kernels included.
+    Returns a state dict for ``deepspeed_tpu_torch.models.gpt.GPT(config)``:
+    fp32, except int8 ``q`` buffers (load it into a quantized model, or
+    after ``module_inject.module_quantize.adopt_int8_layout``)."""
     flat = {}
     for key, val in tree.items():
         if key == "h":   # scan-stacked: every leaf is [n_layers, ...]
@@ -39,5 +46,6 @@ def params_from_jax(tree, config) -> dict:
             _flatten(val, f"{key}.", flat)
         else:
             flat[key] = val
-    return {name: torch.from_numpy(np.array(leaf, np.float32))
-            for name, leaf in flat.items()}
+    return {name: torch.from_numpy(np.array(
+        leaf, np.int8 if name.endswith(".q") else np.float32))
+        for name, leaf in flat.items()}

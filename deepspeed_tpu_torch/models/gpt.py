@@ -3,7 +3,10 @@
 The layers are an unrolled ``nn.ModuleList`` (the JAX package's
 ``scan_layers``, remat and parameter offload have no counterpart here).
 With a ``cache`` (``inference.cache.KVCache``) the forward writes each
-layer's new K/V into it in place and advances its write index.
+layer's new K/V into it in place and advances its write index. With a
+paged view (``inference.cache.PagedView``, one token per slot) each layer
+attends over the page pool and appends its token K/V to the view's
+``tokens``; the pool itself is left for the caller to write.
 
 Attention dropout (``attn_dropout_rate``) is live in training mode only.
 The forward takes the step's seed words and gives layer ``i`` the words
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..inference.cache import PagedView
 from ..ops.dropout import fold_seed
 from .layers import Block, LayerNorm, QDense
 
@@ -69,6 +73,10 @@ class GPT(nn.Module):
     """Decoder-only LM; ``forward`` returns logits [batch, seq, vocab] in
     the compute dtype. Built on the CPU with weights drawn from ``seed``
     (the same weights on every device); move it with ``.to(device)``."""
+
+    # every matmul weight is a QDense kernel, which can hold int8 weights
+    # (module_inject.module_quantize's direct mode)
+    supports_quantized_kernels = True
 
     def __init__(self, config: GPTConfig, seed: int = 0):
         super().__init__()
@@ -132,13 +140,19 @@ class GPT(nn.Module):
             h = self.emb_ln(h)
         mask = (attention_mask[:, None, None, :].bool()
                 if attention_mask is not None else None)
+        paged = isinstance(cache, PagedView)
         for i, block in enumerate(self.h):
-            kv = (cache.k[i], cache.v[i]) if cache is not None else None
+            if paged:
+                kv, idx = cache.layer(i), None
+            elif cache is not None:
+                kv, idx = (cache.k[i], cache.v[i]), cache.index
+            else:
+                kv = idx = None
             h = block(h, mask=mask, positions=positions, kv_cache=kv,
-                      cache_index=cache.index if cache is not None else None,
+                      cache_index=idx,
                       dropout_seed=(None if dropout_seed is None
                                     else fold_seed(dropout_seed, i)))
-        if cache is not None:
+        if cache is not None and not paged:
             cache.index = cache.index + s
         h = self.ln_f(h)
         if self.lm_head is None:

@@ -7,10 +7,13 @@ these modules name for name. The cast points are the reference's: fp32
 master weights, compute in ``dtype`` (bf16 by default), LayerNorm in fp32
 then cast back, tanh-GELU. Attention is causal (decoder models only).
 
-``SelfAttention`` runs three ways: without a cache (a full forward), with
+``SelfAttention`` runs four ways: without a cache (a full forward), with
 a cache and a shared integer write position (prefill, and the classic
-equal-length decode), and with a cache and a per-row ``[B]`` position
-tensor (the serving slot batch and ragged decode, one token per row).
+equal-length decode), with a cache and a per-row ``[B]`` position
+tensor (the serving slot batch and ragged decode, one token per row), and
+with one layer of a paged view (``inference.cache.PagedLayer``: one token
+per slot attends straight over the page pool through ``paged_attention``;
+the layer hands the token's K/V back to the caller, who scatters it).
 Attention dropout (``attn_dropout_rate``) is live only in training mode
 (``module.train()``), only without a cache, and draws its keep bits from
 the counter hash with the layer's seed words (layers.py:517-565).
@@ -23,14 +26,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..inference.cache import PagedLayer
 from ..ops.decode_attention import decode_attention
+from ..ops.paged_attention import paged_attention
 from ..ops.transformer.attention import attention
+from ..ops.wo_int8_matmul import wo_int8_matmul
 
 
 class QDense(nn.Module):
     """Dense layer with the flax ``DenseGeneral`` parameter surface:
     fp32 ``kernel`` [in, out] and ``bias`` [out]; the product runs in
-    ``dtype``. (Int8 kernels come with the int8 serving slice.)"""
+    ``dtype``.
+
+    Weight-only int8 (JAX ``QDense`` :178): after ``set_int8`` the layer
+    holds buffers ``q`` int8 [in, out] and ``scale`` fp32 [1, out] in
+    place of ``kernel``, and its product is ``wo_int8_matmul`` (the int8
+    kernels on a CUDA device): no fp32 or bf16 copy of the weight exists,
+    and no per-step weight cast runs."""
 
     def __init__(self, in_features: int, features: int, use_bias=True,
                  dtype=torch.bfloat16):
@@ -38,9 +50,26 @@ class QDense(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.register_buffer("q", None)
+        self.register_buffer("scale", None)
+
+    @property
+    def quantized(self) -> bool:
+        return self.q is not None
+
+    def set_int8(self, q: torch.Tensor, scale: torch.Tensor):
+        """Switch to int8 storage: ``q`` int8 [in, out], ``scale`` fp32
+        [1, out]; the fp32 ``kernel`` is dropped."""
+        self.kernel = None
+        self.q = q.to(torch.int8)
+        self.scale = scale.to(torch.float32).reshape(1, -1)
 
     def forward(self, x):
-        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        x = x.to(self.dtype)
+        if self.q is not None:
+            y = wo_int8_matmul(x, self.q, self.scale, out_dtype=self.dtype)
+        else:
+            y = x @ self.kernel.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -81,11 +110,13 @@ class SelfAttention(nn.Module):
     def forward(self, x, mask=None, positions=None, kv_cache=None,
                 cache_index=None, dropout_seed=None):
         """x [b, s, d_model]. ``kv_cache`` is this layer's (k, v) cache
-        pair [B, H, S, head_dim], written in place; ``cache_index`` the
-        write position: an int shared by every row, or an int [B] tensor
-        (one token per row, clamped into the cache like the reference's
-        ``dynamic_update_slice``). ``dropout_seed``: this layer's (s0, s1)
-        words, needed when attention dropout is live."""
+        pair [B, H, S, head_dim], written in place, or its
+        ``PagedLayer`` (paged decode; ``cache_index`` unused);
+        ``cache_index`` the write position: an int shared by every row,
+        or an int [B] tensor (one token per row, clamped into the cache
+        like the reference's ``dynamic_update_slice``). ``dropout_seed``:
+        this layer's (s0, s1) words, needed when attention dropout is
+        live."""
         b, s, _ = x.shape
         # thirds of 3*d_model, then heads (layers.py:293-297)
         q, k, v = (t.unflatten(-1, (self.n_heads, -1))
@@ -109,6 +140,8 @@ class SelfAttention(nn.Module):
             raise NotImplementedError(
                 "an external attention mask with the KV cache comes with a "
                 "later slice of the port")
+        elif isinstance(kv_cache, PagedLayer):
+            out = self._attend_pages(q, k, v, kv_cache)
         elif s > 1:
             out = self._attend_prefix(q, k, v, positions, kv_cache,
                                       cache_index)
@@ -148,6 +181,26 @@ class SelfAttention(nn.Module):
         return attention(q, kc[:, :, :n].transpose(1, 2),
                          vc[:, :, :n].transpose(1, 2), bias=bias,
                          causal=True)
+
+    def _attend_pages(self, q, k, v, layer: PagedLayer):
+        """One token per slot straight over the page pool (layers.py
+        :333-375): the pool holds ``layer.lengths`` tokens of each slot
+        and the current token attends as ``k``/``v`` at full precision.
+        The layer appends (k, v) [B, H, d] to ``layer.tokens`` and does
+        not write the pool: the engine scatters them after the step
+        (quantized on scatter for int8 pools), so attention always sees
+        the current token unrounded."""
+        if q.shape[1] != 1:
+            raise NotImplementedError(
+                f"paged-pool decode is single-token (got chunk length "
+                f"{q.shape[1]}); chunked prefill runs through a gathered "
+                "row")
+        layer.tokens.append((k[:, 0], v[:, 0]))
+        return paged_attention(q, layer.k, layer.v, layer.page_table,
+                               layer.lengths, k, v,
+                               alibi_slopes=self.slopes if self.alibi
+                               else None, k_scale=layer.k_scale,
+                               v_scale=layer.v_scale)
 
     def _attend_token(self, q, k, v, kv_cache, idx):
         """One token per row at ``idx`` (an int, or a per-row [B] tensor

@@ -57,6 +57,13 @@ SIGNATURES = {
     # q strides (batch, head), k/v strides (batch, head, seq), scale, stream
     "decode_attention": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                          _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _f, _p],
+    # q, k_new, v_new, k pool, v pool, k scales, v scales, page table,
+    # lengths, slopes, o, dtype, page dtype, B, H, d, page_len, max_pages,
+    # q/k_new/v_new strides (slot, head), scale, stream
+    "paged_attention": [_p] * 11 + [_i] * 7 + [_ll] * 6 + [_f, _p],
+    # x, q, scale, y, partials, dtype, out dtype, m, k, n, x row stride,
+    # small, stream
+    "wo_int8_matmul": [_p] * 5 + [_i] * 5 + [_ll, _i, _p],
 }
 
 _lib: Optional[ctypes.CDLL] = None

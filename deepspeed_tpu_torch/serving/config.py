@@ -1,19 +1,55 @@
 """Serving engine configuration (counterpart of
-``deepspeed_tpu/serving/config.py`` ``ServingConfig``), contiguous slots
-only: a ``paging``, ``qos``, ``quantize``, ``fleet`` or ``speculation``
-block raises ``NotImplementedError``.
+``deepspeed_tpu/serving/config.py``: ``QuantizeConfig`` :16,
+``ServingConfig`` with its ``paged`` / ``weights_int8`` / ``kv_int8``
+flags :231-244 and the nested-dict lifting :175-187). A ``qos``,
+``fleet`` or ``speculation`` block raises ``NotImplementedError``.
 """
 
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
+from .paging.config import PagingConfig
+
 _LATER_BLOCKS = {
-    "paging": "the paged-serving slice (paged_attention)",
     "qos": "the QoS slice",
-    "quantize": "the int8 serving slice (wo_int8_matmul)",
     "fleet": "the fleet slice",
     "speculation": "the speculation slice",
 }
+
+
+@dataclass
+class QuantizeConfig:
+    """Serving quantization knobs (the ``serving.quantize`` sub-block).
+
+    ``weights``: "int8" stores every ``QDense`` kernel of at least
+    ``min_size`` elements int8 with per-output-channel scales at engine
+    build (``module_inject.module_quantize``); the matmuls read them
+    through the ``wo_int8_matmul`` kernels. ``kv``: "int8" stores the
+    paged KV pool int8 with per-token-per-head scale planes (quantized on
+    scatter, dequantized in the paged-attention kernel's page loop or on
+    gather); it requires the ``paging`` block.
+    """
+    weights: Optional[str] = None    # None | "int8"
+    kv: Optional[str] = None         # None | "int8" (paged engines only)
+    min_size: int = 4096             # smallest weight (elements) to
+                                     # quantize
+
+    def validate(self, paged: bool):
+        for field_name, val in (("weights", self.weights), ("kv", self.kv)):
+            if val not in (None, "int8"):
+                raise ValueError(
+                    f"serving.quantize.{field_name} must be null or "
+                    f"'int8', got {val!r}")
+        if self.kv is not None and not paged:
+            raise ValueError(
+                "serving.quantize.kv requires the block-paged KV cache "
+                "(serving.paging) — per-page scales live in the page "
+                "pool")
+        if self.min_size < 1:
+            raise ValueError(
+                f"serving.quantize.min_size must be >= 1, got "
+                f"{self.min_size}")
+        return self
 
 
 @dataclass
@@ -35,11 +71,22 @@ class ServingConfig:
     default_deadline_steps: Optional[int] = None
                                      # queue TTL in engine iterations
     seed: int = 0
-    paging: Any = None
+    paging: Optional[PagingConfig] = None
+                                     # block-paged KV cache (serving/paging/);
+                                     # absent or enabled=False keeps the
+                                     # contiguous slot pool
     qos: Any = None
-    quantize: Any = None
+    quantize: Optional[QuantizeConfig] = None
+                                     # int8 weights and int8 KV pages
     fleet: Any = None
     speculation: Any = None
+
+    def __post_init__(self):
+        # nested blocks arrive as dicts from a JSON or dict config
+        if isinstance(self.paging, dict):
+            self.paging = PagingConfig(**self.paging)
+        if isinstance(self.quantize, dict):
+            self.quantize = QuantizeConfig(**self.quantize)
 
     def validate(self):
         for name, slice_name in _LATER_BLOCKS.items():
@@ -68,13 +115,33 @@ class ServingConfig:
             raise ValueError(
                 f"default_deadline_steps must be >= 1 (or null), got "
                 f"{self.default_deadline_steps}")
+        if self.paging is not None:
+            self.paging.validate(self.cache_len)
+        if self.quantize is not None:
+            self.quantize.validate(self.paged)
         return self
 
     @property
+    def paged(self) -> bool:
+        """True when the block-paged KV cache is configured AND enabled."""
+        return self.paging is not None and self.paging.enabled
+
+    @property
+    def weights_int8(self) -> bool:
+        """True when serving should int8-quantize weights at build."""
+        return self.quantize is not None and self.quantize.weights == "int8"
+
+    @property
+    def kv_int8(self) -> bool:
+        """True when the paged KV pool stores int8 pages."""
+        return self.quantize is not None and self.quantize.kv == "int8"
+
+    @property
     def cache_len(self) -> int:
-        """Slot capacity. The decode kernel takes any capacity, so unlike
-        the JAX package (which rounds up to 128 for its Pallas tiling)
-        this is ``max_len`` itself."""
+        """Slot capacity. The decode and paged kernels take any capacity,
+        so unlike the JAX package (which rounds up to 128 for its Pallas
+        tiling) this is ``max_len`` itself; with paging, ``page_len``
+        must divide it."""
         return self.max_len
 
     def bucket_lengths(self) -> Tuple[int, ...]:

@@ -1,9 +1,9 @@
-"""Continuous-batching serving engine with a slot-based KV cache
-(counterpart of ``deepspeed_tpu/serving/engine.py``), contiguous slots and
-FIFO admission only.
+"""Continuous-batching serving engine (counterpart of
+``deepspeed_tpu/serving/engine.py``) over contiguous slots or a paged KV
+pool, FIFO admission, optional int8 weights and int8 KV pages.
 
-The engine owns ``num_slots`` preallocated cache rows and runs two device
-programs:
+Contiguous (no ``paging`` block): the engine owns ``num_slots``
+preallocated cache rows and runs two device programs:
 
 - ``_admit_impl``: prefill one request (right-padded to its length
   bucket) through a single-row scratch cache, copy the row into its slot,
@@ -12,6 +12,15 @@ programs:
   per-slot lengths (per-row cache index, so the decode kernel masks each
   slot to its own valid prefix), per-slot positions, per-slot eos/budget
   completion. Free slots ride along masked.
+
+Paged (``paging`` block, ``paging/manager.py``): admission gates on free
+pages (prefix-cache hits are referenced, not recomputed), prompts prefill
+in page-aligned chunks (at most ``max_chunks_per_iter`` per iteration,
+interleaved with decode), and decode attends straight over the pool
+through the paged-attention kernel (``paging.kernel`` "off": the gather
+path). ``quantize.weights: int8`` serves an int8 copy of the model
+through the ``wo_int8_matmul`` kernels; ``quantize.kv: int8`` stores the
+pool int8. QoS, speculation and the fleet come with later slices.
 
 Requests queue on the host (``scheduler.py``) and are admitted into free
 slots between decode steps. Token readback is pipelined: each dispatch
@@ -31,9 +40,13 @@ from ..inference.cache import (cache_max_len, make_row_cache,
                                set_cache_index, write_cache_row)
 from ..inference.generation import (_prefill_impl, _sample_impl,
                                     _sampling_mode, init_cache)
+from ..module_inject.module_quantize import (quantize_for_serving,
+                                             quantized_nbytes)
 from .config import ServingConfig
 from .metrics import ServingMetrics
 from .request import Request
+from .paging.manager import (PagedKVManager, _chunk_prefill_impl,
+                             _paged_decode_iter_impl)
 from .scheduler import FifoScheduler
 
 
@@ -135,6 +148,11 @@ class ServingEngine:
             raise ValueError("pass knobs either via config= or as keyword "
                              "overrides, not both")
         self.config = config.validate()
+        if self.config.weights_int8:
+            # an int8 copy (the caller's model is untouched); a model that
+            # is already int8 passes through
+            model = quantize_for_serving(
+                model, min_size=self.config.quantize.min_size)
         self.module = model
         model_max = model.config.max_seq_len
         if self.config.max_len > model_max:
@@ -150,9 +168,18 @@ class ServingEngine:
         self._eos = (self.config.eos_token_id
                      if self.config.eos_token_id is not None else -1)
         n = self.config.num_slots
-        self._cache = set_cache_index(
-            init_cache(model, n, self.config.cache_len),
-            torch.zeros(n, dtype=torch.int32))
+        self._paged = None
+        if self.config.paged:
+            # the manager owns the pool, allocator, prefix cache and page
+            # tables; no contiguous slot rows exist
+            self._paged = PagedKVManager(model, self.config)
+            self._cache = None
+            self._prefill_tasks = deque()   # (slot, req, prompt, max_new,
+                                            #  [chunk plans])
+        else:
+            self._cache = set_cache_index(
+                init_cache(model, n, self.config.cache_len),
+                torch.zeros(n, dtype=torch.int32))
         self._state = {
             "lengths": torch.zeros(n, dtype=torch.int32, device=self.device),
             "last_token": torch.zeros(n, dtype=torch.int64,
@@ -218,6 +245,13 @@ class ServingEngine:
             if req is not None and req.request_id == request_id:
                 self._state["active"][slot] = False
                 self._state["remaining"][slot] = 0
+                if self._paged is not None:
+                    # drop its unfinished prefill chunks and return its
+                    # page references (prefix-published pages live on
+                    # through the tree's own reference)
+                    self._prefill_tasks = deque(
+                        t for t in self._prefill_tasks if t[0] != slot)
+                    self._paged.release_slot(slot)
                 self._slot_req[slot] = None
                 self._free.append(slot)
                 req._cancelled(self._iteration)
@@ -253,7 +287,11 @@ class ServingEngine:
         for req in self.scheduler.expire(self._iteration):
             req._timed_out(self._iteration)
             self.metrics.on_timeout()
-        self._admit_ready()
+        if self._paged is not None:
+            self._admit_ready_paged()
+            self._run_prefill_chunks()
+        else:
+            self._admit_ready()
         dispatched = self._dispatch_decode()
         # keep at most pipeline_depth dispatches in flight; drain fully
         # when nothing new was dispatched (tail of the workload)
@@ -262,7 +300,30 @@ class ServingEngine:
             self._harvest_one()
         busy = sum(r is not None for r in self._slot_req)
         self.metrics.sample(self.scheduler.depth, busy,
-                            self.config.num_slots)
+                            self.config.num_slots,
+                            paged=(self._paged.stats()
+                                   if self._paged is not None else None))
+
+    def memory_report(self) -> dict:
+        """Resident bytes of the KV pool and of the weights (int8 against
+        their dense equivalent); paged engines add the gather-path
+        transient (0 on the kernel path), the page dtype and whether the
+        paged-attention kernel runs."""
+        if self._paged is not None:
+            kv = self._paged.pool_bytes()
+        else:
+            kv = sum(t.numel() * t.element_size()
+                     for t in (self._cache.k, self._cache.v))
+        out = {"kv_pool_resident_bytes": kv,
+               "params_bytes": quantized_nbytes(self.module)}
+        if self._paged is not None:
+            out["decode_gather_transient_bytes"] = \
+                self._paged.decode_gather_transient_bytes()
+            out["kv_page_dtype"] = (
+                "int8" if self._paged.kv_quant
+                else str(self._paged.dequant_dtype).replace("torch.", ""))
+            out["paged_kernel"] = self._paged.use_kernel
+        return out
 
     def _admit_ready(self):
         while self._free and self.scheduler.depth:
@@ -286,14 +347,112 @@ class ServingEngine:
             self.metrics.on_admit()
             self._pending.append(("admit", slot, req, _Readback(tok, done)))
 
+    # -- paged admission + chunked prefill ---------------------------------
+    def _peek_free_slot(self) -> Optional[int]:
+        """The slot the next admission takes (None when all are taken)."""
+        return self._free[0] if self._free else None
+
+    def _take_slot(self, slot: int):
+        self._free.remove(slot)
+
+    def _admit_ready_paged(self):
+        """Admit queued requests while pages cover them. Admission gates
+        on free PAGES, not free slots: a page-starved queue head stays
+        queued (order preserved) until running requests release pages or
+        the prefix cache evicts."""
+        while True:
+            req = self.scheduler.peek()
+            if req is None:
+                return
+            slot = self._peek_free_slot()
+            if slot is None:
+                return
+            prompt = req.effective_prompt()
+            max_new = req.remaining_budget()
+            shared = self._paged.try_admit(slot, prompt, max_new)
+            if shared is None:              # page-starved head
+                return
+            self.scheduler.next_request()   # actually pop it
+            self._take_slot(slot)
+            self._slot_req[slot] = req
+            req._admitted(slot, self._iteration)
+            self.metrics.on_admit(shared_tokens=shared)
+            self._prefill_tasks.append(
+                (slot, req, prompt, max_new,
+                 self._plan_chunks(prompt, shared)))
+
+    def _plan_chunks(self, prompt, shared_tokens: int):
+        """Split the non-shared prefill tail into page-aligned chunks:
+        full ``chunk_tokens`` chunks, then one tail chunk padded to the
+        smallest page multiple covering the remainder. Always at least
+        one chunk: the prefix match stops short of the last prompt token,
+        whose logits seed sampling."""
+        p_len = int(prompt.shape[0])
+        page = self._paged.page_len
+        cap = self._paged.chunk_tokens
+        chunks, start = [], shared_tokens
+        while start < p_len:
+            remaining = p_len - start
+            width = cap if remaining >= cap else -(-remaining // page) * page
+            chunks.append((start, width))
+            start += width
+        return chunks
+
+    def _run_prefill_chunks(self):
+        """Run at most ``max_chunks_per_iter`` prefill chunks this
+        iteration, FIFO across admitted-but-unprefilled requests: a long
+        prompt never stalls the decode batch by more than this many
+        chunks per decode dispatch."""
+        budget = self.config.paging.max_chunks_per_iter
+        while budget > 0 and self._prefill_tasks:
+            slot, req, prompt, max_new, chunks = self._prefill_tasks[0]
+            start, width = chunks.pop(0)
+            self._dispatch_chunk(slot, req, prompt, max_new, start, width,
+                                 is_last=not chunks)
+            if not chunks:
+                self._prefill_tasks.popleft()
+            budget -= 1
+
+    def _dispatch_chunk(self, slot: int, req, prompt, max_new: int,
+                        start: int, width: int, is_last: bool):
+        """Prefill one page-aligned chunk of one request. Mid-chunks only
+        fill pages; the last chunk also samples the first token
+        (pipelined like a contiguous admit) and publishes the prompt's
+        full pages to the prefix cache."""
+        p_len = int(prompt.shape[0])
+        real = min(start + width, p_len) - start
+        padded = np.zeros((1, width), np.int64)
+        padded[0, :real] = prompt[start:start + real]
+        ids = torch.from_numpy(padded)
+        if self.device.type == "cuda":
+            ids = ids.pin_memory().to(self.device, non_blocking=True)
+        mgr = self._paged
+        out = _chunk_prefill_impl(
+            self.module, mgr.pool, self._state, mgr.page_table[slot], ids,
+            start, p_len, slot, max_new, is_last, self._gen, self._eos,
+            self._mode)
+        self.metrics.on_prefill_chunk(real)
+        if is_last:
+            # pages below the prompt's full-page boundary are immutable
+            # from here (decode appends strictly past them): publish them
+            # for copy-free reuse by later identical prefixes
+            mgr.publish(slot, prompt)
+            self._pending.append(("admit", slot, req, _Readback(*out)))
+
     def _dispatch_decode(self) -> bool:
         if all(r is None for r in self._slot_req):
             return False
         snapshot = list(self._slot_req)
         busy = sum(r is not None for r in snapshot)
-        self._state, toks, done = _decode_iter_impl(
-            self.module, self._cache, self._state, self._gen, self._eos,
-            self._mode)
+        if self._paged is not None:
+            mgr = self._paged
+            self._state, toks, done = _paged_decode_iter_impl(
+                self.module, mgr.pool, mgr.page_table, self._state,
+                self._gen, self._eos, self._mode, mgr.use_kernel)
+        else:
+            self._state, toks, done = _decode_iter_impl(
+                self.module, self._cache, self._state, self._gen, self._eos,
+                self._mode)
         self.metrics.on_decode_dispatch(busy, self.config.num_slots)
         self._pending.append(("decode", snapshot, _Readback(toks, done)))
         self._iteration += 1
@@ -327,5 +486,9 @@ class ServingEngine:
     def _finish(self, slot: int, req: Request):
         req._finished(self._iteration)
         self.metrics.on_finish(req)
+        if self._paged is not None:
+            # return the slot's page references; prefix-published pages
+            # survive through the radix tree's own refcount
+            self._paged.release_slot(slot)
         self._slot_req[slot] = None
         self._free.append(slot)

@@ -9,6 +9,10 @@ never adds a device synchronisation.
 - queue_depth: requests waiting for a slot, sampled per iteration
 - slot_occupancy: fraction of slots holding a live request
 - throughput: generated tokens / wall seconds since the first submit
+- paged engines: prefill chunks, the prefill ledger (prompt tokens
+  computed vs reused from the prefix cache) and the page manager's
+  latest ``stats()`` (page utilisation, prefix lookups / hits / pages
+  reused / evicted)
 """
 
 import time
@@ -38,6 +42,13 @@ class ServingMetrics:
         self.prefills = 0
         self.decode_iterations = 0
         self.wasted_slot_steps = 0     # inactive slots carried through decode
+        # paged mode: the prefill ledger — computed counts prompt tokens
+        # run through chunk prefill (pad excluded), reused those served
+        # from shared prefix pages
+        self.prefill_chunks = 0
+        self.prefill_tokens_computed = 0
+        self.prefill_tokens_reused = 0
+        self.paged_stats: Optional[dict] = None   # latest manager.stats()
         self.ttft_s = deque(maxlen=HISTORY_WINDOW)
         self.ttft_steps = deque(maxlen=HISTORY_WINDOW)
         self.latency_s = deque(maxlen=HISTORY_WINDOW)
@@ -54,9 +65,14 @@ class ServingMetrics:
             self.started_at = time.perf_counter()
         self.requests_submitted += 1
 
-    def on_admit(self):
+    def on_admit(self, shared_tokens: int = 0):
         self.requests_admitted += 1
         self.prefills += 1
+        self.prefill_tokens_reused += shared_tokens
+
+    def on_prefill_chunk(self, tokens_computed: int):
+        self.prefill_chunks += 1
+        self.prefill_tokens_computed += tokens_computed
 
     def on_decode_dispatch(self, busy_slots: int, num_slots: int):
         self.decode_iterations += 1
@@ -85,7 +101,10 @@ class ServingMetrics:
         if request.latency_s is not None:
             self.latency_s.append(request.latency_s)
 
-    def sample(self, queue_depth: int, busy_slots: int, num_slots: int):
+    def sample(self, queue_depth: int, busy_slots: int, num_slots: int,
+               paged: Optional[dict] = None):
+        if paged is not None:
+            self.paged_stats = paged    # host allocator arithmetic only
         self.queue_depth_sum += queue_depth
         self.queue_depth_max = max(self.queue_depth_max, queue_depth)
         self.occupancy_sum += busy_slots / max(1, num_slots)
@@ -119,6 +138,15 @@ class ServingMetrics:
                                     if self.samples else 0.0),
             "concurrent_requests_peak": self.busy_slots_max,
         }
+        if self.prefill_chunks or self.prefill_tokens_reused:
+            total = self.prefill_tokens_computed + self.prefill_tokens_reused
+            out["prefill_chunks"] = self.prefill_chunks
+            out["prefill_tokens_computed"] = self.prefill_tokens_computed
+            out["prefill_tokens_reused"] = self.prefill_tokens_reused
+            out["prefill_recompute_skipped_frac"] = (
+                self.prefill_tokens_reused / total if total else 0.0)
+        if self.paged_stats is not None:
+            out.update(self.paged_stats)
         for name, vals in (("ttft_s", self.ttft_s),
                            ("ttft_steps", self.ttft_steps),
                            ("latency_s", self.latency_s)):

@@ -15,7 +15,8 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import init_inference
 from deepspeed_tpu_torch.models import GPT, GPTConfig
-from deepspeed_tpu_torch.ops import decode_attention, flash_attention
+from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
+                                     paged_attention, wo_int8_matmul)
 from deepspeed_tpu_torch.ops import op_builder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,12 +79,14 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_inference(model)
     assert init_inference(model, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="int8 serving slice"):
-        init_inference(model, device="cpu", quantize_weights=True)
+    with pytest.raises(NotImplementedError, match="offload"):
+        init_inference(model, device="cpu", offload_params=True)
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
     flash_attention.launches = decode_attention.launches = 0
+    paged_attention.launches = 0
+    wo_int8_matmul.small_m_launches = wo_int8_matmul.tiled_launches = 0
     model = GPT(GPTConfig(vocab_size=17, max_seq_len=32, d_model=128,
                           n_layers=2, n_heads=2, dtype=torch.float32))
     eng = init_inference(model, device="cpu")
@@ -91,8 +94,21 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     srv = eng.serve({"num_slots": 2, "max_len": 32, "prefill_bucket": 8})
     srv.submit([5, 6, 7], max_new_tokens=3)
     srv.run()
+    # a paged serve with int8 weights and int8 KV pages (the main path of
+    # the paged slice) runs every plain version and launches nothing
+    srv = eng.serve({"num_slots": 2, "max_len": 32,
+                     "paging": {"page_len": 8, "prefill_chunk": 16},
+                     "quantize": {"weights": "int8", "kv": "int8",
+                                  "min_size": 256}})
+    reqs = [srv.submit(p, max_new_tokens=3) for p in ([5, 6, 7], [1] * 20)]
+    srv.run()
+    assert all(len(r.output_tokens) == 3 for r in reqs)
+    assert srv.metrics.prefill_chunks == 3
     assert flash_attention.launches == 0
     assert decode_attention.launches == 0
+    assert paged_attention.launches == 0
+    assert wo_int8_matmul.small_m_launches == 0
+    assert wo_int8_matmul.tiled_launches == 0
 
 
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):

@@ -158,8 +158,8 @@ def test_submit_validation_and_config_refusals(models):
     assert eng.metrics.snapshot()["requests_rejected"] == 2
     with pytest.raises(ValueError, match="max_seq_len"):
         ServingEngine(model, ServingConfig(num_slots=1, max_len=256))
-    with pytest.raises(NotImplementedError, match="paged"):
-        ServingEngine(model, {"paging": {"page_len": 16}})
+    with pytest.raises(NotImplementedError, match="QoS"):
+        ServingEngine(model, {"qos": {"enabled": True}})
     cfg = ServingConfig(max_len=100, prefill_bucket=16)
     assert cfg.bucket_lengths()[-2:] == (96, 100)
     assert cfg.bucket_for(17) == 32
