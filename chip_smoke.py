@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --checks-only]
 
 Phases, each fatal on failure:
 
@@ -48,10 +48,30 @@ Phases, each fatal on failure:
    (c) >= 0.9 and one decode step's logits within 0.2 of the bf16 pool.
    Phase 3 holds the paged-attention kernel (fp32, bf16 and int8 pages
    over NaN-poisoned pools) and both int8 matmul kernels against their
-   plain versions first, and times them at phase 6's shapes.
+   plain versions first, and times them at phase 6's shapes;
+7. the sparse slice end to end: BERT-base made sparse with the BigBird-64
+   pattern (``SparseAttentionUtils``, position table extended to 4096)
+   and trained through ``initialize(...)`` -> ``train_batch`` with
+   FusedLamb: (a) bf16 on fp32 masters, attention dropout 0.1, micro 2 x
+   gas 2 sequences of 4096 tokens, 8 steps on one seeded MLM + NSP batch:
+   finite losses that fall, exact launch counts of the three block-sparse
+   kernels (12 layers x 2 microbatches a step) and the two LAMB launches
+   (one each a step), no flash or Adam launch, step time and tokens/s
+   (``--profile``: the device-busy share of one step); (b) the card
+   against the CPU in fp32 with dropout on (4 layers, 1024 tokens, 2
+   steps): the loss of each step within 1e-4, each parameter tensor
+   within 0.02 of the sum of its largest LAMB step per step. Phase 3 holds
+   the block-sparse forward, dQ and dK/dV kernels (five patterns, 256 and
+   4096 tokens, dropout off and on) and the LAMB kernels (both clip
+   sides, no clip, a zero tensor) against their plain versions first,
+   and times them at phase 7's shapes.
 
-The line before last is ``{"kernels": [...]}``, the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+``--checks-only`` stops after phase 3's checks (the quick proof that
+edited kernels build and agree; it prints no result line).
+
+The card's name and power limit come on the line before the
+``{"kernels": [...]}`` line, which is the line before last; the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -560,17 +580,21 @@ def gpt2_param_shapes():
             for p in GPT(GPT2_PRESETS["gpt2-125m"]).parameters()]
 
 
-def _adam_state(shapes, dev, gen):
+def _opt_state(shapes, dev, gen, lamb=False, zero=()):
+    """A fused Adam (or LAMB) state of random tensors; the tensors at
+    ``zero`` are 0."""
     from deepspeed_tpu_torch.ops.fused_adam import FusedAdamState
+    from deepspeed_tpu_torch.ops.fused_lamb import FusedLambState
     params = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    for i in zero:
+        params[i].zero_()
     grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
-    return FusedAdamState(params, grads)
+    return (FusedLambState if lamb else FusedAdamState)(params, grads)
 
 
 def _clone_state(st):
-    from deepspeed_tpu_torch.ops.fused_adam import FusedAdamState
-    return FusedAdamState([p.clone() for p in st.params],
-                          [g.clone() for g in st.grads])
+    return type(st)([p.clone() for p in st.params],
+                    [g.clone() for g in st.grads])
 
 
 def check_fused_adam(dev, gen):
@@ -583,14 +607,14 @@ def check_fused_adam(dev, gen):
     for label, shapes in (("sizes 1,127,128,4097,768x3072",
                            [(1,), (127,), (128,), (4097,), (768, 3072)]),
                           ("GPT-2 125M parameter list", gpt2_param_shapes())):
-        st = _adam_state(shapes, dev, gen)
+        st = _opt_state(shapes, dev, gen)
         ref = _clone_state(st)
         errs = []
         for step, norm in zip((1, 2, 3), (0.5, 2.0, 5.0)):
             gnorm = torch.tensor(norm, device=dev)
             sc = opt.scalars(step)
             fused_adam(st, sc, gnorm, 1.0)
-            _plain_adam_step(ref, sc, gnorm)
+            _plain_step(ref, sc, gnorm)
         torch.cuda.synchronize()
         for group, rgroup in ((st.params, ref.params),
                               (st.exp_avg, ref.exp_avg),
@@ -682,13 +706,13 @@ def time_fused_adam(dev, gen):
     from deepspeed_tpu_torch.ops.fused_adam import fused_adam
     from deepspeed_tpu_torch.runtime.optimizers import Adam
     shapes = gpt2_param_shapes()
-    st = _adam_state(shapes, dev, gen)
+    st = _opt_state(shapes, dev, gen)
     opt = Adam(6e-4, 0.9, 0.95, 1e-8, 0.1)
     sc = opt.scalars(1)
     gnorm = torch.tensor(2.0, device=dev)
     kernel = gpu_ms(lambda: fused_adam(st, sc, gnorm, 1.0), iters=20)
-    plain_state = _adam_state(shapes, dev, gen)
-    plain = gpu_ms(lambda: _plain_adam_step(plain_state, sc, gnorm),
+    plain_state = _opt_state(shapes, dev, gen)
+    plain = gpu_ms(lambda: _plain_step(plain_state, sc, gnorm),
                    iters=5)
     del plain_state
     lib_params = [torch.nn.Parameter(p.clone()) for p in st.params]
@@ -699,10 +723,10 @@ def time_fused_adam(dev, gen):
     library = gpu_ms(lib_opt.step, iters=20)
     n = sum(p.numel() for p in st.params)
     bound, by = bound_ms(0, 28 * n, PEAK_BF16_FLOPS)
-    check = _adam_state(shapes[-3:], dev, gen)
+    check = _opt_state(shapes[-3:], dev, gen)
     ref = _clone_state(check)
     fused_adam(check, sc, gnorm, 1.0)
-    _plain_adam_step(ref, sc, gnorm)
+    _plain_step(ref, sc, gnorm)
     err = max((a - b).abs().max().item()
               for a, b in zip(check.params, ref.params))
     return dict(shape=f"{len(shapes)} tensors, {n} fp32 params",
@@ -710,12 +734,17 @@ def time_fused_adam(dev, gen):
                 bound_ms=bound, bound_by=by, max_abs_err=err)
 
 
-def _plain_adam_step(state, sc, gnorm):
-    """The plain version over every tensor of ``state``, on the card."""
-    from deepspeed_tpu_torch.ops.fused_adam import fused_adam_reference
+def _plain_step(state, sc, gnorm):
+    """The plain Adam or LAMB version over every tensor of ``state``, on
+    the card, clipping at 1.0."""
+    from deepspeed_tpu_torch.ops.fused_adam import (FusedAdamState,
+                                                    fused_adam_reference)
+    from deepspeed_tpu_torch.ops.fused_lamb import fused_lamb_reference
+    ref = (fused_adam_reference if isinstance(state, FusedAdamState)
+           else fused_lamb_reference)
     for p, g, m, v in zip(state.params, state.grads, state.exp_avg,
                           state.exp_avg_sq):
-        fused_adam_reference(p, g, m, v, sc, gnorm, 1.0)
+        ref(p, g, m, v, sc, gnorm, 1.0)
 
 
 def time_flash(dev, gen, sq=512, d=64):
@@ -774,6 +803,244 @@ def time_decode(dev, gen, d=64):
            ).abs().max().item()
     return dict(shape=f"B={B} H={H} S={S} d={d} bf16 sum(lengths)={total}",
                 ms=kernel, plain_ms=plain, library_ms=library,
+                bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
+def bigbird_64(heads=12):
+    """The sparse slice's pattern: BigBird-base's blocks (64 tokens, 3
+    random, a 3-block window, first and last block global)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    return BigBirdSparsityConfig(num_heads=heads, block=64,
+                                 num_random_blocks=3,
+                                 num_sliding_window_blocks=3,
+                                 num_global_blocks=1)
+
+
+def sparse_configs():
+    """(name, config) of the block-sparse kernel checks, 12 heads."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, BSLongformerSparsityConfig,
+        DenseSparsityConfig, FixedSparsityConfig)
+    return [("bigbird-64", bigbird_64()),
+            ("bigbird-16", BigBirdSparsityConfig(num_heads=12, block=16)),
+            ("fixed-uni-16", FixedSparsityConfig(
+                num_heads=12, block=16, attention="unidirectional")),
+            ("longformer-16", BSLongformerSparsityConfig(num_heads=12,
+                                                         block=16)),
+            ("dense-64", DenseSparsityConfig(num_heads=12, block=64))]
+
+
+def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
+    """The three block-sparse kernels against their plain versions: every
+    config of ``sparse_configs`` at each size, fp32 and bf16, dropout off
+    and 0.1, head_dim 64 (and 128 at the smaller size). Both backward
+    versions take the kernel forward's (o, m, l)."""
+    from deepspeed_tpu_torch.ops.block_sparse_attention import (
+        block_sparse_dkv_reference, block_sparse_dq_reference,
+        block_sparse_fwd_reference, launch_dkv, launch_dq, launch_fwd)
+    from deepspeed_tpu_torch.ops.flash_attention import Dropout
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
+        device_plan
+    gates = {k: Gate(f"block_sparse {k}") for k in ("fwd", "dq", "dkv")}
+    cases = [(s, d) for s in sizes for d in ((64, 128) if s == min(sizes)
+                                             else (64,))]
+    for s, d in cases:
+        scale = 1.0 / d ** 0.5
+        for name, cfg in sparse_configs():
+            plan = device_plan(cfg, s, dev)
+            if plan is None:
+                raise AssertionError(f"{name} does not tile at S={s}")
+            for dtype in (torch.float32, torch.bfloat16):
+                for rate in (0.0, 0.1):
+                    q, k, v, do = (torch.randn(b, s, h, d, generator=gen,
+                                               device=dev, dtype=dtype)
+                                   for _ in range(4))
+                    drop = (Dropout(rate, 0x1234 + s, 0x9E3779B9, h)
+                            if rate else None)
+                    o, m, l = launch_fwd(q, k, v, plan, scale, drop)
+                    ro, rm, rl = block_sparse_fwd_reference(q, k, v, plan,
+                                                            scale, drop)
+                    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+                    dq = launch_dq(q, k, v, do, delta, m, l, plan, scale, drop)
+                    dk, dv = launch_dkv(q, k, v, do, delta, m, l, plan, scale,
+                                        drop)
+                    rdq = block_sparse_dq_reference(q, k, v, do, delta, m, l,
+                                                    plan, scale, drop)
+                    rdk, rdv = block_sparse_dkv_reference(
+                        q, k, v, do, delta, m, l, plan, scale, drop)
+                    torch.cuda.synchronize()
+                    label = (f"S={s:4d} d={d:3d} {name:13s} rate={rate} "
+                             f"({plan.plan.active_tiles} tiles, "
+                             f"{len(plan.plan.masks)} masks)")
+                    show = (s, d) == (max(sizes), 64) and \
+                        name == "bigbird-64"
+                    stats = (max(_rel_err(m, rm), _rel_err(l, rl))
+                             if dtype == torch.float32 else 0.0)
+                    gates["fwd"].case(dtype, [o], [ro], label, show, stats)
+                    gates["dq"].case(dtype, [dq], [rdq], label, show)
+                    gates["dkv"].case(dtype, [dk, dv], [rdk, rdv], label, show)
+    for g in gates.values():
+        g.close()
+
+
+@functools.lru_cache(maxsize=None)
+def bert_param_shapes():
+    """The parameter shapes of the sparse slice's BERT-base (position
+    table extended to 4096), in the port's order."""
+    import dataclasses
+    from deepspeed_tpu_torch.models import BERT_PRESETS, BertForPreTraining
+    cfg = dataclasses.replace(BERT_PRESETS["bert-base"], max_seq_len=4096)
+    return [tuple(p.shape) for p in BertForPreTraining(cfg).parameters()]
+
+
+def check_fused_lamb(dev, gen):
+    """The two LAMB kernels against the plain update, 3 steps, both sides
+    of the clip threshold, a tensor that is all zeros, and no clipping;
+    two kernel runs from the same state give the same bits."""
+    from deepspeed_tpu_torch.ops import fused_lamb
+    from deepspeed_tpu_torch.runtime.optimizers import Lamb
+    opt = Lamb(lambda t: 2e-3 * min(1.0, t / 3), 0.9, 0.999, 1e-6, 0.01)
+    for label, shapes, zero in (
+            ("sizes 1,127,128,16385,768x3072 and a zero 768",
+             [(1,), (127,), (128,), (16385,), (768, 3072), (768,)], (5,)),
+            ("BERT-base parameter list (+ a zero tensor)",
+             bert_param_shapes() + [(768,)], (len(bert_param_shapes()),))):
+        for clip in (True, False):
+            st = _opt_state(shapes, dev, gen, lamb=True, zero=zero)
+            ref, again = _clone_state(st), _clone_state(st)
+            for step, norm in zip((1, 2, 3), (0.5, 2.0, 5.0)):
+                gnorm = torch.tensor(norm, device=dev) if clip else None
+                sc = opt.scalars(step)
+                fused_lamb(st, sc, gnorm, 1.0)
+                fused_lamb(again, sc, gnorm, 1.0)
+                _plain_step(ref, sc, gnorm)
+            torch.cuda.synchronize()
+            errs = [max(_rel_err(a, b) for a, b in zip(group, rgroup))
+                    for group, rgroup in ((st.params, ref.params),
+                                          (st.exp_avg, ref.exp_avg),
+                                          (st.exp_avg_sq, ref.exp_avg_sq))]
+            same = all(torch.equal(a, b) for a, b in zip(st.params,
+                                                         again.params))
+            ok = (max(errs) <= ADAM_TOL and same
+                  and all(bool(torch.isfinite(p).all()) for p in st.params))
+            n = sum(p.numel() for p in st.params)
+            log(f"fused_lamb {label} ({len(shapes)} tensors, {n} params, 3 "
+                f"steps, {'clip 1.0 at norms 0.5/2/5' if clip else 'no clip'}"
+                f"): rel_err p={errs[0]:.2e} m={errs[1]:.2e} v={errs[2]:.2e} "
+                f"tol={ADAM_TOL:.0e}; two runs bit-equal {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("fused_lamb kernels disagree with their "
+                                     "plain version or between two runs")
+
+
+def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1):
+    """Phase 7's shape: BERT-base heads at 4096 tokens, micro batch 2, the
+    BigBird-64 pattern, attention dropout 0.1, bf16. The bound counts the
+    layout's live (q, k) pairs; the library call is SDPA with the layout's
+    dense mask, forward and backward."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.block_sparse_attention import (
+        block_sparse_dkv_reference, block_sparse_dq_reference,
+        block_sparse_fwd_reference, launch_dkv, launch_dq, launch_fwd)
+    from deepspeed_tpu_torch.ops.flash_attention import Dropout
+    from deepspeed_tpu_torch.ops.sparse_attention import layout_to_dense_mask
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
+        device_plan
+    dt, scale = torch.bfloat16, 1.0 / d ** 0.5
+    cfg = bigbird_64(h)
+    plan = device_plan(cfg, s, dev)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
+                               dtype=dt) for _ in range(4))
+    drop = Dropout(rate, 0x1234, 0x5678, h)
+    o, m, l = launch_fwd(q, k, v, plan, scale, drop)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, delta, m, l, plan, scale, drop)
+    runs = {"block_sparse_attention_fwd": (
+                lambda: launch_fwd(q, k, v, plan, scale, drop),
+                lambda: block_sparse_fwd_reference(q, k, v, plan, scale,
+                                                   drop)),
+            "block_sparse_attention_dq": (
+                lambda: launch_dq(*bwd),
+                lambda: block_sparse_dq_reference(*bwd)),
+            "block_sparse_attention_dkv": (
+                lambda: launch_dkv(*bwd),
+                lambda: block_sparse_dkv_reference(*bwd))}
+    mask = layout_to_dense_mask(cfg, s, dev)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_fwd = gpu_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, dropout_p=rate), iters=10)
+    lo = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                        dropout_p=rate)
+    dot = do.transpose(1, 2)
+    lib_bwd = gpu_ms(lambda: torch.autograd.grad(
+        lo, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    pairs = b * plan.plan.live_pairs
+    elem = q.element_size()
+    x = b * s * h * d * elem                     # one [b, s, h, d] tensor
+    rows = b * h * s * 4                         # one fp32 per row
+    # the lists as the kernels read them: the live (index, pattern id)
+    # entries of each row (not the padding), the counts, the fine masks
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    kv_lists = 8 * int(plan.plan.kv_cnt.sum()) + nb(plan.kv_cnt, plan.masks)
+    qt_lists = 8 * int(plan.plan.qt_cnt.sum()) + nb(plan.qt_cnt, plan.masks)
+    out = {}
+    for name, products, nbytes, lib in (
+            # Q K^T, P V; reads q k v and the plan, writes o m l
+            ("block_sparse_attention_fwd", 2, 4 * x + 2 * rows + kv_lists,
+             lib_fwd),
+            # S, dP, dQ; reads q k v dO delta m l and the lists, writes dq
+            ("block_sparse_attention_dq", 3, 5 * x + 3 * rows + kv_lists,
+             lib_bwd),
+            # S, dP, dV, dK; reads q k v dO delta m l and the transposed
+            # lists, writes dk dv
+            ("block_sparse_attention_dkv", 4, 6 * x + 3 * rows + qt_lists,
+             lib_bwd)):
+        kernel, plain = runs[name]
+        bound, by = bound_ms(2 * products * pairs * d, nbytes,
+                             PEAK_BF16_FLOPS)
+        got, ref = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max((a.float() - r.float()).abs().max().item()
+                  for a, r in zip(got, ref) if a.dtype == dt)
+        out[name] = dict(
+            shape=f"b={b} h={h} S={s} d={d} bf16 BigBird-64 (live pairs "
+            f"{pairs}, {100 * plan.plan.live_pairs / (h * s * s):.1f}% of "
+            f"S^2) dropout={rate}; library = SDPA with the dense layout "
+            f"mask{' (whole backward)' if name != 'block_sparse_attention_fwd' else ''}",
+            ms=gpu_ms(kernel, iters=10), plain_ms=gpu_ms(plain, iters=2),
+            library_ms=lib, bound_ms=bound, bound_by=by, max_abs_err=err)
+    return out
+
+
+def time_fused_lamb(dev, gen):
+    """One step over the sparse slice's BERT-base parameters: both kernels
+    (one launch each), and the plain per-tensor update. No PyTorch call
+    computes LAMB: no library time."""
+    from deepspeed_tpu_torch.ops import fused_lamb
+    from deepspeed_tpu_torch.runtime.optimizers import Lamb
+    shapes = bert_param_shapes()
+    st = _opt_state(shapes, dev, gen, lamb=True)
+    sc = Lamb(2e-3, 0.9, 0.999, 1e-6, 0.01).scalars(1)
+    gnorm = torch.tensor(2.0, device=dev)
+    kernel = gpu_ms(lambda: fused_lamb(st, sc, gnorm, 1.0), iters=20)
+    plain_state = _opt_state(shapes, dev, gen, lamb=True)
+    plain = gpu_ms(lambda: _plain_step(plain_state, sc, gnorm), iters=5)
+    del plain_state
+    n = sum(p.numel() for p in st.params)
+    # p, g, m, v read once, p, m, v written once
+    bound, by = bound_ms(0, 28 * n, PEAK_BF16_FLOPS)
+    check = _opt_state(shapes[:5], dev, gen, lamb=True)
+    ref = _clone_state(check)
+    fused_lamb(check, sc, gnorm, 1.0)
+    _plain_step(ref, sc, gnorm)
+    err = max((a - b).abs().max().item()
+              for a, b in zip(check.params, ref.params))
+    return dict(shape=f"{len(shapes)} tensors, {n} fp32 params, two launches "
+                "(phase 1 + apply); library: none, no PyTorch call computes "
+                "LAMB", ms=kernel, plain_ms=plain, library_ms=None,
                 bound_ms=bound, bound_by=by, max_abs_err=err)
 
 
@@ -1378,6 +1645,205 @@ def phase_paged_int8_kv(engine_int8, ref_tokens, prompts, outs, card):
 
 
 # --------------------------------------------------------------------------
+# phase 7: BERT-base pretraining with block-sparse attention and FusedLamb
+# --------------------------------------------------------------------------
+
+SPARSE_SEQ = 4096
+BERT_TRAIN_CONFIG = {
+    "train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "FusedLamb",
+                  "params": {"lr": 2e-3, "betas": [0.9, 0.999], "eps": 1e-6,
+                             "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR",
+                  "params": {"warmup_num_steps": 3, "warmup_max_lr": 2e-3}},
+    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+}
+
+
+def sparse_bert(base, seq, seed=SEED):
+    """BERT made sparse as a user does: a model built from ``base``, then
+    ``replace_model_self_attention_with_sparse_self_attention`` (the
+    position table extended to ``seq`` rows, the BigBird-64 pattern);
+    returns (model, config)."""
+    from deepspeed_tpu_torch.models import BertForPreTraining
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseAttentionUtils
+    dense = BertForPreTraining(base, seed=seed)
+    cfg, state = SparseAttentionUtils.\
+        replace_model_self_attention_with_sparse_self_attention(
+            base, dense.state_dict(), seq, bigbird_64(base.n_heads))
+    model = BertForPreTraining(cfg, seed=seed)
+    model.load_state_dict(state)
+    return model, cfg
+
+
+def bert_batch(n, seq, vocab, seed):
+    """One seeded MLM + NSP batch: 15% of positions masked with id 103
+    ([MASK]) and labelled with the original token (-1 elsewhere), token
+    types 0 for the first half and 1 for the second, random NSP labels,
+    no attention_mask."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1000, vocab, size=(n, seq)).astype(np.int32)
+    masked = rs.rand(n, seq) < 0.15
+    labels = np.where(masked, ids, -1).astype(np.int32)
+    ids[masked] = 103
+    types = np.zeros((n, seq), np.int32)
+    types[:, seq // 2:] = 1
+    return {"input_ids": ids, "token_type_ids": types, "mlm_labels": labels,
+            "nsp_labels": rs.randint(0, 2, size=n).astype(np.int32)}
+
+
+def bert_train_loss(model, batch, rng, train):
+    """loss_fn(model, batch, rng, train): MLM + NSP cross entropy."""
+    from deepspeed_tpu_torch.models import bert_pretrain_loss
+    mlm, nsp = model(batch["input_ids"].long(),
+                     token_type_ids=batch["token_type_ids"].long(),
+                     dropout_seed=rng)
+    return bert_pretrain_loss(mlm, nsp, batch["mlm_labels"],
+                              batch["nsp_labels"])
+
+
+def phase_sparse_bert_bf16(card, profile=False, steps=8):
+    """BERT-base (12 layers, d 768) made sparse at 4096 tokens, bf16 on
+    fp32 masters, attention dropout 0.1, FusedLamb, 8 train_batch calls on
+    one seeded batch; the launch counters of exactly these steps."""
+    import dataclasses
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import BERT_PRESETS
+    from deepspeed_tpu_torch.ops import (block_sparse_attention,
+                                         flash_attention, flash_attention_bwd,
+                                         fused_adam, fused_lamb)
+    log("phase 7a: BERT-base with BigBird-64 block-sparse attention at "
+        f"{SPARSE_SEQ} tokens trained through initialize() -> train_batch "
+        f"(bf16, attention dropout 0.1, FusedLamb; GEMM flags "
+        f"{list(gemm_flags())})")
+    base = dataclasses.replace(BERT_PRESETS["bert-base"],
+                               attn_dropout_rate=0.1)
+    model, cfg = sparse_bert(base, SPARSE_SEQ)
+    engine, _, _, _ = initialize(model=model, config=BERT_TRAIN_CONFIG,
+                                 loss_fn=bert_train_loss, seed=SEED)
+    n = BERT_TRAIN_CONFIG["train_batch_size"]
+    batch = bert_batch(n, SPARSE_SEQ, cfg.vocab_size, SEED + 8)
+    torch.cuda.synchronize()
+    block_sparse_attention.fwd_launches = 0
+    block_sparse_attention.dq_launches = 0
+    block_sparse_attention.dkv_launches = 0
+    fused_lamb.phase1_launches = fused_lamb.apply_launches = 0
+    flash_attention.launches = fused_adam.launches = 0
+    flash_attention_bwd.dkv_launches = flash_attention_bwd.dq_launches = 0
+    losses, marks = [], []
+    for _ in range(steps):
+        losses.append(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    counts = {"block_sparse_attention_fwd": block_sparse_attention.fwd_launches,
+              "block_sparse_attention_dq": block_sparse_attention.dq_launches,
+              "block_sparse_attention_dkv":
+                  block_sparse_attention.dkv_launches,
+              "fused_lamb": fused_lamb.phase1_launches,
+              "fused_lamb_apply": fused_lamb.apply_launches,
+              "flash_attention": flash_attention.launches,
+              "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches,
+              "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
+              "fused_adam": fused_adam.launches}
+    per_attn = cfg.n_layers * BERT_TRAIN_CONFIG["gradient_accumulation_steps"]
+    want = {name: 0 for name in counts}
+    want.update({"block_sparse_attention_fwd": per_attn * steps,
+                 "block_sparse_attention_dq": per_attn * steps,
+                 "block_sparse_attention_dkv": per_attn * steps,
+                 "fused_lamb": steps, "fused_lamb_apply": steps})
+    log(f"  launches over the {steps} steps: {counts} (want {want}: "
+        f"{cfg.n_layers} layers x 2 microbatches x {steps} steps; two LAMB "
+        "launches a step; no flash or Adam launch)")
+    if counts != want:
+        raise AssertionError("the sparse BERT run did not go through every "
+                             "kernel of its path the expected number of "
+                             "times")
+    losses = [float(x) for x in losses]
+    log("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("sparse BERT losses are not finite or did not "
+                             "fall on the repeated batch")
+    step_ms = (marks[-1] - marks[0]) / (steps - 1) * 1e3
+    tokens = n * SPARSE_SEQ
+    log(f"  step wall {step_ms:.2f} ms (mean of steps 2-{steps}, each ending "
+        f"in a synchronize), {tokens / step_ms * 1e3:.0f} tokens/s, grad "
+        f"norm {engine.get_global_grad_norm():.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    if profile:
+        device_profile("sparse bert train step",
+                       lambda: engine.train_batch(batch), step_ms, card,
+                       iters=3, grad=True)
+    return counts, step_ms
+
+
+PARAM_TOL = 0.02    # phase 7b: of a tensor's summed largest LAMB steps
+
+
+def phase_sparse_bert_parity():
+    """The card against the CPU, fp32, attention dropout on: BERT-base
+    width, 4 layers, BigBird-64 at 1024 tokens, FusedLamb, 2 steps."""
+    import dataclasses
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import BERT_PRESETS
+    log("phase 7b: sparse BERT training, card against CPU (fp32, attention "
+        "dropout 0.1, BERT-base width, 4 layers, BigBird-64 at 1024)")
+    base = dataclasses.replace(BERT_PRESETS["bert-base"], n_layers=4,
+                               dtype=torch.float32, attn_dropout_rate=0.1)
+    lr, steps, seq = 2e-3, 2, 1024
+    config = {"train_batch_size": 2, "train_micro_batch_size_per_gpu": 1,
+              "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "FusedLamb",
+                            "params": {"lr": lr, "weight_decay": 0.01}}}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model, cfg = sparse_bert(base, seq)
+        batch = bert_batch(2, seq, cfg.vocab_size, SEED + 9)
+        engine, _, _, _ = initialize(model=model, config=config,
+                                     loss_fn=bert_train_loss, seed=SEED,
+                                     device=dev)
+        losses, moves = [], []
+        prev = {k: v.detach().cpu().clone() for k, v in
+                engine.module.state_dict().items()}
+        for _ in range(steps):
+            losses.append(float(engine.train_batch(batch)))
+            now = {k: v.detach().cpu().clone() for k, v in
+                   engine.module.state_dict().items()}
+            moves.append({k: (now[k] - prev[k]).abs().max().item()
+                          for k in now})
+            prev = now
+        runs[dev] = (losses, prev, moves)
+    loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0],
+                                              runs["cpu"][0]))
+    # A LAMB step moves element i of a tensor by lr * trust * |u_i|, with
+    # trust = |p| / |u| the tensor's trust ratio. Each tensor is held to
+    # PARAM_TOL of the sum of its largest step per step (the CPU run's
+    # steps): sound runs read 0.002 of that sum; PERF.md gives the
+    # readings of trust ratios planted 2% and 10% off.
+    worst, ratio_at, diffs = 0.0, "", []
+    for k, ref in runs["cpu"][1].items():
+        tol = PARAM_TOL * sum(m[k] for m in runs["cpu"][2])
+        d = (runs["cuda"][1][k] - ref).abs()
+        diffs.append(d.flatten())
+        r = d.max().item() / tol if tol > 0 else (0.0 if d.max() == 0
+                                                  else float("inf"))
+        if r > worst:
+            worst, ratio_at = r, k
+    diffs = torch.cat(diffs)
+    ok = loss_err <= 1e-4 and worst <= 1.0
+    log(f"  losses card {runs['cuda'][0]} cpu {runs['cpu'][0]}: max diff "
+        f"{loss_err:.3e} (tol 1e-4); parameters after {steps} steps: max "
+        f"diff {diffs.max().item():.3e}, mean {diffs.mean().item():.3e}; "
+        f"worst tensor {ratio_at} at {worst:.3f} of its tolerance "
+        f"({PARAM_TOL} x the sum of its largest LAMB step per step, lr {lr} "
+        f"x trust ratio) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sparse BERT training on the card and on the "
+                             "CPU disagree")
+
+
+# --------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -1428,6 +1894,12 @@ def main():
     check_fused_adam(dev, gen)
     check_paged(dev, gen)
     check_int8(dev, gen)
+    check_block_sparse(dev, gen)
+    check_fused_lamb(dev, gen)
+    if "--checks-only" in sys.argv[1:]:
+        log("every kernel agrees with its plain version (--checks-only: no "
+            "timings, no end-to-end phases, no result)")
+        return 0
     flash_t = time_flash(dev, gen)
     decode_t = time_decode(dev, gen)
     train_t = time_flash_train(dev, gen)
@@ -1436,12 +1908,16 @@ def main():
                "paged_attention_int8": time_paged(dev, gen, quant=True),
                "wo_int8_matmul_small_m": time_int8(dev, gen, 16),
                "wo_int8_matmul": time_int8(dev, gen, 256)}
+    sparse_t = time_block_sparse(dev, gen)
+    sparse_t["fused_lamb"] = time_fused_lamb(dev, gen)
     for name, t in (("flash_attention (serving prefill)", flash_t),
                     ("decode_attention", decode_t), *train_t.items(),
-                    *paged_t.items()):
+                    *paged_t.items(), *sparse_t.items()):
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+            f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
 
     log("phase 4: GPT-2 125M served end to end")
     base = GPT2_PRESETS["gpt2-125m"]
@@ -1478,6 +1954,16 @@ def main():
         model_bf16, prompts, outs, card, profile="--profile" in sys.argv[1:])
     kv_counts = phase_paged_int8_kv(engine_int8, int8_tokens, prompts, outs,
                                     card)
+    del engine_int8, model_bf16
+    torch.cuda.empty_cache()
+
+    log("phase 7: BERT-base pretraining with block-sparse attention and "
+        "FusedLamb")
+    set_gemm_flags(defaults)
+    sparse_counts, _ = phase_sparse_bert_bf16(
+        card, profile="--profile" in sys.argv[1:])
+    set_gemm_flags((False, False, False))
+    phase_sparse_bert_parity()
 
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
@@ -1492,8 +1978,15 @@ def main():
     paged_t["paged_attention_int8"]["launches"] = kv_counts["paged_attention"]
     for name in ("wo_int8_matmul_small_m", "wo_int8_matmul"):
         paged_t[name]["launches"] = int8_counts[name]
+    # the sparse slice's kernels: phase 3's timings at phase 7's shapes;
+    # launches of 7a
+    for name, t in sparse_t.items():
+        t["launches"] = sparse_counts[name]
+    sparse_t["fused_lamb"]["apply_launches"] = sparse_counts[
+        "fused_lamb_apply"]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
+    sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
     kernels = []
     for name, t, src, replaces in (
             ("flash_attention", flash_t, csrc + "flash_attention_fwd.cu",
@@ -1515,18 +2008,31 @@ def main():
             ("wo_int8_matmul_small_m", paged_t["wo_int8_matmul_small_m"],
              csrc + "wo_int8_matmul.cu", pallas + "wo_int8_matmul.py:138"),
             ("wo_int8_matmul", paged_t["wo_int8_matmul"],
-             csrc + "wo_int8_matmul.cu", pallas + "wo_int8_matmul.py:167")):
+             csrc + "wo_int8_matmul.cu", pallas + "wo_int8_matmul.py:167"),
+            ("block_sparse_attention_fwd",
+             sparse_t["block_sparse_attention_fwd"],
+             csrc + "block_sparse_attention.cu", sparse + ":355"),
+            ("block_sparse_attention_dq", sparse_t["block_sparse_attention_dq"],
+             csrc + "block_sparse_attention.cu", sparse + ":379"),
+            ("block_sparse_attention_dkv",
+             sparse_t["block_sparse_attention_dkv"],
+             csrc + "block_sparse_attention.cu", sparse + ":402"),
+            ("fused_lamb", sparse_t["fused_lamb"], csrc + "fused_lamb.cu",
+             pallas + "fused_lamb.py:49")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": t["launches"],
             "max_abs_err": t["max_abs_err"], "max_err": t["max_abs_err"],
-            "tol": ADAM_TOL if name == "fused_adam" else TOL[torch.bfloat16],
+            "tol": (ADAM_TOL if name in ("fused_adam", "fused_lamb")
+                    else TOL[torch.bfloat16]),
             "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": t["shape"]})
-    print(json.dumps({"kernels": kernels}))
+            "shape": t["shape"],
+            **({"apply_launches": t["apply_launches"]}
+               if "apply_launches" in t else {})})
     print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

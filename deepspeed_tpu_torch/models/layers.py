@@ -5,7 +5,18 @@ Parameter names and layouts are the flax modules' (dense ``kernel`` is
 ``[in, out]``), so ``models.convert.params_from_jax`` maps a JAX tree onto
 these modules name for name. The cast points are the reference's: fp32
 master weights, compute in ``dtype`` (bf16 by default), LayerNorm in fp32
-then cast back, tanh-GELU. Attention is causal (decoder models only).
+then cast back. ``Block`` is pre-LN (GPT) or post-LN (BERT: ``x =
+ln_1(x + attn(x)); y = ln_2(x + mlp(x))``, layers.py:695-703); ``MLP``
+takes the JAX activations (tanh-GELU by default, exact GELU for BERT,
+ReLU, SiLU). Attention is causal unless ``causal=False`` (encoders).
+
+With a ``sparsity_config`` the cache-free attention goes through
+``ops.sparse_attention.sparse_attention`` (the block-sparse kernels, or
+the dense-mask route for extra masks and untileable layouts), as
+layers.py:521-560 does; a non-prefix-stable layout (BigBird's random
+blocks) at a length other than ``sparsity_pattern_len`` takes the trained
+pattern's slice through the dense-mask route instead, never a freshly
+built random layout.
 
 ``SelfAttention`` runs four ways: without a cache (a full forward), with
 a cache and a shared integer write position (prefill, and the classic
@@ -29,8 +40,22 @@ from torch import nn
 from ..inference.cache import PagedLayer
 from ..ops.decode_attention import decode_attention
 from ..ops.paged_attention import paged_attention
+from ..ops.sparse_attention import layout_to_dense_mask, sparse_attention
 from ..ops.transformer.attention import attention
 from ..ops.wo_int8_matmul import wo_int8_matmul
+
+
+def _check_sparse_compat(sparsity_config, bias, causal):
+    """The sparse path's config refusals (layers.py:165); ``bias`` holds
+    the ALiBi bias when the layer has one."""
+    if bias is not None:
+        raise ValueError("sparse attention does not take an additive "
+                         "bias (disable alibi or sparsity_config)")
+    if causal and getattr(sparsity_config, "attention",
+                          "bidirectional") != "unidirectional":
+        raise ValueError(
+            "causal attention needs a sparsity config with "
+            "attention='unidirectional' (the layout encodes causality)")
 
 
 class QDense(nn.Module):
@@ -93,14 +118,19 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Causal fused-QKV multi-head attention with a contiguous KV cache."""
+    """Fused-QKV multi-head attention (causal by default) with a
+    contiguous or paged KV cache, or a block-sparse pattern."""
 
     def __init__(self, n_heads: int, d_model: int, dtype=torch.bfloat16,
                  use_bias: bool = True, alibi: bool = False,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, causal: bool = True,
+                 sparsity_config=None,
+                 sparsity_pattern_len: Optional[int] = None):
         super().__init__()
         self.n_heads, self.d_model, self.alibi = n_heads, d_model, alibi
-        self.dropout_rate = dropout_rate
+        self.dropout_rate, self.causal = dropout_rate, causal
+        self.sparsity_config = sparsity_config
+        self.sparsity_pattern_len = sparsity_pattern_len
         self.qkv = QDense(d_model, 3 * d_model, use_bias, dtype)
         self.out = QDense(d_model, d_model, use_bias, dtype)
         if alibi:
@@ -128,10 +158,20 @@ class SelfAttention(nn.Module):
                 q_pos = (positions if positions is not None
                          else torch.arange(s, device=x.device))
                 bias = self._alibi_bias(q_pos.expand(s), s)
-            out = attention(q, k, v, bias=bias, mask=mask, causal=True,
-                            dropout_rate=self.dropout_rate,
-                            dropout_seed=dropout_seed,
-                            deterministic=not drop)
+            if self.sparsity_config is not None:
+                out = self._attend_sparse(q, k, v, bias, mask, dropout_seed,
+                                          drop)
+            else:
+                out = attention(q, k, v, bias=bias, mask=mask,
+                                causal=self.causal,
+                                dropout_rate=self.dropout_rate,
+                                dropout_seed=dropout_seed,
+                                deterministic=not drop)
+        elif self.sparsity_config is not None or not self.causal:
+            raise NotImplementedError(
+                "the KV cache serves causal dense attention; serving a "
+                "block-sparse or bidirectional model comes with a later "
+                "slice of the port")
         elif drop:
             raise NotImplementedError(
                 "attention dropout with the KV cache: serve the model in "
@@ -148,6 +188,28 @@ class SelfAttention(nn.Module):
         else:
             out = self._attend_token(q, k, v, kv_cache, cache_index)
         return self.out(out.reshape(b, s, self.d_model))
+
+    def _attend_sparse(self, q, k, v, bias, mask, dropout_seed, drop):
+        """The block-sparse pattern path (layers.py:521-560)."""
+        cfg = self.sparsity_config
+        _check_sparse_compat(cfg, bias, self.causal)
+        plen, s = self.sparsity_pattern_len, q.shape[1]
+        if plen and plen != s and not getattr(cfg, "prefix_stable", True):
+            # a random-block layout depends on the length: a forward at
+            # s != the trained length takes the TRAINED pattern's slice
+            # through dense attention (sparse_attention would build a
+            # different random layout at s)
+            pinned = layout_to_dense_mask(cfg, plen, q.device)[:, :, :s, :s]
+            if mask is not None:
+                pinned = pinned & mask
+            return attention(q, k, v, mask=pinned,
+                             dropout_rate=self.dropout_rate,
+                             dropout_seed=dropout_seed,
+                             deterministic=not drop)
+        return sparse_attention(q, k, v, cfg, attn_mask=mask,
+                                dropout_rate=self.dropout_rate,
+                                dropout_seed=dropout_seed,
+                                deterministic=not drop)
 
     def _alibi_bias(self, q_positions, k_len):
         """[1, H, q, k_len] fp32 bias slope * (k_pos - q_pos)."""
@@ -224,43 +286,65 @@ class SelfAttention(nn.Module):
                                 else None)
 
 
+ACTIVATIONS = {
+    "gelu": lambda h: F.gelu(h, approximate="tanh"),
+    "gelu_exact": F.gelu,
+    "relu": F.relu,
+    "silu": F.silu,
+}
+
+
 class MLP(nn.Module):
-    """Transformer FFN: fc_in, tanh-GELU (layers.py:602), fc_out."""
+    """Transformer FFN: fc_in, the activation (layers.py:601-610; "gelu"
+    is tanh-GELU), fc_out."""
 
     def __init__(self, d_model: int, d_ff: int, dtype=torch.bfloat16,
-                 use_bias: bool = True):
+                 use_bias: bool = True, activation: str = "gelu"):
         super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation}")
+        self.act = ACTIVATIONS[activation]
         self.fc_in = QDense(d_model, d_ff, use_bias, dtype)
         self.fc_out = QDense(d_ff, d_model, use_bias, dtype)
 
     def forward(self, x):
-        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+        return self.fc_out(self.act(self.fc_in(x)))
 
 
 class Block(nn.Module):
-    """One pre-LN transformer layer; ``parallel_residual`` is the
-    GPT-J/NeoX form y = x + attn(ln_1(x)) + mlp(ln_2(x)) (one shared LN
-    with ``shared_parallel_ln``)."""
+    """One transformer layer: pre-LN (GPT), post-LN with ``pre_ln=False``
+    (BERT), or the GPT-J/NeoX ``parallel_residual`` form y = x +
+    attn(ln_1(x)) + mlp(ln_2(x)) (one shared LN with
+    ``shared_parallel_ln``)."""
 
     def __init__(self, n_heads: int, d_model: int, d_ff: int,
                  dtype=torch.bfloat16, use_bias: bool = True,
                  ln_epsilon: float = 1e-5, parallel_residual: bool = False,
                  shared_parallel_ln: bool = False,
                  attn_use_bias: Optional[bool] = None, alibi: bool = False,
-                 attn_dropout_rate: float = 0.0):
+                 attn_dropout_rate: float = 0.0, causal: bool = True,
+                 pre_ln: bool = True, activation: str = "gelu",
+                 sparsity_config=None,
+                 sparsity_pattern_len: Optional[int] = None):
         super().__init__()
-        self.parallel_residual = parallel_residual
+        self.parallel_residual, self.pre_ln = parallel_residual, pre_ln
         self.ln_1 = LayerNorm(d_model, ln_epsilon)
         self.ln_2 = (None if parallel_residual and shared_parallel_ln
                      else LayerNorm(d_model, ln_epsilon))
         self.attn = SelfAttention(
             n_heads, d_model, dtype,
             use_bias if attn_use_bias is None else attn_use_bias, alibi,
-            attn_dropout_rate)
-        self.mlp = MLP(d_model, d_ff, dtype, use_bias)
+            attn_dropout_rate, causal, sparsity_config, sparsity_pattern_len)
+        self.mlp = MLP(d_model, d_ff, dtype, use_bias, activation)
 
     def forward(self, x, mask=None, positions=None, kv_cache=None,
                 cache_index=None, dropout_seed=None):
+        if not (self.pre_ln or self.parallel_residual):
+            a = self.attn(x, mask=mask, positions=positions,
+                          kv_cache=kv_cache, cache_index=cache_index,
+                          dropout_seed=dropout_seed)
+            x = self.ln_1(x + a)
+            return self.ln_2(x + self.mlp(x))
         h1 = self.ln_1(x)
         a = self.attn(h1, mask=mask, positions=positions, kv_cache=kv_cache,
                       cache_index=cache_index, dropout_seed=dropout_seed)

@@ -88,41 +88,6 @@ __device__ __forceinline__ void load_row_stats(float* ls, float* dl,
   }
 }
 
-// The 4x4 blocks of S = Q K^T and dP = dO V^T owned by thread (ty, tx):
-// q rows ty + 16i of Qs/dOs, keys tx + 16j of Ks/Vs.
-template <int D>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       int ty, int tx, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < D; ++kk) {
-    float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * DP + kk];
-      ov[i] = dOs[(ty + 16 * i) * DP + kk];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * DP + kk];
-      vv[j] = Vs[(tx + 16 * j) * DP + kk];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
-  }
-}
-
 // From S and dP of thread (ty, tx) for q tile q0 and key tile k0: dS (in
 // place of s, rounded to T) and P o D (in place of dp, rounded to T).
 template <typename T, bool DROP>
@@ -211,7 +176,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     float s[4][4], dp[4][4];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    tile_scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
     ds_and_pd<T, DROP>(s, dp, ls, dl, bb, a, dr, bh, q0, k0, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -313,7 +278,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     float s[4][4], dp[4][4];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    tile_scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
     ds_and_pd<T, DROP>(s, dp, ls, dl, bb, a, dr, bh, q0, k0, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i)

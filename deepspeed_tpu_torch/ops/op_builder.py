@@ -37,6 +37,9 @@ _DROPOUT = [_i, _u, _u, _u, _f, _i, _i, _i, _i, _i]
 # dtype, b, h, sq, sk, d, then (batch, seq, head) strides of q, k, v, dO,
 # (batch, head, q) strides of the bias, scale, causal, dropout, stream
 _BWD = [_i] * 6 + [_ll] * 15 + [_f, _i] + _DROPOUT + [_p]
+_LAMB = [_p, _p, _i, _i, _p, _p] + [_f] * 10 + [_p]
+# the block-sparse dQ and dK/dV arguments after their pointers
+_SPARSE_BWD = [_i] * 6 + [_ll] * 12 + [_f, *_DROPOUT, _p]
 
 # argtypes of every C entry point; each returns cudaGetLastError() as int
 SIGNATURES = {
@@ -64,6 +67,18 @@ SIGNATURES = {
     # x, q, scale, y, partials, dtype, out dtype, m, k, n, x row stride,
     # small, stream
     "wo_int8_matmul": [_p] * 5 + [_i] * 5 + [_ll, _i, _p],
+    # q, k, v, list idx/pid/cnt, masks, o, m, l, dtype, b, h, S, d, list
+    # width, q/k/v strides (batch, seq, head), scale, dropout, stream
+    "block_sparse_attention_fwd": [_p] * 10 + [_i] * 6 + [_ll] * 9
+    + [_f, *_DROPOUT, _p],
+    # q, k, v, dO, delta, m, l, list idx/pid/cnt, masks, then dq (dk, dv),
+    # dtype, b, h, S, d, width, q/k/v/dO strides, scale, dropout, stream
+    "block_sparse_attention_dq": [_p] * 12 + _SPARSE_BWD,
+    # table, block_start, n_entries, n_blocks, grad_norm, partials, b1,
+    # 1-b1, b2, 1-b2, c1, c2, eps, wd, max_norm, -lr, stream (both passes)
+    "fused_lamb_phase1": _LAMB,
+    "fused_lamb_apply": _LAMB,
+    "block_sparse_attention_dkv": [_p] * 13 + _SPARSE_BWD,
 }
 
 _lib: Optional[ctypes.CDLL] = None

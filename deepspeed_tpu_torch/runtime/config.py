@@ -3,7 +3,8 @@
 The same JSON schema and key names: ``DeepSpeedConfig.from_dict`` reads
 the blocks this slice of the port runs (batch sizes, ``optimizer``,
 ``scheduler``, ``bf16``, ``gradient_clipping``, ``zero_optimization``
-stage 0/1, ``data_types`` fp32) and resolves the reference's batch
+stage 0/1, ``data_types`` fp32, ``sparse_attention`` stored unread as
+in the JAX package) and resolves the reference's batch
 arithmetic (train_batch_size = micro_batch * gradient_accumulation_steps
 * dp_world_size) with dp_world_size = 1: the port trains on one card.
 
@@ -119,7 +120,6 @@ LATER_SLICES = {
     "data_efficiency": (lambda b: bool(b), "the data-efficiency slice"),
     "progressive_layer_drop": (_on, "the data-efficiency slice (PLD)"),
     "eigenvalue": (_on, "the compression slice (eigenvalue)"),
-    "sparse_attention": (lambda b: bool(b), "the sparse-attention slice"),
     "flops_profiler": (_on, "the observability slice"),
     "comms_logger": (_on, "the observability slice"),
     "tensorboard": (_on, "the observability slice (monitors)"),
@@ -189,6 +189,9 @@ class DeepSpeedConfig:
     data_types: DataTypesConfig = field(default_factory=DataTypesConfig)
 
     gradient_clipping: float = 0.0
+    # stored as the JAX config does (config.py:412); nothing reads it: a
+    # model takes its pattern from its own config's sparsity_config
+    sparse_attention: Optional[Dict[str, Any]] = None
 
     _raw: Dict[str, Any] = field(default_factory=dict, repr=False)
 

@@ -12,11 +12,12 @@ A train step runs ``gradient_accumulation_steps`` microbatches; each adds
 the gradient of ``loss / gas`` into fp32 buffers that live as the
 parameters' ``.grad`` for the engine's life (the optimizer kernel's
 pointer table is built over them once). Then the global pre-clip grad
-norm, and one fused Adam launch that clips as optax's
-``clip_by_global_norm`` does (``norm < max`` keeps g, else g / norm *
-max; torch's ``clip_grad_norm_`` is a different function). The loss, the
-norm and the clip decision stay on the device: ``train_batch`` never
-waits on the card and returns the mean loss as a 0-dim device tensor.
+norm, and the fused optimizer's launches (one for Adam, two for LAMB)
+that clip as optax's ``clip_by_global_norm`` does (``norm < max`` keeps
+g, else g / norm * max; torch's ``clip_grad_norm_`` is a different
+function). The loss, the norm and the clip decision stay on the device:
+``train_batch`` never waits on the card and returns the mean loss as a
+0-dim device tensor.
 
 Attention dropout takes seed words derived from (seed, step,
 microbatch) with ``ops.dropout.fold_seed``, so a run is reproducible and
@@ -33,7 +34,7 @@ from ..ops.dropout import fold_seed, seed_words
 from .config import DeepSpeedConfig
 from .config_utils import logger
 from .lr_schedules import get_lr_schedule
-from .optimizers import Adam, build_optimizer
+from .optimizers import FusedOptimizer, build_optimizer
 
 
 class DeepSpeedEngine:
@@ -46,7 +47,8 @@ class DeepSpeedEngine:
     """
 
     def __init__(self, model: torch.nn.Module, config, *,
-                 loss_fn: Callable, optimizer: Optional[Adam] = None,
+                 loss_fn: Callable,
+                 optimizer: Optional[FusedOptimizer] = None,
                  lr_scheduler: Optional[Callable] = None, seed: int = 42,
                  device=None):
         if isinstance(config, dict):
@@ -102,11 +104,11 @@ class DeepSpeedEngine:
         else:
             self.lr_schedule = lambda step: base_lr
         if client_optimizer is not None:
-            if not isinstance(client_optimizer, Adam):
+            if not isinstance(client_optimizer, FusedOptimizer):
                 raise TypeError(
                     "optimizer must be a deepspeed_tpu_torch.runtime."
-                    "optimizers.Adam (other client optimizers come with a "
-                    "later slice of the port)")
+                    "optimizers.Adam or Lamb (other client optimizers come "
+                    "with a later slice of the port)")
             self.optimizer = client_optimizer
         else:
             opt_type = cfg.optimizer.type if cfg.optimizer else "Adam"

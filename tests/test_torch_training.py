@@ -151,7 +151,7 @@ def test_clipping_is_optax_clip_by_global_norm(scale):
 
 
 def test_later_optimizers_raise():
-    for name in ("Lamb", "OneBitAdam", "SGD", "Adagrad"):
+    for name in ("OneBitLamb", "OneBitAdam", "SGD", "Adagrad"):
         with pytest.raises(NotImplementedError, match="slice"):
             build_optimizer(name, {})
     with pytest.raises(ValueError, match="Unknown"):
