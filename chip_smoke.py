@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile | --checks-only]
+    python3 chip_smoke.py [--profile | --checks-only | --8c-only |
+                           --planted-faults]
 
 Phases, each fatal on failure:
 
 1. environment: a CUDA device, its name and power limit (nvidia-smi),
    TF32 and reduced-precision bf16 GEMM reductions switched off for
-   every phase but 5a, which runs under torch's defaults;
+   every phase but 5a, 7a, 8a and 8b, which run under torch's defaults;
 2. build: the kernels of ``deepspeed_tpu_torch/ops/csrc`` with nvcc for
    sm_90a (register and spill counts printed);
 3. kernels: every kernel of the serving and training paths against its
@@ -64,10 +65,46 @@ Phases, each fatal on failure:
    the block-sparse forward, dQ and dK/dV kernels (five patterns, 256 and
    4096 tokens, dropout off and on) and the LAMB kernels (both clip
    sides, no clip, a zero tensor) against their plain versions first,
-   and times them at phase 7's shapes.
+   and times them at phase 7's shapes;
+8. the compression slice end to end: a BERT-large stack of
+   ``DeepSpeedTransformerLayer``s (d 1024, 24 layers, 16 heads, d_ff
+   4096, pre-LN, word and position embeddings, a final LayerNorm and the
+   tied MLM decoder; ``DSBertMLM``) trained through ``initialize(...)``
+   -> ``train_batch`` with FusedLamb, bf16 on fp32 masters, attention
+   dropout 0.1 and a padding mask, 64 x 128 tokens a step (gas 1), 8
+   steps on one seeded batch: (a) 8-bit symmetric weight quantization of
+   the four matrices of every layer from step 2
+   (``compression_training``); (b) MoQ from 10 to 8 bits, period 1, on
+   every matrix (``quantize_training``). Each: finite losses, after each
+   projecting step every projected matrix holds at most 2^bits - 1
+   values per column, exact launch counts (49 LayerNorm forward and
+   backward launches and 24 of each flash kernel a microbatch, two LAMB
+   launches a step, one quantize and one dequantize per projected matrix
+   a projecting step, nothing else), step time, tokens/s and the
+   projection's device time (``--profile``: the device-busy share of a
+   step). (c) the card against the CPU in fp32 (4 layers, 4 x 128 tokens,
+   gas 2, 3 steps, both blocks on): the loss of each step within 1e-4,
+   every element of a snapped (2-D) parameter within 1e-6 except
+   elements one grid step of their column apart (an fp32 tie in x /
+   scale), at most 1e-4 of them, each 1-D parameter within 0.02 of the
+   sum of its largest LAMB step (phase 7b's rule); then the same run
+   with both blocks off as a control: losses within 1e-4, every 2-D
+   parameter within 1e-6 after each step, the 1-D rule. Phase 3
+   holds the LayerNorm kernels (rows 1-8193, widths 768-8192, fp32
+   max_rel <= 1e-5, bf16 ``Gate``, an offset row set and a constant row)
+   and the quantize / dequantize kernels and ``fake_quantize`` (bit-equal:
+   sym, asym, stochastic; bits 4/8/12; groups 1/16/1024; fp32 and bf16;
+   an all-zero group; stochastic rounding reproducible and unbiased)
+   against their plain versions first, and times them at phase 8's
+   shapes.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
+``--8c-only`` builds the kernels and runs phase 8c alone (no result).
+``--planted-faults`` runs ``--checks-only`` (four faults) or
+``--8c-only`` (two) in copies of the checkout, each with one kernel
+fault planted (``PLANTED_FAULTS``), and fails unless every copy fails;
+it prints no result line either.
 
 The card's name and power limit come on the line before the
 ``{"kernels": [...]}`` line, which is the line before last; the last line
@@ -88,6 +125,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 # max |out - ref| over max(1, max |ref|): fp32 at FMA order; bf16 at a few
 # output ulps, which catches a wrong tile or element but not a misplaced
@@ -100,6 +138,7 @@ BF16_RMS_TOL = 5e-4
 ADAM_TOL = 1e-5   # fused Adam, relative to max(1, max |ref|): FMA contraction
 GAP_STOP = 1e-3               # fp32 near-tie: stop comparing a request there
 SEED = 0
+DS_SEQ, DS_MICRO = 128, 64    # phase 8: bing_bert's seq-128 LAMB schedule
 
 
 def log(msg):
@@ -479,8 +518,9 @@ class Gate:
     Every case runs; a failing case is logged, and ``close`` raises after
     the grid with the worst reading of each metric per dtype."""
 
-    def __init__(self, what):
+    def __init__(self, what, tol=None):
         self.what, self.n, self.failed, self.worst = what, 0, 0, {}
+        self.tol = {**TOL, **(tol or {})}
 
     def case(self, dtype, outs, refs, label, show=False, extra=0.0):
         """``outs``/``refs``: the tensors to compare; ``extra``: a further
@@ -489,7 +529,7 @@ class Gate:
         rms_rel = (max(_rms_err(o, r) for o, r in zip(outs, refs))
                    if dtype == torch.bfloat16 else 0.0)
         ok = (all(bool(torch.isfinite(o).all()) for o in outs)
-              and max_rel <= TOL[dtype] and rms_rel <= BF16_RMS_TOL)
+              and max_rel <= self.tol[dtype] and rms_rel <= BF16_RMS_TOL)
         w = self.worst.setdefault(str(dtype)[6:], [0.0, 0.0])
         w[0], w[1] = max(w[0], max_rel), max(w[1], rms_rel)
         self.n += 1
@@ -504,8 +544,9 @@ class Gate:
         worst = "; ".join(f"{k} max_rel {v[0]:.3e} rms_rel {v[1]:.3e}"
                           for k, v in self.worst.items())
         log(f"  {self.what}: {self.n - self.failed}/{self.n} cases ok; worst "
-            f"{worst} (tol max_rel fp32 {TOL[torch.float32]:.0e}, bf16 "
-            f"{TOL[torch.bfloat16]:.0e}; rms_rel bf16 {BF16_RMS_TOL:.0e})")
+            f"{worst} (tol max_rel fp32 {self.tol[torch.float32]:.0e}, bf16 "
+            f"{self.tol[torch.bfloat16]:.0e}; rms_rel bf16 "
+            f"{BF16_RMS_TOL:.0e})")
         if self.failed:
             raise AssertionError(f"{self.what}: {self.failed} of {self.n} "
                                  "cases disagree with the plain version")
@@ -1042,6 +1083,241 @@ def time_fused_lamb(dev, gen):
                 "(phase 1 + apply); library: none, no PyTorch call computes "
                 "LAMB", ms=kernel, plain_ms=plain, library_ms=None,
                 bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
+LN_TOL = 1e-5        # fp32 LayerNorm kernels against their plain versions
+LN_ROWS = (1, 255, 8192, 8193)
+LN_WIDTHS = (768, 1024, 4096, 8192)
+
+
+def _ln_case(dev, gen, n, d, dtype, offset, constant=False):
+    x = (torch.randn(n, d, generator=gen, device=dev) + offset).to(dtype)
+    if constant:
+        x.fill_(3.0)                       # variance 0: rstd = 1/sqrt(eps)
+    gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(d, generator=gen, device=dev)
+    dy = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    return x, gamma, beta, dy
+
+
+def check_layernorm(dev, gen, rows=LN_ROWS, widths=LN_WIDTHS):
+    """The LayerNorm forward and backward kernels against their plain
+    versions: rows 1, 255, 8192 and 8193 (the backward's CTAs own 1 or 32-33
+    rows), widths 768-8192, fp32 (max_rel <= 1e-5) and bf16 (``Gate``),
+    half the widths with an offset of 100 (mean/std 100: a one-pass
+    variance reads ~6e-4 there, the two-pass ~2e-6), and a constant row."""
+    from deepspeed_tpu_torch.ops.layernorm import (
+        launch_bwd, launch_fwd, layer_norm_bwd_reference,
+        layer_norm_fwd_reference)
+    gates = {"fwd": Gate("layernorm_fwd", {torch.float32: LN_TOL}),
+             "bwd": Gate("layernorm_bwd", {torch.float32: LN_TOL})}
+    cases = [(n, d, 100.0 if d in (1024, 8192) else 0.0, False)
+             for n in rows for d in widths] + [(4, 1024, 0.0, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, d, offset, constant in cases:
+            x, gamma, beta, dy = _ln_case(dev, gen, n, d, dtype, offset,
+                                          constant)
+            eps = 1e-5 if constant else 1e-12
+            y, mean, rstd = launch_fwd(x, gamma, beta, eps)
+            ry, rmean, rrstd = layer_norm_fwd_reference(x, gamma, beta, eps)
+            dx, dg, db = launch_bwd(dy, x, gamma, mean, rstd)
+            rdx, rdg, rdb = layer_norm_bwd_reference(dy, x, gamma, rmean,
+                                                     rrstd)
+            torch.cuda.synchronize()
+            label = (f"rows={n:5d} d={d:5d} offset={offset:5.1f}"
+                     f"{' constant' if constant else ''}")
+            show = n == 8192 and d == 1024
+            gates["fwd"].case(dtype, [y, mean, rstd], [ry, rmean, rrstd],
+                              label, show)
+            gates["bwd"].case(dtype, [dx, dg, db], [rdx, rdg, rdb], label,
+                              show)
+    for g in gates.values():
+        g.close()
+
+
+def time_layernorm(dev, gen, n=DS_MICRO * DS_SEQ, d=1024):
+    """Phase 8's LayerNorm shape: BERT-large rows of one microbatch (64 x
+    128 tokens, d 1024), bf16 x, fp32 gamma and beta. The library call is
+    torch.nn.functional.layer_norm (forward; its autograd backward for the
+    backward row), which on the card takes gamma and beta in x's dtype.
+    Bound: bytes, each input read and each output written once (the
+    backward's partials are scratch)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.layernorm import (
+        launch_bwd, launch_fwd, layer_norm_bwd_reference,
+        layer_norm_fwd_reference)
+    dt = torch.bfloat16
+    x, gamma, beta, dy = _ln_case(dev, gen, n, d, dt, 0.0)
+    eps = 1e-12
+    y, mean, rstd = launch_fwd(x, gamma, beta, eps)
+    ry, rmean, rrstd = layer_norm_fwd_reference(x, gamma, beta, eps)
+    bwd_args = (dy, x, gamma, mean, rstd)
+    got, ref = launch_bwd(*bwd_args), layer_norm_bwd_reference(*bwd_args)
+    # torch's layer_norm takes gamma and beta in x's dtype on the card
+    xl = x.detach().requires_grad_()
+    gl, bl = (t.to(dt).requires_grad_() for t in (gamma, beta))
+    lib_fwd = gpu_ms(lambda: F.layer_norm(xl, (d,), gl, bl, eps))
+    yl = F.layer_norm(xl, (d,), gl, bl, eps)
+    lib_bwd = gpu_ms(lambda: torch.autograd.grad(yl, (xl, gl, bl), dy,
+                                                 retain_graph=True))
+    elem = x.element_size()
+    shape = (f"[{n}, {d}] bf16 x, fp32 gamma/beta (phase 8: BERT-large, 64 "
+             f"x {DS_SEQ} tokens); library = F.layer_norm with bf16 "
+             "gamma/beta")
+    out = {}
+    for name, kernel, plain, nbytes, lib, err in (
+            ("layernorm_fwd", lambda: launch_fwd(x, gamma, beta, eps),
+             lambda: layer_norm_fwd_reference(x, gamma, beta, eps),
+             # x in, y out, gamma and beta in, mean and rstd out
+             2 * n * d * elem + 8 * d + 8 * n, lib_fwd,
+             max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip((y, mean, rstd), (ry, rmean, rrstd)))),
+            ("layernorm_bwd", lambda: launch_bwd(*bwd_args),
+             lambda: layer_norm_bwd_reference(*bwd_args),
+             # dy, x in, dx out, gamma, mean, rstd in, dgamma, dbeta out
+             3 * n * d * elem + 12 * d + 8 * n, lib_bwd,
+             max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(got, ref)))):
+        bound, by = bound_ms(10 * n * d, nbytes, PEAK_FP32_FLOPS)
+        out[name] = dict(
+            shape=shape + (" backward (autograd.grad)"
+                           if name == "layernorm_bwd" else " forward"),
+            ms=gpu_ms(kernel), plain_ms=gpu_ms(plain, iters=10),
+            library_ms=lib, bound_ms=bound, bound_by=by, max_abs_err=err)
+    return out
+
+
+QUANT_BITS = (4, 8, 12)
+QUANT_GROUPS = (1, 16, 1024)
+
+
+def check_quantizer(dev, gen, shape=(1024, 1024)):
+    """quantize and dequantize against their plain versions, bit for bit
+    (codes, scales, zero points, values): symmetric, asymmetric and
+    stochastic, bits 4/8/12, groups 1/16/1024, fp32 and bf16 input, one
+    all-zero group (the scale floor); fake_quantize on the card against
+    the plain version on the CPU (per channel, a 1-D leaf; sym and asym);
+    stochastic rounding reproducible under one seed and unbiased over 64
+    seeds (mean error under 3 standard errors)."""
+    from deepspeed_tpu_torch.compression.compress import fake_quantize
+    from deepspeed_tpu_torch.ops.quantizer import (
+        _MODES, dequantize_reference, launch_dequantize, launch_quantize,
+        pallas_floor, quantize_reference)
+    n_cases, bad = 0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=gen, device=dev) * torch.rand(
+            shape[0], 1, generator=gen, device=dev) * 3
+        x[7] = 0.0
+        x = x.to(dtype)
+        for mode in ("symmetric", "asymmetric", "stochastic"):
+            for bits in QUANT_BITS:
+                for groups in QUANT_GROUPS:
+                    x2d = x.reshape(groups, -1)
+                    kw = dict(mode=_MODES[mode], bits=bits, seed=bits,
+                              scale_floor=pallas_floor(
+                                  bits, mode == "asymmetric"))
+                    got = launch_quantize(x2d, **kw)
+                    ref = quantize_reference(x2d, **kw)
+                    same = all(a is b is None or torch.equal(a, b)
+                               for a, b in zip(got, ref))
+                    dq = launch_dequantize(got[0], got[1], got[2], dtype)
+                    rdq = dequantize_reference(ref[0], ref[1], ref[2], dtype)
+                    same = same and torch.equal(dq, rdq)
+                    n_cases += 1
+                    if not same:
+                        bad.append(f"{mode} bits={bits} groups={groups} "
+                                   f"{str(dtype)[6:]}")
+    for sym in (True, False):
+        for w in (torch.randn(4096, 1024, generator=gen, device=dev) * 0.02,
+                  torch.randn(4096, generator=gen, device=dev)):
+            if w.dim() == 2:
+                w[:, 3] = 0.0
+            for bits in QUANT_BITS:
+                n_cases += 1
+                if not torch.equal(fake_quantize(w, bits, sym).cpu(),
+                                   fake_quantize(w.cpu(), bits, sym)):
+                    bad.append(f"fake_quantize {tuple(w.shape)} bits={bits} "
+                               f"{'sym' if sym else 'asym'}")
+    torch.cuda.synchronize()
+    x = torch.randn(64, 4096, generator=gen, device=dev)
+    sr = [launch_quantize(x, mode=_MODES["stochastic"], bits=8, seed=s,
+                          scale_floor=pallas_floor(8, False))
+          for s in (5, 5)]
+    again = torch.equal(sr[0][0], sr[1][0])
+    errs = torch.stack([
+        launch_dequantize(*launch_quantize(
+            x, mode=_MODES["stochastic"], bits=8, seed=s,
+            scale_floor=pallas_floor(8, False))[:2], None, torch.float32) - x
+        for s in range(64)])
+    mean = errs.mean().item()
+    stderr = errs.std().item() / errs.numel() ** 0.5
+    log(f"quantizer: {n_cases - len(bad)}/{n_cases} cases bit-equal to the "
+        f"plain versions (codes, scales, zero points, dequantized values; "
+        f"fake_quantize card vs CPU); stochastic rounding: same seed "
+        f"bit-equal {again}, mean error over 64 seeds {mean:.3e} (3 "
+        f"standard errors {3 * stderr:.3e})")
+    for b in bad:
+        log(f"  quantizer FAIL {b}")
+    if bad or not again or abs(mean) > 3 * stderr:
+        raise AssertionError("the quantizer kernels disagree with their "
+                             "plain versions, or stochastic rounding is "
+                             "not reproducible or not unbiased")
+
+
+def time_quantizer(dev, gen, shape=(4096, 1024)):
+    """Phase 8's largest projected leaf, inter_w [4096, 1024] fp32, as
+    fake_quantize runs it: per-column groups (1024 of 4096 elements, made
+    contiguous by a transpose, timed with it), 8-bit symmetric. Library:
+    none for quantize (no single PyTorch call computes absmax-scaled
+    group quantization; the fake_quantize ops take their scales as
+    inputs); for dequantize ``torch.mul(q, scales[:, None])``, which must
+    be bit-equal to the kernel. Bound: bytes."""
+    from deepspeed_tpu_torch.compression.compress import (FAKE_QUANT_FLOOR,
+                                                          fake_quantize)
+    from deepspeed_tpu_torch.ops.quantizer import (
+        _MODES, dequantize_reference, launch_dequantize, launch_quantize,
+        quantize_reference)
+    w = torch.randn(shape, generator=gen, device=dev) * 0.02
+    groups = shape[1]
+    xt = w.t().contiguous()
+    kw = dict(mode=_MODES["symmetric"], bits=8, scale_floor=FAKE_QUANT_FLOOR)
+    q, s, _ = launch_quantize(xt, **kw)
+    rq, rs_, _ = quantize_reference(xt, **kw)
+    dq = launch_dequantize(q, s, None, torch.float32)
+    library_dq = lambda: torch.mul(q, s[:, None])
+    if not torch.equal(library_dq(), dq):
+        raise AssertionError("torch.mul(q, scales[:, None]) differs from "
+                             "the dequantize kernel")
+    n = w.numel()
+    fq_ms = gpu_ms(lambda: fake_quantize(w, 8, True), iters=20)
+    transpose_ms = gpu_ms(lambda: w.t().contiguous(), iters=20)
+    common = (f"inter_w {list(shape)} fp32 as {groups} groups of "
+              f"{n // groups}, 8-bit symmetric (phase 8); fake_quantize "
+              f"whole {fq_ms:.4f} ms incl. the transpose to groups "
+              f"({transpose_ms:.4f} ms; the engine's copy of the result "
+              f"back into [out, in] is another)")
+    out = {}
+    for name, kernel, plain, library, lib_note, err in (
+            ("quantize", lambda: launch_quantize(xt, **kw),
+             lambda: quantize_reference(xt, **kw), None, "library: none",
+             max(float((q.int() - rq.int()).abs().max()),
+                 float((s - rs_).abs().max()))),
+            ("dequantize",
+             lambda: launch_dequantize(q, s, None, torch.float32),
+             lambda: dequantize_reference(q, s, None, torch.float32),
+             library_dq, "library = torch.mul(q, scales[:, None]), "
+             "bit-equal to the kernel",
+             float((dq - dequantize_reference(q, s, None, torch.float32)
+                    ).abs().max()))):
+        bound, by = bound_ms(2 * n, 5 * n + 4 * groups, PEAK_FP32_FLOPS)
+        out[name] = dict(
+            shape=f"{common}; {lib_note}", ms=gpu_ms(kernel, iters=20),
+            plain_ms=gpu_ms(plain, iters=10),
+            library_ms=None if library is None else gpu_ms(library,
+                                                           iters=20),
+            bound_ms=bound, bound_by=by, max_abs_err=err,
+            fake_quantize_ms=fq_ms)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1844,6 +2120,493 @@ def phase_sparse_bert_parity():
 
 
 # --------------------------------------------------------------------------
+# phase 8: a BERT-large stack of DeepSpeedTransformerLayers with 8-bit
+# compression-aware training and MoQ
+# --------------------------------------------------------------------------
+
+DS_BERT_CONFIG = {
+    "train_batch_size": DS_MICRO, "train_micro_batch_size_per_gpu": DS_MICRO,
+    "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "FusedLamb",
+                  "params": {"lr": 2e-3, "betas": [0.9, 0.999], "eps": 1e-6,
+                             "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR",
+                  "params": {"warmup_num_steps": 3, "warmup_max_lr": 2e-3}},
+    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+}
+DS_MATRICES = ["attn_qkvw", "attn_ow", "inter_w", "output_w"]
+COMPRESSION_8BIT = {"weight_quantization": {
+    "shared_parameters": {"enabled": True, "schedule_offset": 2},
+    "different_groups": {"wq8": {
+        "params": {"start_bits": 8, "target_bits": 8,
+                   "quantization_type": "symmetric"},
+        "modules": DS_MATRICES}}}}
+MOQ = {"enabled": True, "quantize_bits_start": 10, "quantize_bits_target": 8,
+       "quantize_period": 1, "quantize_type": "symmetric"}
+
+
+class DSBertMLM(torch.nn.Module):
+    """BERT with DeepSpeedTransformerLayers, as bing_bert builds it with the
+    fused layer and pre-LN: word and position embeddings, the layer stack,
+    a final LayerNorm (``fused_layer_norm``) and the MLM decoder tied to
+    the word embeddings. Parameters fp32, drawn on the CPU from ``seed``
+    (embeddings ~ N(0, 0.02), layer ``i`` from ``seed + 1 + i``). The
+    forward returns the MLM logits in the layers' compute dtype. The
+    JAX twin of this module is in tests/test_torch_compression.py."""
+
+    def __init__(self, config, vocab_size=30522, max_positions=512,
+                 seed=SEED):
+        from deepspeed_tpu_torch.ops.transformer import \
+            DeepSpeedTransformerLayer
+        super().__init__()
+        self.config = config
+        h = config.hidden_size
+        gen = torch.Generator().manual_seed(seed)
+        self.word_embeddings = torch.nn.Parameter(
+            torch.randn(vocab_size, h, generator=gen) * 0.02)
+        self.position_embeddings = torch.nn.Parameter(
+            torch.randn(max_positions, h, generator=gen) * 0.02)
+        self.layers = torch.nn.ModuleList(
+            DeepSpeedTransformerLayer(config, seed=seed + 1 + i)
+            for i in range(config.num_hidden_layers))
+        self.ln_f_scale = torch.nn.Parameter(torch.ones(h))
+        self.ln_f_bias = torch.nn.Parameter(torch.zeros(h))
+
+    def forward(self, input_ids, attention_mask=None, *, dropout_seed=None):
+        from deepspeed_tpu_torch.ops import fused_layer_norm
+        from deepspeed_tpu_torch.ops.dropout import fold_seed
+        s = input_ids.shape[1]
+        h = (self.word_embeddings[input_ids]
+             + self.position_embeddings[:s][None])
+        for i, layer in enumerate(self.layers):
+            h = layer(h, attention_mask,
+                      dropout_seed=(None if dropout_seed is None
+                                    else fold_seed(dropout_seed, i)))
+        h = fused_layer_norm(h, self.ln_f_scale, self.ln_f_bias,
+                             self.config.layer_norm_eps)
+        return h @ self.word_embeddings.to(h.dtype).t()
+
+
+def ds_bert_config(n_layers=None, dtype_fp16=True, attn_dropout=0.1):
+    """BERT-large's widths (``BERT_PRESETS["bert-large"]``: d 1024, 16
+    heads, d_ff 4096, 24 layers) as a DeepSpeedTransformerConfig, pre-LN,
+    eps 1e-12, attention dropout 0.1, hidden dropout 0 (it raises until
+    its slice), bf16 compute (``fp16=True``)."""
+    from deepspeed_tpu_torch.models import BERT_PRESETS
+    from deepspeed_tpu_torch.ops.transformer import \
+        DeepSpeedTransformerConfig
+    p = BERT_PRESETS["bert-large"]
+    return DeepSpeedTransformerConfig(
+        hidden_size=p.d_model, intermediate_size=p.ffn_dim, heads=p.n_heads,
+        num_hidden_layers=n_layers or p.n_layers, initializer_range=0.02,
+        attn_dropout_ratio=attn_dropout, hidden_dropout_ratio=0.0,
+        layer_norm_eps=1e-12, pre_layer_norm=True, fp16=dtype_fp16,
+        training=True)
+
+
+def mlm_batch(n, seq, vocab, seed):
+    """One seeded MLM batch with padding: row lengths in [seq - 32, seq],
+    ``attention_mask`` 1 on tokens and 0 on padding (id 0), 15% of the
+    tokens masked with id 103 ([MASK]) and labelled with the original id
+    (-1 elsewhere)."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1000, vocab, size=(n, seq)).astype(np.int32)
+    lengths = rs.randint(seq - 32, seq + 1, size=n)
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+    ids[mask == 0] = 0
+    masked = (rs.rand(n, seq) < 0.15) & (mask == 1)
+    labels = np.where(masked, ids, -1).astype(np.int32)
+    ids[masked] = 103
+    return {"input_ids": ids, "attention_mask": mask, "mlm_labels": labels}
+
+
+def mlm_loss(logits, labels):
+    """Cross entropy in fp32, averaged over the labelled positions."""
+    logits, labels = logits.float(), labels.long()
+    keep = labels != -1
+    safe = torch.where(keep, labels, 0)
+    nll = torch.logsumexp(logits, -1) - logits.gather(-1, safe[..., None])[
+        ..., 0]
+    return (nll * keep).sum() / keep.sum().clamp_min(1)
+
+
+def ds_bert_loss(model, batch, rng, train):
+    """loss_fn(model, batch, rng, train) of ``DSBertMLM``."""
+    logits = model(batch["input_ids"].long(), batch["attention_mask"],
+                   dropout_seed=rng)
+    return mlm_loss(logits, batch["mlm_labels"])
+
+
+def max_distinct_per_column(tensors):
+    """The largest number of distinct values in one column (one per-channel
+    group: the last axis) over ``tensors``; one host read."""
+    counts = []
+    for w in tensors:
+        s = w.detach().reshape(-1, w.shape[-1]).t().sort(dim=1).values
+        counts.append((1 + (s[:, 1:] != s[:, :-1]).sum(1)).max())
+    return int(torch.stack(counts).max())
+
+
+def _ds_counters():
+    from deepspeed_tpu_torch.ops import (block_sparse_attention, dequantize,
+                                         flash_attention, flash_attention_bwd,
+                                         fused_adam, fused_lamb,
+                                         fused_layer_norm, quantize,
+                                         wo_int8_matmul)
+    return {
+        "layernorm_fwd": (fused_layer_norm, "fwd_launches"),
+        "layernorm_bwd": (fused_layer_norm, "bwd_launches"),
+        "flash_attention": (flash_attention, "launches"),
+        "flash_attention_bwd_dkv": (flash_attention_bwd, "dkv_launches"),
+        "flash_attention_bwd_dq": (flash_attention_bwd, "dq_launches"),
+        "fused_lamb": (fused_lamb, "phase1_launches"),
+        "fused_lamb_apply": (fused_lamb, "apply_launches"),
+        "quantize": (quantize, "launches"),
+        "dequantize": (dequantize, "launches"),
+        "fused_adam": (fused_adam, "launches"),
+        "block_sparse_attention_fwd": (block_sparse_attention,
+                                       "fwd_launches"),
+        "block_sparse_attention_dq": (block_sparse_attention, "dq_launches"),
+        "block_sparse_attention_dkv": (block_sparse_attention,
+                                       "dkv_launches"),
+        "wo_int8_matmul": (wo_int8_matmul, "launches")}
+
+
+def reset_counters(counters):
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counters(counters):
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+
+def phase_ds_bert(card, which, profile=False, steps=8):
+    """8a (``which="compression"``) or 8b (``"moq"``): the BERT-large
+    DeepSpeedTransformerLayer stack trained through initialize() ->
+    train_batch, 64 x 128 tokens a step (gas 1), bf16 on fp32 masters,
+    attention dropout 0.1, FusedLamb, ``steps`` steps on one seeded batch;
+    after each step the projected matrices' grid (distinct values per
+    column) and at the end the exact launch counts of those steps."""
+    from deepspeed_tpu_torch import initialize
+    cfg = ds_bert_config()
+    n_layers = cfg.num_hidden_layers
+    config = dict(DS_BERT_CONFIG)
+    if which == "compression":
+        config["compression_training"] = COMPRESSION_8BIT
+    else:
+        config["quantize_training"] = MOQ
+    model = DSBertMLM(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    engine, _, _, _ = initialize(model=model, config=config,
+                                 loss_fn=ds_bert_loss, seed=SEED)
+    named = engine._named_params
+    if which == "compression":
+        watched = [p for path, p in named
+                   if any(m in path for m in DS_MATRICES)]
+        first = COMPRESSION_8BIT["weight_quantization"][
+            "shared_parameters"]["schedule_offset"]
+        bits_of = lambda step: 8
+    else:
+        watched = [p for _, p in named if p.dim() >= 2]
+        first = 1
+        bits_of = engine.moq_quantizer.bits_at
+    batch = mlm_batch(DS_MICRO, DS_SEQ, model.word_embeddings.shape[0],
+                      SEED + 10)
+    counters = _ds_counters()
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    losses, times, grid = [], [], []
+    for step in range(1, steps + 1):
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if step >= first:
+            grid.append((step, bits_of(step),
+                         max_distinct_per_column(watched)))
+    counts = read_counters(counters)
+    snapped = steps - first + 1
+    want = {name: 0 for name in counts}
+    want.update({
+        "layernorm_fwd": (2 * n_layers + 1) * steps,
+        "layernorm_bwd": (2 * n_layers + 1) * steps,
+        "flash_attention": n_layers * steps,
+        "flash_attention_bwd_dkv": n_layers * steps,
+        "flash_attention_bwd_dq": n_layers * steps,
+        "fused_lamb": steps, "fused_lamb_apply": steps,
+        "quantize": len(watched) * snapped,
+        "dequantize": len(watched) * snapped})
+    tag = "8a" if which == "compression" else "8b"
+    log(f"  {tag} launches over the {steps} steps: {counts} (want {want}: "
+        f"{2 * n_layers} + 1 LayerNorms and {n_layers} attentions a "
+        f"microbatch, two LAMB launches a step, {len(watched)} projected "
+        f"matrices a step from step {first} on; no Adam, sparse or int8 "
+        f"launch)")
+    if counts != want:
+        raise AssertionError(f"phase {tag} did not go through every kernel "
+                             "of its path the expected number of times")
+    log("  grid after each step (step, bits, largest distinct values in a "
+        "column): " + ", ".join(f"({s}, {b}, {d})" for s, b, d in grid))
+    if any(d > 2 ** b - 1 for _, b, d in grid):
+        raise AssertionError(f"phase {tag}: a projected matrix holds more "
+                             "values per column than its bit grid")
+    losses = [float(x) for x in losses]
+    log("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase {tag}: a loss is not finite")
+    step_ms = float(np.mean(times[1:])) * 1e3
+    proj = gpu_ms(engine._apply_weight_projections, iters=3)
+    log(f"  {tag}: {n_layers} layers, {n_params} parameters, step wall "
+        f"{step_ms:.2f} ms (mean of steps 2-{steps}, each ending in a "
+        f"synchronize), {DS_MICRO * DS_SEQ / step_ms * 1e3:.0f} tokens/s, "
+        f"projection {proj:.3f} ms of device time ({len(watched)} "
+        f"matrices), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    if profile:
+        device_profile(f"ds bert {which} train step",
+                       lambda: engine.train_batch(batch), step_ms, card,
+                       iters=3, grad=True)
+    return counts, step_ms, proj
+
+
+FLIP_SHARE = 1e-4     # phase 8c: elements allowed one grid step apart
+CLOSE = 1e-6          # phase 8c: parameters that no snap has moved apart
+
+
+def _ds_parity_run(dev, cfg, config, batch, steps):
+    """One 8c training run on ``dev``: the losses, the state before and
+    after each step (on the CPU) and the MoQ width of each step's snap
+    (None when MoQ is off)."""
+    from deepspeed_tpu_torch import initialize
+    engine, _, _, _ = initialize(model=DSBertMLM(cfg), config=config,
+                                 loss_fn=ds_bert_loss, seed=SEED, device=dev)
+    state = lambda: {k: v.detach().cpu().clone() for k, v in
+                     engine.module.state_dict().items()}
+    losses, states = [], [state()]
+    for _ in range(steps):
+        losses.append(float(engine.train_batch(batch)))
+        states.append(state())
+    moq = engine.moq_quantizer
+    bits = [moq.bits_at(t) if moq else None for t in range(1, steps + 1)]
+    return losses, states, bits
+
+
+def _ds_parity_reading(card, cpu, moves, bits):
+    """Card state against CPU state after one step. 1-D parameters: the
+    largest gap, the elements beyond CLOSE, and the worst tensor's gap
+    over PARAM_TOL x ``moves`` (its summed largest LAMB step). 2-D
+    parameters: the elements beyond CLOSE and, when ``bits`` is given
+    (the last snap's width), how many of them lie one grid step of their
+    column apart (a flip) and a description of each tensor with others."""
+    from deepspeed_tpu_torch.ops.quantizer import inv_qmax
+    r = dict(gap_1d=0.0, n_1d=0, ratio_1d=0.0, at_1d="", n_2d=0, gap_2d=0.0,
+             n_snapped=0, n_flip=0, n_bad=0, offenders=[])
+    for k, ref in cpu.items():
+        d = (card[k] - ref).abs()
+        if ref.dim() < 2:
+            tol = PARAM_TOL * moves[k]
+            ratio = d.max().item() / tol if tol > 0 else (
+                0.0 if d.max() == 0 else float("inf"))
+            r["gap_1d"] = max(r["gap_1d"], d.max().item())
+            r["n_1d"] += int((d > CLOSE).sum())
+            if ratio > r["ratio_1d"]:
+                r["ratio_1d"], r["at_1d"] = ratio, k
+            continue
+        r["n_snapped"] += d.numel()
+        r["n_2d"] += int((d > CLOSE).sum())
+        r["gap_2d"] = max(r["gap_2d"], d.max().item())
+        if bits is None:
+            continue
+        # the column's grid step at the last snap's width
+        col = ref.reshape(-1, ref.shape[-1]).abs().amax(0)
+        step = torch.clamp_min(col * inv_qmax(bits, False), 1e-8)
+        d2 = d.reshape(-1, ref.shape[-1])
+        far = d2 > CLOSE
+        one = (d2 - step).abs() <= CLOSE
+        r["n_flip"] += int((far & one).sum())
+        bad = far & ~one
+        if bad.any():
+            r["n_bad"] += int(bad.sum())
+            off = (d2 / step)[bad]
+            r["offenders"].append(
+                f"{k} {list(ref.shape)}: {int(bad.sum())} beyond {CLOSE}, "
+                f"max {d2[bad].max().item():.3e} ({off.min().item():.3f}-"
+                f"{off.max().item():.3f} grid steps)")
+    return r
+
+
+def phase_ds_bert_parity(devices=("cuda", "cpu"), n_layers=4):
+    """8c: the card against the CPU, fp32, no dropout: BERT-large width
+    with 4 layers, 4 x 128 tokens (micro 2, gas 2), 3 steps, trained
+    twice, with both projections on and as a control with both off.
+
+    Both runs: each step's loss within 1e-4, and after the last step
+    each 1-D parameter (biases, LayerNorm weights; never snapped) within
+    PARAM_TOL of the sum of its largest LAMB step per step (phase 7b's
+    rule; with nothing snapped one bias element already differs by
+    ~1.4e-6 after step 1, and the flips move the next steps' gradients:
+    PERF.md gives the readings). Projections on: every element of a
+    snapped (2-D) parameter within CLOSE, except elements that landed
+    one grid step of their column apart (an fp32 tie in x / scale can
+    flip), at most FLIP_SHARE of all elements. Control: every 2-D
+    parameter within CLOSE after each step. Every step's readings are
+    logged before any gate is read."""
+    log("phase 8c: DeepSpeedTransformerLayer stack with 8-bit compression "
+        f"and MoQ, card against CPU (fp32, BERT-large width, {n_layers} "
+        "layers, 4 x 128 tokens, gas 2, 3 steps), then the same with both "
+        "projections off")
+    cfg = ds_bert_config(n_layers=n_layers, dtype_fp16=False,
+                         attn_dropout=0.0)
+    steps = 3
+    comp = json.loads(json.dumps(COMPRESSION_8BIT))
+    comp["weight_quantization"]["shared_parameters"]["schedule_offset"] = 1
+    base = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+            "optimizer": {"type": "FusedLamb",
+                          "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+    batch = mlm_batch(4, DS_SEQ, 30522, SEED + 11)
+    failed = []
+    for label, config in (
+            ("projections on", {**base, "compression_training": comp,
+                                "quantize_training": MOQ}),
+            ("control, projections off", base)):
+        runs = {dev: _ds_parity_run(dev, cfg, config, batch, steps)
+                for dev in devices}
+        (card_losses, card_states, bits), (cpu_losses, cpu_states, _) = (
+            runs[devices[0]], runs[devices[1]])
+        loss_err = max(abs(a - b) for a, b in zip(card_losses, cpu_losses))
+        log(f"  {label}: losses card {card_losses} cpu {cpu_losses}: max "
+            f"diff {loss_err:.3e} (tol 1e-4)")
+        moves, readings = {}, []
+        for t in range(1, steps + 1):
+            for k, now in cpu_states[t].items():
+                moves[k] = moves.get(k, 0.0) + (
+                    now - cpu_states[t - 1][k]).abs().max().item()
+            r = _ds_parity_reading(card_states[t], cpu_states[t], moves,
+                                   bits[t - 1])
+            readings.append(r)
+            snap = (f"snap at {bits[t - 1]} bits: {r['n_flip']} one-grid-"
+                    f"step flips, {r['n_bad']} others; "
+                    if bits[t - 1] else "")
+            log(f"    after step {t}: 2-D ({r['n_snapped']} elements) "
+                f"{r['n_2d']} beyond {CLOSE}, max gap {r['gap_2d']:.3e}; "
+                f"{snap}1-D max gap {r['gap_1d']:.3e}, {r['n_1d']} elements "
+                f"beyond {CLOSE}, worst {r['at_1d']} at {r['ratio_1d']:.4f} "
+                f"of {PARAM_TOL} x its summed largest LAMB step")
+        last = readings[-1]
+        if label == "projections on":
+            for line in last["offenders"][:12]:
+                log("      " + line)
+            ok = (last["n_bad"] == 0
+                  and last["n_flip"] <= FLIP_SHARE * last["n_snapped"])
+            share = last["n_flip"] / last["n_snapped"]
+            what = (f"{last['n_flip']} flips ({share:.2e} of the snapped "
+                    f"elements; limit {FLIP_SHARE:.0e}), "
+                    f"{last['n_bad']} other snapped elements beyond {CLOSE}")
+        else:
+            worst = max(r["gap_2d"] for r in readings)
+            ok = worst <= CLOSE
+            what = (f"largest 2-D gap over the {steps} steps {worst:.3e} "
+                    f"(limit {CLOSE})")
+        ok = ok and loss_err <= 1e-4 and last["ratio_1d"] <= 1.0
+        log(f"  {label}: after {steps} steps {what}; worst 1-D tensor "
+            f"{last['at_1d']} at {last['ratio_1d']:.4f} of its limit "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+    if failed:
+        raise AssertionError("the DeepSpeedTransformerLayer stack trains "
+                             "differently on the card and on the CPU ("
+                             + ", ".join(failed) + ")")
+
+
+# --------------------------------------------------------------------------
+# planted faults: each edits a copy of the kernel sources and must fail
+# ``--checks-only`` there
+# --------------------------------------------------------------------------
+
+PLANTED_FAULTS = (
+    ("LayerNorm variance in the one-pass form E[x^2] - mean^2",
+     "layernorm.cu",
+     (("const float c = __fsub_rn(row[j], mean);", "const float c = row[j];"),
+      ("const float var = __fdiv_rn(block_sum(ss), fd);",
+       "const float var = __fsub_rn(__fdiv_rn(block_sum(ss), fd), "
+       "__fmul_rn(mean, mean));")), "--checks-only"),
+    ("the dgamma/dbeta reduction skips the last CTA's partial",
+     "layernorm.cu",
+     (("c < ctas; c += RED_WARPS", "c < ctas - 1; c += RED_WARPS"),),
+     "--checks-only"),
+    ("codes truncated instead of rounded half to even (rintf)",
+     "quantizer.cu", (("rintf(", "truncf("),), "--checks-only"),
+    ("the scale floor applied before the scaling",
+     "quantizer.cu",
+     (("fmaxf(__fmul_rn(range, inv_qmax), scale_floor)",
+       "__fmul_rn(fmaxf(range, scale_floor), inv_qmax)"),), "--checks-only"),
+    # phase 8c's own readings of faults in what its 1-D parameters go
+    # through: each must fail ``--8c-only``
+    # (the last CTA owns 8c's last row, a padding row with no gradient:
+    # the first one's row is a token)
+    ("8c: the dgamma/dbeta reduction skips the first CTA's partial",
+     "layernorm.cu",
+     (("for (int c = threadIdx.y; c < ctas; c += RED_WARPS)",
+       "for (int c = threadIdx.y == 0 ? RED_WARPS : threadIdx.y; c < ctas; "
+       "c += RED_WARPS)"),), "--8c-only"),
+    ("8c: the LAMB trust ratio 2% low", "fused_lamb.cu",
+     (("const float step = sc.neg_lr * trust;",
+       "const float step = sc.neg_lr * trust * 0.98f;"),), "--8c-only"),
+)
+
+
+def run_planted_faults():
+    """Each fault of ``PLANTED_FAULTS``: copy chip_smoke.py and the package
+    into a temporary directory, make the fault's edits to one kernel
+    source there (as ``sed`` would; each pattern must occur), run
+    ``chip_smoke.py`` with the fault's flag (``--checks-only`` or
+    ``--8c-only``) in the copy, and require it to fail. Logs each run's
+    failing gate lines (and 8c's readings)."""
+    import shutil
+    import tempfile
+    caught = 0
+    for name, src, edits, flag in PLANTED_FAULTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
+            shutil.copytree(os.path.join(REPO, "deepspeed_tpu_torch"),
+                            os.path.join(tmp, "deepspeed_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            path = os.path.join(tmp, "deepspeed_tpu_torch", "ops", "csrc",
+                                src)
+            with open(path) as f:
+                text = f.read()
+            for old, new in edits:
+                if old not in text:
+                    raise AssertionError(f"planted fault {name!r}: "
+                                         f"{old!r} not found in {src}")
+                text = text.replace(old, new)
+            with open(path, "w") as f:
+                f.write(text)
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "chip_smoke.py", flag], cwd=tmp,
+                capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in (res.stdout + res.stderr).splitlines()
+                 if "FAIL" in ln or "cases ok" in ln and (
+                     "layernorm" in ln or "quantizer" in ln)
+                 or "Error" in ln or "after step" in ln]
+        failed = res.returncode != 0
+        caught += failed
+        log(f"planted fault: {name} ({src}): {flag} exit "
+            f"{res.returncode} in {time.perf_counter() - t0:.1f} s, "
+            f"{'caught' if failed else 'NOT CAUGHT'}")
+        for ln in lines[:12]:
+            log("    " + ln.strip()[:400])
+    log(f"{caught} of {len(PLANTED_FAULTS)} planted faults fail the kernel "
+        "checks or phase 8c")
+    if caught != len(PLANTED_FAULTS):
+        raise AssertionError("a planted kernel fault passed the checks")
+
+
+# --------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -1872,8 +2635,12 @@ def main():
     defaults = gemm_flags()
     set_gemm_flags((False, False, False))
     log(f"  GEMM flags {[n for _, n in GEMM_FLAGS]}: torch's defaults "
-        f"{list(defaults)}; off for every phase but 5a (TF32 off for matmul "
-        f"and cuDNN, bf16 GEMM reductions in fp32)")
+        f"{list(defaults)}; off for every phase but 5a, 7a, 8a and 8b (TF32 "
+        f"off for matmul and cuDNN, bf16 GEMM reductions in fp32)")
+
+    if "--planted-faults" in sys.argv[1:]:
+        run_planted_faults()
+        return 0
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -1883,6 +2650,11 @@ def main():
     for line in op_builder.build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
+
+    if "--8c-only" in sys.argv[1:]:
+        phase_ds_bert_parity()
+        log("phase 8c passed (--8c-only: no other phase, no result)")
+        return 0
 
     log("phase 3: kernels against their plain versions")
     dev = torch.device("cuda")
@@ -1896,6 +2668,8 @@ def main():
     check_int8(dev, gen)
     check_block_sparse(dev, gen)
     check_fused_lamb(dev, gen)
+    check_layernorm(dev, gen)
+    check_quantizer(dev, gen)
     if "--checks-only" in sys.argv[1:]:
         log("every kernel agrees with its plain version (--checks-only: no "
             "timings, no end-to-end phases, no result)")
@@ -1910,9 +2684,10 @@ def main():
                "wo_int8_matmul": time_int8(dev, gen, 256)}
     sparse_t = time_block_sparse(dev, gen)
     sparse_t["fused_lamb"] = time_fused_lamb(dev, gen)
+    ds_t = {**time_layernorm(dev, gen), **time_quantizer(dev, gen)}
     for name, t in (("flash_attention (serving prefill)", flash_t),
                     ("decode_attention", decode_t), *train_t.items(),
-                    *paged_t.items(), *sparse_t.items()):
+                    *paged_t.items(), *sparse_t.items(), *ds_t.items()):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
@@ -1965,6 +2740,24 @@ def main():
     set_gemm_flags((False, False, False))
     phase_sparse_bert_parity()
 
+    log("phase 8: a BERT-large stack of DeepSpeedTransformerLayers with "
+        "8-bit compression-aware training and MoQ")
+    set_gemm_flags(defaults)
+    log("phase 8a: BERT-large DeepSpeedTransformerLayer stack trained "
+        "through initialize() -> train_batch with 8-bit symmetric weight "
+        f"quantization of {DS_MATRICES} from step 2 (bf16, attention "
+        f"dropout 0.1, padding mask, FusedLamb, {DS_MICRO} x {DS_SEQ} "
+        "tokens a step)")
+    ds_counts, _, _ = phase_ds_bert(card, "compression",
+                                    profile="--profile" in sys.argv[1:])
+    torch.cuda.empty_cache()
+    log("phase 8b: the same stack with MoQ (10 -> 8 bits, period 1, "
+        "symmetric) on every matrix")
+    phase_ds_bert(card, "moq")
+    torch.cuda.empty_cache()
+    set_gemm_flags((False, False, False))
+    phase_ds_bert_parity()
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -1984,6 +2777,10 @@ def main():
         t["launches"] = sparse_counts[name]
     sparse_t["fused_lamb"]["apply_launches"] = sparse_counts[
         "fused_lamb_apply"]
+    # the LayerNorm and quantizer kernels: phase 3's timings at phase 8's
+    # shapes; launches of 8a
+    for name, t in ds_t.items():
+        t["launches"] = ds_counts[name]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
@@ -2018,19 +2815,30 @@ def main():
              sparse_t["block_sparse_attention_dkv"],
              csrc + "block_sparse_attention.cu", sparse + ":402"),
             ("fused_lamb", sparse_t["fused_lamb"], csrc + "fused_lamb.cu",
-             pallas + "fused_lamb.py:49")):
+             pallas + "fused_lamb.py:49"),
+            ("layernorm_fwd", ds_t["layernorm_fwd"], csrc + "layernorm.cu",
+             pallas + "layernorm.py:34"),
+            ("layernorm_bwd", ds_t["layernorm_bwd"], csrc + "layernorm.cu",
+             pallas + "layernorm.py:70"),
+            ("quantize", ds_t["quantize"], csrc + "quantizer.cu",
+             pallas + "quantizer.py:67"),
+            ("dequantize", ds_t["dequantize"], csrc + "quantizer.cu",
+             pallas + "quantizer.py:141")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": t["launches"],
             "max_abs_err": t["max_abs_err"], "max_err": t["max_abs_err"],
             "tol": (ADAM_TOL if name in ("fused_adam", "fused_lamb")
+                    else 0.0 if name in ("quantize", "dequantize")
                     else TOL[torch.bfloat16]),
             "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **({"apply_launches": t["apply_launches"]}
-               if "apply_launches" in t else {})})
+               if "apply_launches" in t else {}),
+            **({"fake_quantize_ms": t["fake_quantize_ms"]}
+               if "fake_quantize_ms" in t else {})})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

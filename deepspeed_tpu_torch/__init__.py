@@ -59,3 +59,13 @@ def init_inference(model=None, **kwargs):
     ``deepspeed_tpu.init_inference``)."""
     from .inference.engine import InferenceEngine
     return InferenceEngine(model, **kwargs)
+
+
+def __getattr__(name):
+    """``DeepSpeedTransformerLayer`` and ``DeepSpeedTransformerConfig`` at
+    the top level, as ``deepspeed_tpu`` exports them (imported on first
+    use)."""
+    if name in ("DeepSpeedTransformerLayer", "DeepSpeedTransformerConfig"):
+        from .ops import transformer
+        return getattr(transformer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,12 +1,14 @@
 """JAX model parameters -> the port's state dict (``GPT``,
-``BertForPreTraining``).
+``BertForPreTraining``, stacks of ``DeepSpeedTransformerLayer``).
 
 The port's module and parameter names are the flax ones, so the map is
 structural: nested dict keys join with ".", and a block tree becomes the
 port's ``nn.ModuleList`` entries: the scan-stacked ``h`` / ``layer`` trees
 ([L, ...] leaves, ``scan_layers=True``) and the unrolled ``h_<i>`` /
 ``layer_<i>`` trees become ``h.<i>`` / ``layer.<i>``, at any depth (BERT's
-sit under ``bert``). Dense kernels keep their ``[in, out]`` orientation,
+sit under ``bert``); a stack of ``DeepSpeedTransformerLayer``s named
+``layers`` (scanned, or unrolled ``layers_<i>``) becomes ``layers.<i>``,
+whose parameters already carry torch's names and ``[out, in]`` layout. Dense kernels keep their ``[in, out]`` orientation,
 and the fused qkv kernel keeps its column order (thirds of 3*d_model, then
 heads), which the port splits the same way.
 """
@@ -16,8 +18,9 @@ import re
 import numpy as np
 import torch
 
-_STACKED = ("h", "layer")                   # GPT's and BERT's block trees
-_UNROLLED = re.compile(r"(h|layer)_(\d+)")
+# GPT's, BERT's and a DeepSpeedTransformerLayer stack's block trees
+_STACKED = ("h", "layer", "layers")
+_UNROLLED = re.compile(r"(h|layer|layers)_(\d+)")
 
 
 def _flatten(tree, prefix, out, n_layers=None):
@@ -44,13 +47,18 @@ def _flatten(tree, prefix, out, n_layers=None):
 
 
 def params_from_jax(tree, config) -> dict:
-    """``tree``: the flax ``params`` of a JAX ``GPT`` or
-    ``BertForPreTraining`` as nested dicts of numpy arrays (unboxed), int8
-    ``{"q", "scale"}`` kernels included. Returns a state dict for the
-    port's model of ``config``: fp32, except int8 ``q`` buffers (load it
-    into a quantized model, or after
+    """``tree``: the flax ``params`` of a JAX ``GPT``,
+    ``BertForPreTraining`` or ``DeepSpeedTransformerLayer`` stack as nested
+    dicts of numpy arrays (unboxed), int8 ``{"q", "scale"}`` kernels
+    included. ``config``: the model's config; its ``n_layers`` (or
+    ``num_hidden_layers``) splits a scanned stack. Returns a state dict for
+    the port's model: fp32, except int8 ``q`` buffers (load it into a
+    quantized model, or after
     ``module_inject.module_quantize.adopt_int8_layout``)."""
-    flat = _flatten(tree, "", {}, config.n_layers)
+    n_layers = getattr(config, "n_layers", None)
+    if n_layers is None:
+        n_layers = getattr(config, "num_hidden_layers", None)
+    flat = _flatten(tree, "", {}, n_layers)
     return {name: torch.from_numpy(np.array(
         leaf, np.int8 if name.endswith(".q") else np.float32))
         for name, leaf in flat.items()}

@@ -79,6 +79,16 @@ SIGNATURES = {
     "fused_lamb_phase1": _LAMB,
     "fused_lamb_apply": _LAMB,
     "block_sparse_attention_dkv": [_p] * 13 + _SPARSE_BWD,
+    # x, gamma, beta, y, mean, rstd, dtype, n, d, eps, stream
+    "layernorm_fwd": [_p] * 6 + [_i] * 3 + [_f, _p],
+    # dy, x, gamma, mean, rstd, dx, partials, dgamma, dbeta, dtype, n, d,
+    # ctas, stream
+    "layernorm_bwd": [_p] * 9 + [_i] * 4 + [_p],
+    # x, q, scales, zps, dtype, code type, mode, groups, group size, qmax,
+    # 1/qmax, scale floor, seed words, stream
+    "quantize_groups": [_p] * 4 + [_i] * 4 + [_ll, _f, _f, _f, _u, _u, _p],
+    # q, scales, zps, out, code type, dtype, groups, group size, stream
+    "dequantize_groups": [_p] * 4 + [_i] * 3 + [_ll, _p],
 }
 
 _lib: Optional[ctypes.CDLL] = None

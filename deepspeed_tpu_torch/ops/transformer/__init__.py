@@ -1,1 +1,3 @@
 from .attention import attention  # noqa: F401
+from .transformer import (DeepSpeedTransformerConfig,  # noqa: F401
+                          DeepSpeedTransformerLayer, TransformerConfig)

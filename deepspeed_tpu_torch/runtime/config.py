@@ -4,7 +4,8 @@ The same JSON schema and key names: ``DeepSpeedConfig.from_dict`` reads
 the blocks this slice of the port runs (batch sizes, ``optimizer``,
 ``scheduler``, ``bf16``, ``gradient_clipping``, ``zero_optimization``
 stage 0/1, ``data_types`` fp32, ``sparse_attention`` stored unread as
-in the JAX package) and resolves the reference's batch
+in the JAX package, ``compression_training`` weight quantization and
+pruning, ``quantize_training`` MoQ) and resolves the reference's batch
 arithmetic (train_batch_size = micro_batch * gradient_accumulation_steps
 * dp_world_size) with dp_world_size = 1: the port trains on one card.
 
@@ -114,8 +115,6 @@ LATER_SLICES = {
     "mesh": (_mesh_wide, "the multi-GPU slice (mesh axes > 1, MoE)"),
     "resilience": (_on, "the resilience slice"),
     "observability": (_on, "the observability slice"),
-    "compression_training": (lambda b: bool(b), "the compression slice"),
-    "quantize_training": (_on, "the compression slice"),
     "curriculum_learning": (_on, "the data-efficiency slice"),
     "data_efficiency": (lambda b: bool(b), "the data-efficiency slice"),
     "progressive_layer_drop": (_on, "the data-efficiency slice (PLD)"),
@@ -151,7 +150,24 @@ NO_EFFECT = {
 }
 
 
+def refuse_later_compression(block: Optional[dict]):
+    """Raise for the ``compression_training`` sub-blocks that come with a
+    later slice of the port."""
+    block = block or {}
+    for key in ("activation_quantization", "layer_reduction"):
+        sub = block.get(key)
+        if not isinstance(sub, dict):
+            continue
+        shared = sub.get("shared_parameters", sub)
+        if shared.get("enabled", bool(sub.get("different_groups"))):
+            raise NotImplementedError(
+                f"compression_training.{key} comes with a later slice of the "
+                "port (activation quantization and layer reduction are "
+                "queued with the compression slice)")
+
+
 def _later_slice_check(d: dict):
+    refuse_later_compression(d.get("compression_training"))
     for key, (asked, where) in LATER_SLICES.items():
         if key in d and asked(d[key]):
             raise NotImplementedError(
@@ -192,6 +208,10 @@ class DeepSpeedConfig:
     # stored as the JAX config does (config.py:412); nothing reads it: a
     # model takes its pattern from its own config's sparsity_config
     sparse_attention: Optional[Dict[str, Any]] = None
+    # the weight projections at each optimizer step (compression/,
+    # runtime/quantize.py MoQ), read by the engine as the JAX one does
+    compression_training: Optional[Dict[str, Any]] = None
+    quantize_training: Optional[Dict[str, Any]] = None
 
     _raw: Dict[str, Any] = field(default_factory=dict, repr=False)
 

@@ -4,7 +4,8 @@
 Ported parts: config, precision and optimizer setup (``__init__`` :68,
 ``_configure_optimizer`` :583), gradient accumulation
 (``_make_accumulate_fn`` :852), the train step (``_make_train_step``
-:945), ``train_batch`` (:1058), ``eval_batch`` (:1532) and the accessors
+:945), ``train_batch`` (:1058), the weight projections (:243-253,
+:1208), ``eval_batch`` (:1532) and the accessors
 (:1550-1576). One card: the parameters are the module's fp32 master
 weights, the model computes in its config's dtype (bf16 by default).
 
@@ -18,6 +19,11 @@ g, else g / norm * max; torch's ``clip_grad_norm_`` is a different
 function). The loss, the norm and the clip decision stay on the device:
 ``train_batch`` never waits on the card and returns the mean loss as a
 0-dim device tensor.
+
+After each optimizer step the compression and MoQ projections
+(``compression_training``, ``quantize_training``) snap the fp32 masters
+in place (``_apply_weight_projections`` :1208), on the quantize and
+dequantize kernels.
 
 Attention dropout takes seed words derived from (seed, step,
 microbatch) with ``ops.dropout.fold_seed``, so a run is reproducible and
@@ -82,6 +88,7 @@ class DeepSpeedEngine:
         self._grads = [p.grad for p in self._params]
 
         self._configure_optimizer(optimizer, lr_scheduler)
+        self._configure_weight_projections()
         self._last_loss = None
         self._last_grad_norm = None
         logger.info(
@@ -116,6 +123,35 @@ class DeepSpeedEngine:
             self.optimizer = build_optimizer(opt_type, opt_params,
                                              lr_schedule=self.lr_schedule)
         self.optimizer_state = self.optimizer.init(self._params, self._grads)
+
+    def _configure_weight_projections(self):
+        """Compression-aware training and MoQ (JAX :243-253): the
+        projections that ``train_batch`` applies after each optimizer
+        step, on the parameters named by their flax ``keystr`` paths."""
+        from ..compression.compress import init_compression, param_paths
+        from .config_utils import dict_to_dataclass
+        from .quantize import MoQConfig, MoQQuantizer
+        self.compression_scheduler = init_compression(
+            self.config.compression_training)
+        self.moq_quantizer = None
+        qt = dict(self.config.quantize_training or {})
+        if qt.get("enabled", False):
+            self.moq_quantizer = MoQQuantizer(
+                dict_to_dataclass(MoQConfig, qt, "quantize_training"))
+        self._named_params = param_paths(self.module)
+
+    @torch.no_grad()
+    def _apply_weight_projections(self):
+        """Gas-boundary weight projections (JAX :1208), in JAX's order:
+        compression (fake-quant and pruning masks), then MoQ's snap, on the
+        fp32 masters in place at the step count after the increment. The
+        bits and the schedule are host integers: nothing is read back."""
+        step = self.global_steps
+        comp = self.compression_scheduler
+        if comp is not None and comp.active(step):
+            comp.apply(self._named_params, step)
+        if self.moq_quantizer is not None:
+            self.moq_quantizer.quantize(self._named_params, step)
 
     def _to_micro(self, x):
         """[train_batch_size, ...] -> [gas, micro, ...] on the device,
@@ -164,6 +200,7 @@ class DeepSpeedEngine:
         self.global_steps += 1
         self.micro_steps += gas
         self.global_samples += cfg.train_batch_size
+        self._apply_weight_projections()
         self._last_loss = mean_loss
         self._last_grad_norm = gnorm
         return mean_loss

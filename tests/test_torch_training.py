@@ -229,7 +229,8 @@ def test_config_reads_the_slice_blocks_and_rejects_bad_batches():
     ({"mesh": {"expert": 2}}, "multi-GPU"),
     ({"resilience": {"enabled": True}}, "resilience"),
     ({"observability": {"enabled": True}}, "observability"),
-    ({"compression_training": {"weight_quantization": {}}}, "compression"),
+    ({"compression_training": {"activation_quantization": {
+        "shared_parameters": {"enabled": True}}}}, "compression"),
     ({"curriculum_learning": {"enabled": True}}, "data-efficiency"),
     ({"progressive_layer_drop": {"enabled": True}}, "PLD"),
     ({"activation_checkpointing": {}}, "remat"),
