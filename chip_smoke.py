@@ -13,11 +13,14 @@ Phases, each fatal on failure:
    sm_90a (register and spill counts printed);
 3. kernels: every kernel of the serving and training paths against its
    plain PyTorch version on the card (the flash forward with dropout, both
-   flash backward kernels and fused Adam over the training grid; bf16
-   held by the largest error and by the rms error, ``Gate``), then
-   timed at the serving and training shapes beside the plain version, one
-   PyTorch library call computing the same function, and the least time
-   the card could take;
+   flash backward kernels and fused Adam over the training grid, the
+   attention kernels at head_dim 64, 80, 96 and 128, the bf16 flash
+   kernels again at phases 5a's and 8a's shapes; bf16 held by the largest
+   error and by the rms error, ``Gate``), then timed at the serving and
+   training shapes beside the plain version, one PyTorch library call
+   computing the same function, and the least time the card could take
+   (the flash kernels in bf16 on the tensor cores at dropout 0.1 and 0,
+   and in fp32 on FMAs);
 4. the slice end to end: GPT-2 125M at full width and depth (random
    weights from a seed) served through ``init_inference(...).serve()``:
    (a) fp32, every request token-exact against the port's ``generate()``
@@ -26,7 +29,8 @@ Phases, each fatal on failure:
    (``--profile`` adds a torch.profiler breakdown of the device time of
    one decode iteration and of each prefill bucket);
    (c) the first forward pass on the card against the CPU (plain
-   versions, fp32);
+   versions, fp32); (d) gpt2-760m's widths (head_dim 96) cut to 2 layers,
+   fp32, served token-exact against ``generate()`` (near-tie rule);
 5. training end to end through ``initialize(...)`` -> ``train_batch``:
    (a) GPT-2 125M, bf16 compute on fp32 master weights, attention dropout
    0.1, 8 steps on one seeded batch: finite losses that fall, exact
@@ -101,10 +105,12 @@ Phases, each fatal on failure:
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result).
-``--planted-faults`` runs ``--checks-only`` (four faults) or
+``--planted-faults [name]`` runs ``--checks-only`` (eight faults) or
 ``--8c-only`` (two) in copies of the checkout, each with one kernel
-fault planted (``PLANTED_FAULTS``), and fails unless every copy fails;
-it prints no result line either.
+fault planted (``PLANTED_FAULTS``; only those whose source file name
+contains ``name``, when given), and fails unless every copy fails; it
+prints no result line either. 8c also reads the step-1 gradient of the
+1-D element that differs most between card and CPU.
 
 The card's name and power limit come on the line before the
 ``{"kernels": [...]}`` line, which is the line before last; the last line
@@ -137,6 +143,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 BF16_RMS_TOL = 5e-4
 ADAM_TOL = 1e-5   # fused Adam, relative to max(1, max |ref|): FMA contraction
 GAP_STOP = 1e-3               # fp32 near-tie: stop comparing a request there
+HEAD_DIMS = (64, 80, 96, 128)  # the attention kernels' head dims
 SEED = 0
 DS_SEQ, DS_MICRO = 128, 64    # phase 8: bing_bert's seq-128 LAMB schedule
 
@@ -211,7 +218,7 @@ def check_flash(dev, gen):
         flash_attention, flash_attention_reference)
     gate = Gate("flash")
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (64, 128):
+        for d in HEAD_DIMS:
             for sq in (128, 512):
                 cases = [("causal", 1, True, sq, None),
                          ("cache_mask", 1, False, 1024,
@@ -248,7 +255,7 @@ def check_decode(dev, gen):
                            dtype=torch.int32, device=dev)
     gate = Gate("decode")
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (64, 128):
+        for d in HEAD_DIMS:
             for alibi in (False, True):
                 q = torch.randn(B, 1, H, d, generator=gen, device=dev,
                                 dtype=dtype)
@@ -311,8 +318,9 @@ def _paged_case(dev, gen, dtype, quant, page_len, d, lengths, B=8, H=12,
 
 def check_paged(dev, gen):
     """The paged kernel against its plain version over fp32, bf16 and int8
-    pages, page_len 16 and 128, d 64 and 128, ALiBi on and off, lengths 0,
-    1, ragged and a full table, with NaN in every unreadable position."""
+    pages, page_len 16 and 128, d 64, 80, 96 and 128, ALiBi on and off,
+    lengths 0, 1, ragged and a full table, with NaN in every unreadable
+    position."""
     from deepspeed_tpu_torch.models.layers import alibi_slopes
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
@@ -321,7 +329,7 @@ def check_paged(dev, gen):
     for dtype in (torch.float32, torch.bfloat16):
         for quant in (False, True):
             for page_len in (16, 128):
-                for d in (64, 128):
+                for d in HEAD_DIMS:
                     for alibi in (False, True):
                         args = _paged_case(dev, gen, dtype, quant, page_len,
                                            d, lengths)
@@ -559,7 +567,7 @@ def check_flash_dropout(dev, gen, sizes=(128, 1024)):
         _bias_operand, flash_attention_fwd, flash_attention_reference)
     gate = Gate("flash+dropout")
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (64, 128):
+        for d in HEAD_DIMS:
             for s in sizes:
                 for name, b, bias in _train_cases(dev, s):
                     for rate in (0.1, 0.5):
@@ -588,7 +596,7 @@ def check_flash_bwd(dev, gen, sizes=(128, 1024)):
         flash_attention_fwd)
     gate = Gate("flash bwd")
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (64, 128):
+        for d in HEAD_DIMS:
             for s in sizes:
                 for name, b, bias in _train_cases(dev, s):
                     for rate in (0.0, 0.1, 0.5):
@@ -610,6 +618,38 @@ def check_flash_bwd(dev, gen, sizes=(128, 1024)):
                                   f"d={d:3d} s={s:4d} {name:7s} rate={rate} "
                                   "(dq, dk, dv)",
                                   show=s == 1024 and name == "causal")
+    gate.close()
+
+
+def check_flash_train_shapes(dev, gen):
+    """The bf16 forward and both backward kernels at the shapes phases 5a
+    and 8a give them, grids several waves deep: GPT-2's micro batch (b 8,
+    h 12, s 1024, causal) and phase 8's (b 64, h 16, s 128, padding
+    bias), dropout 0.1 and 0."""
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        Dropout, _bias_operand, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd,
+        flash_attention_reference)
+    gate = Gate("flash train shapes")
+    dt = torch.bfloat16
+    for b, h, s, padded in ((8, 12, 1024, False), (DS_MICRO, 16, DS_SEQ,
+                                                    True)):
+        q, k, v, do, bias, _ = _flash_train_inputs(dev, gen, b, h, s, 64, dt,
+                                                   padded)
+        bias_in = _bias_operand(bias, q, k)
+        for rate in (0.1, 0.0):
+            drop = Dropout(rate, 0x4321, 0x8765, h) if rate else None
+            kw = dict(causal=not padded, dropout=drop)
+            o, lse = flash_attention_fwd(q, k, v, bias_in, **kw)
+            ro, _ = flash_attention_reference(q, k, v, bias_in, **kw)
+            grads = flash_attention_bwd(q, k, v, o, lse, do, bias_in, **kw)
+            refs = flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                 bias_in, **kw)
+            torch.cuda.synchronize()
+            label = (f"b={b} h={h} s={s} {'padding' if padded else 'causal'}"
+                     f" rate={rate}")
+            gate.case(dt, [o], [ro], label + " (o)", show=True)
+            gate.case(dt, grads, refs, label + " (dq, dk, dv)", show=True)
     gate.close()
 
 
@@ -673,71 +713,110 @@ def check_fused_adam(dev, gen):
                                  "plain version")
 
 
-def time_flash_train(dev, gen, s=1024, d=64, rate=0.1):
-    """The training shape: GPT-2 micro batch 8, 12 heads, causal,
-    attention dropout 0.1, bf16. Returns the forward and the two backward
-    kernels' numbers."""
+FLASH_IMPL = {torch.bfloat16: "tensor-core bf16 (mma.sync)",
+              torch.float32: "FMA fp32"}
+
+
+def _flash_train_inputs(dev, gen, b, h, s, d, dtype, padded):
+    """q, k, v, dO and the bias of a training-shape flash call: phase 8's
+    padding bias from ``mlm_batch`` (rows of 96-128 tokens) when
+    ``padded``, else None (causal)."""
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
+                               dtype=dtype) for _ in range(4))
+    if not padded:
+        return q, k, v, do, None, b * h * s * (s + 1) // 2
+    from deepspeed_tpu_torch.ops._common import NEG_INF
+    mask = torch.from_numpy(mlm_batch(b, s, 30522, SEED + 11)[
+        "attention_mask"]).to(dev).bool()
+    bias = torch.where(mask, 0.0, NEG_INF)[:, None, None, :]
+    return q, k, v, do, bias, h * s * int(mask.sum())
+
+
+def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
+                     dtype=torch.bfloat16, padded=False):
+    """The flash forward and both backward kernels at a training shape:
+    GPT-2 (micro batch 8, 12 heads, 1024 tokens, causal) by default;
+    ``padded``: phase 8's BERT-large shape (64 x 128 tokens, 16 heads, not
+    causal, padding bias). Each kernel's time at ``rate`` and at rate 0
+    (``ms_rate0``), the plain version's, one PyTorch call's (SDPA forward;
+    its whole backward) and the bound of the visible (q, k) pairs."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.flash_attention import (
-        Dropout, bwd_operands, flash_attention_bwd_reference,
+        Dropout, _bias_operand, bwd_operands, flash_attention_bwd_reference,
         flash_attention_fwd, flash_attention_reference, launch_bwd_dkv,
         launch_bwd_dq)
-    b, h, dt = 8, 12, torch.bfloat16
+    causal = not padded
     scale = 1.0 / d ** 0.5
-    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
-                               dtype=dt) for _ in range(4))
-    drop = Dropout(rate, 0x1234, 0x5678, h)
-    fwd = lambda: flash_attention_fwd(q, k, v, causal=True, dropout=drop)
-    o, lse = fwd()
-    ops = bwd_operands(q, k, v, o, lse, do, None)
-    dkv = lambda: launch_bwd_dkv(ops, True, scale, drop)
-    dq = lambda: launch_bwd_dq(ops, True, scale, drop)
-    plain_fwd = gpu_ms(lambda: flash_attention_reference(
-        q, k, v, causal=True, dropout=drop), iters=5)
-    plain_bwd = gpu_ms(lambda: flash_attention_bwd_reference(
-        q, k, v, o, lse, do, causal=True, dropout=drop), iters=5)
+    q, k, v, do, bias, visible = _flash_train_inputs(dev, gen, b, h, s, d,
+                                                     dtype, padded)
+    bias_in = _bias_operand(bias, q, k)
+    times, plain, lib, errs = {}, {}, {}, {}
+    for r in (rate, 0.0):
+        drop = Dropout(r, 0x1234, 0x5678, h) if r else None
+        fwd = (lambda drop=drop: flash_attention_fwd(
+            q, k, v, bias_in, causal=causal, dropout=drop))
+        o, lse = fwd()
+        ops = bwd_operands(q, k, v, o, lse, do, bias_in)
+        dkv = lambda drop=drop, ops=ops: launch_bwd_dkv(ops, causal, scale,
+                                                        drop)
+        dq = lambda drop=drop, ops=ops: launch_bwd_dq(ops, causal, scale,
+                                                      drop)
+        times[r] = {name: gpu_ms(fn, iters=20) for name, fn in (
+            ("flash_attention", fwd), ("flash_attention_bwd_dkv", dkv),
+            ("flash_attention_bwd_dq", dq))}
+        if r != rate:
+            continue
+        plain["fwd"] = gpu_ms(lambda: flash_attention_reference(
+            q, k, v, bias_in, causal=causal, dropout=drop), iters=5)
+        plain["bwd"] = gpu_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, bias_in, causal=causal, dropout=drop),
+            iters=5)
+        ro, _ = flash_attention_reference(q, k, v, bias_in, causal=causal,
+                                          dropout=drop)
+        rdq, rdk, rdv = flash_attention_bwd_reference(
+            q, k, v, o, lse, do, bias_in, causal=causal, dropout=drop)
+        gk, gv = dkv()
+        errs["flash_attention"] = (fwd()[0].float() - ro.float()).abs(
+            ).max().item()
+        errs["flash_attention_bwd_dkv"] = max(
+            (gk.float() - rdk.float()).abs().max().item(),
+            (gv.float() - rdv.float()).abs().max().item())
+        errs["flash_attention_bwd_dq"] = (dq().float() - rdq.float()).abs(
+            ).max().item()
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    lib_fwd = gpu_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, dropout_p=rate))
-    lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                        dropout_p=rate)
+    mask = None if bias is None else bias.to(dtype)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal, dropout_p=rate)
+    lib["fwd"] = gpu_ms(sdpa)
+    lo = sdpa()
     dot = do.transpose(1, 2)
-    lib_bwd = gpu_ms(lambda: torch.autograd.grad(
+    lib["bwd"] = gpu_ms(lambda: torch.autograd.grad(
         lo, (qt, kt, vt), dot, retain_graph=True))
-    visible = b * h * s * (s + 1) // 2
     elem = q.element_size()
-    qkv = 3 * b * s * h * d * elem
+    act = b * s * h * d * elem                    # one [b, s, h, d] tensor
     rows = b * h * s * 4                          # one fp32 per row
+    nbias = 0 if bias is None else bias.numel() * 4
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     out = {}
-    for name, fn, products, nbytes, plain, lib in (
-            ("flash_attention", fwd, 2, qkv + b * s * h * d * elem + rows,
-             plain_fwd, lib_fwd),
-            # S, dP, dV, dK; reads q k v dO lse delta, writes dk dv
-            ("flash_attention_bwd_dkv", dkv, 4,
-             qkv + b * s * h * d * elem + 2 * rows + 2 * b * s * h * d * elem,
-             plain_bwd, lib_bwd),
-            # S, dP, dQ; reads q k v dO lse delta, writes dq
-            ("flash_attention_bwd_dq", dq, 3,
-             qkv + b * s * h * d * elem + 2 * rows + b * s * h * d * elem,
-             plain_bwd, lib_bwd)):
-        bound, by = bound_ms(2 * products * visible * d, nbytes,
-                             PEAK_BF16_FLOPS)
+    for name, products, nbytes, pl, lb in (
+            # QK^T, PV; reads q k v (bias), writes o lse
+            ("flash_attention", 2, 4 * act + rows + nbias, plain["fwd"],
+             lib["fwd"]),
+            # S, dP, dV, dK; reads q k v dO lse delta (bias), writes dk dv
+            ("flash_attention_bwd_dkv", 4, 6 * act + 2 * rows + nbias,
+             plain["bwd"], lib["bwd"]),
+            # S, dP, dQ; reads q k v dO lse delta (bias), writes dq
+            ("flash_attention_bwd_dq", 3, 5 * act + 2 * rows + nbias,
+             plain["bwd"], lib["bwd"])):
+        bound, by = bound_ms(2 * products * visible * d, nbytes, peak)
         out[name] = dict(
-            shape=f"b={b} h={h} sq=sk={s} d={d} bf16 causal dropout={rate}",
-            ms=gpu_ms(fn, iters=20), plain_ms=plain, library_ms=lib,
-            bound_ms=bound, bound_by=by)
-    ro, _ = flash_attention_reference(q, k, v, causal=True, dropout=drop)
-    rdq, rdk, rdv = flash_attention_bwd_reference(q, k, v, o, lse, do,
-                                                  causal=True, dropout=drop)
-    gk, gv = dkv()
-    out["flash_attention"]["max_abs_err"] = (
-        fwd()[0].float() - ro.float()).abs().max().item()
-    out["flash_attention_bwd_dkv"]["max_abs_err"] = max(
-        (gk.float() - rdk.float()).abs().max().item(),
-        (gv.float() - rdv.float()).abs().max().item())
-    out["flash_attention_bwd_dq"]["max_abs_err"] = (
-        dq().float() - rdq.float()).abs().max().item()
+            shape=(f"b={b} h={h} sq=sk={s} d={d} {str(dtype)[6:]} "
+                   + ("padding bias" if padded else "causal")
+                   + f" dropout={rate}"),
+            impl=FLASH_IMPL[dtype], ms=times[rate][name],
+            ms_rate0=times[0.0][name], plain_ms=pl, library_ms=lb,
+            bound_ms=bound, bound_by=by, max_abs_err=errs[name])
     return out
 
 
@@ -810,8 +889,9 @@ def time_flash(dev, gen, sq=512, d=64):
            - flash_attention_reference(q, k, v, causal=True)[0].float()
            ).abs().max().item()
     return dict(shape=f"b={b} h={h} sq=sk={sq} d={d} bf16 causal",
-                ms=kernel, plain_ms=plain, library_ms=library,
-                bound_ms=bound, bound_by=by, max_abs_err=err)
+                impl=FLASH_IMPL[dt], ms=kernel, plain_ms=plain,
+                library_ms=library, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
 
 
 def time_decode(dev, gen, d=64):
@@ -874,8 +954,8 @@ def sparse_configs():
 def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     """The three block-sparse kernels against their plain versions: every
     config of ``sparse_configs`` at each size, fp32 and bf16, dropout off
-    and 0.1, head_dim 64 (and 128 at the smaller size). Both backward
-    versions take the kernel forward's (o, m, l)."""
+    and 0.1, head_dim 64 (and 80, 96, 128 at the smaller size). Both
+    backward versions take the kernel forward's (o, m, l)."""
     from deepspeed_tpu_torch.ops.block_sparse_attention import (
         block_sparse_dkv_reference, block_sparse_dq_reference,
         block_sparse_fwd_reference, launch_dkv, launch_dq, launch_fwd)
@@ -883,7 +963,7 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
         device_plan
     gates = {k: Gate(f"block_sparse {k}") for k in ("fwd", "dq", "dkv")}
-    cases = [(s, d) for s in sizes for d in ((64, 128) if s == min(sizes)
+    cases = [(s, d) for s in sizes for d in (HEAD_DIMS if s == min(sizes)
                                              else (64,))]
     for s, d in cases:
         scale = 1.0 / d ** 0.5
@@ -1373,11 +1453,12 @@ def top2_gaps(model, prompt, generated):
     return (top[:, 0] - top[:, 1]).cpu().numpy()
 
 
-def phase_fp32(model_fp32, prompts, outs, config):
+def phase_fp32(model_fp32, prompts, outs, config,
+               label="phase 4a: fp32 serving"):
     from deepspeed_tpu_torch import init_inference
-    log("phase 4a: fp32 serving, token-exact against generate()")
+    log(f"{label}, token-exact against generate()")
     engine = init_inference(model_fp32, dtype=torch.float32)
-    reqs, srv, _, wall = serve_traffic(engine, prompts, outs, config)
+    reqs, srv, counts, wall = serve_traffic(engine, prompts, outs, config)
     stops = 0
     for i, (req, p, o) in enumerate(zip(reqs, prompts, outs)):
         ref = engine.generate(p[None], max_new_tokens=o)[0, len(p):]
@@ -1396,6 +1477,27 @@ def phase_fp32(model_fp32, prompts, outs, config):
         f"(reference top-2 logit gap "
         f"< {GAP_STOP}); served {srv.metrics.tokens_generated} tokens in "
         f"{wall:.3f} s")
+    return counts
+
+
+def phase_wide_heads():
+    """4d: gpt2-760m's widths (d 1536, 16 heads, head_dim 96) cut to 2
+    layers, fp32, 8 requests through 4 slots: token-exact against
+    ``generate()`` (near-tie rule), the flash and decode kernels launched
+    at head_dim 96."""
+    import dataclasses
+    from deepspeed_tpu_torch.models import GPT, GPT2_PRESETS
+    cfg = dataclasses.replace(GPT2_PRESETS["gpt2-760m"], n_layers=2,
+                              dtype=torch.float32)
+    model = GPT(cfg, seed=SEED)
+    prompts, outs = traffic(cfg.vocab_size, n=8, seed=SEED + 9)
+    phase_fp32(model, prompts, outs,
+               {"num_slots": 4, "max_len": 1024, "prefill_bucket": 128},
+               label=f"phase 4d: fp32 serving at gpt2-760m widths (d "
+               f"{cfg.d_model}, {cfg.n_heads} heads, head_dim "
+               f"{cfg.d_model // cfg.n_heads}, {cfg.n_layers} layers)")
+    del model
+    torch.cuda.empty_cache()
 
 
 def phase_bf16(model_bf16, prompts, outs, config, card, profile=False):
@@ -1649,11 +1751,16 @@ def phase_train_parity():
     batch = {"input_ids": rs.randint(0, cfg.vocab_size, size=(4, 128))
              .astype(np.int32)}
     runs = {}
+    counters = {k: v for k, v in _ds_counters().items()
+                if k.startswith("flash_attention")}
     for dev in ("cuda", "cpu"):
         engine, _, _, _ = initialize(model=GPT(cfg, seed=SEED), config=config,
                                      loss_fn=gpt_train_loss, seed=SEED,
                                      device=dev)
+        reset_counters(counters)
         losses = [float(engine.train_batch(batch)) for _ in range(2)]
+        if dev == "cuda":
+            counts = read_counters(counters)    # the fp32 FMA kernels'
         runs[dev] = (losses, {k: v.detach().cpu() for k, v in
                               engine.module.state_dict().items()})
     loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0],
@@ -1670,8 +1777,10 @@ def phase_train_parity():
         f"{diffs.max().item():.3e} (tol 4 lr = {p_tol:.0e}), mean diff "
         f"{diffs.mean().item():.3e}, {int((diffs > lr).sum())} of "
         f"{diffs.numel()} differ by more than lr {'ok' if ok else 'FAIL'}")
+    log(f"  launches of the card run: {counts}")
     if not ok:
         raise AssertionError("training on the card and on the CPU disagree")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -2376,20 +2485,39 @@ CLOSE = 1e-6          # phase 8c: parameters that no snap has moved apart
 
 def _ds_parity_run(dev, cfg, config, batch, steps):
     """One 8c training run on ``dev``: the losses, the state before and
-    after each step (on the CPU) and the MoQ width of each step's snap
-    (None when MoQ is off)."""
+    after each step (on the CPU), the MoQ width of each step's snap (None
+    when MoQ is off) and the gradients of step 1's 1-D parameters."""
     from deepspeed_tpu_torch import initialize
     engine, _, _, _ = initialize(model=DSBertMLM(cfg), config=config,
                                  loss_fn=ds_bert_loss, seed=SEED, device=dev)
     state = lambda: {k: v.detach().cpu().clone() for k, v in
                      engine.module.state_dict().items()}
     losses, states = [], [state()]
-    for _ in range(steps):
+    for t in range(steps):
         losses.append(float(engine.train_batch(batch)))
         states.append(state())
+        if t == 0:   # .grad holds the step's gradient until the next step
+            grads1 = {k: p.grad.detach().cpu().clone() for k, p in
+                      engine.module.named_parameters() if p.dim() < 2}
     moq = engine.moq_quantizer
     bits = [moq.bits_at(t) if moq else None for t in range(1, steps + 1)]
-    return losses, states, bits
+    return losses, states, bits, grads1
+
+
+def _grad_reading(card_state, cpu_state, card_grads, cpu_grads, eps=1e-6):
+    """The 1-D element with the largest card-CPU gap after step 1: its
+    name, index, gap, and step 1's gradient on both devices against LAMB's
+    eps (its first update is g / (|g| + eps): near eps, a small gradient
+    gap moves it most)."""
+    k = max(cpu_grads, key=lambda n: (card_state[n] - cpu_state[n]).abs()
+            .max().item())
+    gap = (card_state[k] - cpu_state[k]).abs()
+    i = int(gap.argmax())
+    gc, gu = card_grads[k].flatten()[i].item(), cpu_grads[k].flatten()[i].item()
+    return (f"{k}[{i}]: gap {gap.flatten()[i].item():.3e}; step-1 gradient "
+            f"card {gc:.6e} cpu {gu:.6e} (diff {abs(gc - gu):.3e}, |g| / "
+            f"LAMB eps {abs(gu) / eps:.3f}); first update g / (|g| + eps): "
+            f"card {gc / (abs(gc) + eps):.6f} cpu {gu / (abs(gu) + eps):.6f}")
 
 
 def _ds_parity_reading(card, cpu, moves, bits):
@@ -2473,8 +2601,9 @@ def phase_ds_bert_parity(devices=("cuda", "cpu"), n_layers=4):
             ("control, projections off", base)):
         runs = {dev: _ds_parity_run(dev, cfg, config, batch, steps)
                 for dev in devices}
-        (card_losses, card_states, bits), (cpu_losses, cpu_states, _) = (
-            runs[devices[0]], runs[devices[1]])
+        ((card_losses, card_states, bits, card_grads),
+         (cpu_losses, cpu_states, _, cpu_grads)) = (runs[devices[0]],
+                                                    runs[devices[1]])
         loss_err = max(abs(a - b) for a, b in zip(card_losses, cpu_losses))
         log(f"  {label}: losses card {card_losses} cpu {cpu_losses}: max "
             f"diff {loss_err:.3e} (tol 1e-4)")
@@ -2494,6 +2623,9 @@ def phase_ds_bert_parity(devices=("cuda", "cpu"), n_layers=4):
                 f"{snap}1-D max gap {r['gap_1d']:.3e}, {r['n_1d']} elements "
                 f"beyond {CLOSE}, worst {r['at_1d']} at {r['ratio_1d']:.4f} "
                 f"of {PARAM_TOL} x its summed largest LAMB step")
+            if t == 1:
+                log("      largest 1-D gap after step 1 at " + _grad_reading(
+                    card_states[1], cpu_states[1], card_grads, cpu_grads))
         last = readings[-1]
         if label == "projections on":
             for line in last["offenders"][:12]:
@@ -2555,11 +2687,35 @@ PLANTED_FAULTS = (
     ("8c: the LAMB trust ratio 2% low", "fused_lamb.cu",
      (("const float step = sc.neg_lr * trust;",
        "const float step = sc.neg_lr * trust * 0.98f;"),), "--8c-only"),
+    # the bf16 tensor-core flash kernels
+    ("bf16 flash forward: p' truncated to bf16 (round toward zero), not "
+     "rounded to nearest, before PV", "flash_attention_fwd_bf16.cu",
+     (("c_to_a(pa, s[2 * kc], s[2 * kc + 1]);  // p' rounded to bf16",
+       "for (int e2 = 0; e2 < 4; ++e2) pa[e2] = __byte_perm("
+       "__float_as_uint(s[2 * kc + (e2 >> 1)][(e2 & 1) * 2]), "
+       "__float_as_uint(s[2 * kc + (e2 >> 1)][(e2 & 1) * 2 + 1]), "
+       "0x7632);"),), "--checks-only"),
+    ("bf16 flash forward: the causal mask skipped on the last (diagonal) "
+     "key tile", "flash_attention_fwd_bf16.cu",
+     (("(causal && k0 + BK - 1 > q0 + shift)",
+       "(causal && kt + 1 < nkb && k0 + BK - 1 > q0 + shift)"),),
+     "--checks-only"),
+    ("bf16 flash dK/dV: the keep bit taken at the transposed fragment "
+     "coordinate (key, q row)", "flash_attention_bwd_bf16.cu",
+     (("hash_col(dr, key0", "hash_row(dr, key0"),
+      ("hash_row(dr, q0 + qh * QC + c0", "hash_col(dr, q0 + qh * QC + c0")),
+     "--checks-only"),
+    ("bf16 flash dK/dV: dP rounded to bf16 before delta is subtracted "
+     "(dS rounded twice)", "flash_attention_bwd_bf16.cu",
+     (("dpT[j][e] = p * (dfac * dpT[j][e] - dlq) * a.scale;  // dS",
+       "dpT[j][e] = p * (dfac * round_to<bf16>(dpT[j][e]) - dlq) * "
+       "a.scale;  // dS"),), "--checks-only"),
 )
 
 
-def run_planted_faults():
-    """Each fault of ``PLANTED_FAULTS``: copy chip_smoke.py and the package
+def run_planted_faults(only=None):
+    """Each fault of ``PLANTED_FAULTS`` (those whose source file name
+    contains ``only``, when given): copy chip_smoke.py and the package
     into a temporary directory, make the fault's edits to one kernel
     source there (as ``sed`` would; each pattern must occur), run
     ``chip_smoke.py`` with the fault's flag (``--checks-only`` or
@@ -2567,8 +2723,9 @@ def run_planted_faults():
     failing gate lines (and 8c's readings)."""
     import shutil
     import tempfile
+    faults = [f for f in PLANTED_FAULTS if only is None or only in f[1]]
     caught = 0
-    for name, src, edits, flag in PLANTED_FAULTS:
+    for name, src, edits, flag in faults:
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
             shutil.copytree(os.path.join(REPO, "deepspeed_tpu_torch"),
@@ -2591,7 +2748,7 @@ def run_planted_faults():
                 capture_output=True, text=True, timeout=900)
         lines = [ln for ln in (res.stdout + res.stderr).splitlines()
                  if "FAIL" in ln or "cases ok" in ln and (
-                     "layernorm" in ln or "quantizer" in ln)
+                     "layernorm" in ln or "quantizer" in ln or "flash" in ln)
                  or "Error" in ln or "after step" in ln]
         failed = res.returncode != 0
         caught += failed
@@ -2600,9 +2757,9 @@ def run_planted_faults():
             f"{'caught' if failed else 'NOT CAUGHT'}")
         for ln in lines[:12]:
             log("    " + ln.strip()[:400])
-    log(f"{caught} of {len(PLANTED_FAULTS)} planted faults fail the kernel "
+    log(f"{caught} of {len(faults)} planted faults fail the kernel "
         "checks or phase 8c")
-    if caught != len(PLANTED_FAULTS):
+    if not faults or caught != len(faults):
         raise AssertionError("a planted kernel fault passed the checks")
 
 
@@ -2639,7 +2796,8 @@ def main():
         f"off for matmul and cuDNN, bf16 GEMM reductions in fp32)")
 
     if "--planted-faults" in sys.argv[1:]:
-        run_planted_faults()
+        rest = [a for a in sys.argv[1:] if not a.startswith("--")]
+        run_planted_faults(rest[0] if rest else None)
         return 0
 
     log("phase 2: build")
@@ -2663,6 +2821,7 @@ def main():
     check_decode(dev, gen)
     check_flash_dropout(dev, gen)
     check_flash_bwd(dev, gen)
+    check_flash_train_shapes(dev, gen)
     check_fused_adam(dev, gen)
     check_paged(dev, gen)
     check_int8(dev, gen)
@@ -2678,6 +2837,10 @@ def main():
     decode_t = time_decode(dev, gen)
     train_t = time_flash_train(dev, gen)
     train_t["fused_adam"] = time_fused_adam(dev, gen)
+    # phase 8's shape (bf16) and the fp32 FMA kernels at GPT-2's
+    ds_flash_t = time_flash_train(dev, gen, b=DS_MICRO, h=16, s=DS_SEQ,
+                                  padded=True)
+    fp32_flash_t = time_flash_train(dev, gen, dtype=torch.float32)
     paged_t = {"paged_attention": time_paged(dev, gen, quant=False),
                "paged_attention_int8": time_paged(dev, gen, quant=True),
                "wo_int8_matmul_small_m": time_int8(dev, gen, 16),
@@ -2687,11 +2850,15 @@ def main():
     ds_t = {**time_layernorm(dev, gen), **time_quantizer(dev, gen)}
     for name, t in (("flash_attention (serving prefill)", flash_t),
                     ("decode_attention", decode_t), *train_t.items(),
+                    *ds_flash_t.items(), *fp32_flash_t.items(),
                     *paged_t.items(), *sparse_t.items(), *ds_t.items()):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+        extra = (f" ({t['impl']}; rate 0: {t['ms_rate0']:.4f} ms)"
+                 if "ms_rate0" in t else
+                 f" ({t['impl']})" if "impl" in t else "")
+        log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{extra}, "
+            f"plain {t['plain_ms']:.4f} ms, library {lib}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
 
     log("phase 4: GPT-2 125M served end to end")
@@ -2707,13 +2874,14 @@ def main():
     phase_cpu_parity(model_fp32)
     del model_fp32, model_bf16
     torch.cuda.empty_cache()
+    phase_wide_heads()
 
     log("phase 5: GPT-2 125M trained end to end")
     set_gemm_flags(defaults)
     train_counts, _ = phase_train_bf16(card,
                                        profile="--profile" in sys.argv[1:])
     set_gemm_flags((False, False, False))
-    phase_train_parity()
+    fp32_train_counts = phase_train_parity()
 
     log("phase 6: GPT-2 125M served from a paged pool (prefix cache, "
         "chunked prefill, int8 weights, int8 KV pages)")
@@ -2765,6 +2933,12 @@ def main():
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq", "fused_adam"):
         train_t[name]["launches"] = train_counts[name]
+    # the flash kernels at phase 8's shape: 8a's launches; the fp32 FMA
+    # kernels at GPT-2's training shape: 5b's (the card's fp32 run)
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        ds_flash_t[name]["launches"] = ds_counts[name]
+        fp32_flash_t[name]["launches"] = fp32_train_counts[name]
     # the paged slice's kernels: phase 3's timings at phase 6's shapes;
     # launches of 6b (bf16 pages), 6d (int8 pages) and 6c (int8 weights)
     paged_t["paged_attention"]["launches"] = paged_counts["paged_attention"]
@@ -2786,16 +2960,41 @@ def main():
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
     kernels = []
     for name, t, src, replaces in (
-            ("flash_attention", flash_t, csrc + "flash_attention_fwd.cu",
+            ("flash_attention", flash_t, csrc + "flash_attention_fwd_bf16.cu",
              pallas + "flash_attention.py:662"),
             ("decode_attention", decode_t, csrc + "decode_attention.cu",
              pallas + "decode_attention.py:118"),
             ("flash_attention_train", train_t["flash_attention"],
-             csrc + "flash_attention_fwd.cu", pallas + "flash_attention.py:662"),
+             csrc + "flash_attention_fwd_bf16.cu",
+             pallas + "flash_attention.py:662"),
             ("flash_attention_bwd_dkv", train_t["flash_attention_bwd_dkv"],
-             csrc + "flash_attention_bwd.cu", pallas + "flash_attention.py:773"),
+             csrc + "flash_attention_bwd_bf16.cu",
+             pallas + "flash_attention.py:773"),
             ("flash_attention_bwd_dq", train_t["flash_attention_bwd_dq"],
-             csrc + "flash_attention_bwd.cu", pallas + "flash_attention.py:773"),
+             csrc + "flash_attention_bwd_bf16.cu",
+             pallas + "flash_attention.py:773"),
+            ("flash_attention_ds_bert", ds_flash_t["flash_attention"],
+             csrc + "flash_attention_fwd_bf16.cu",
+             pallas + "flash_attention.py:662"),
+            ("flash_attention_bwd_dkv_ds_bert",
+             ds_flash_t["flash_attention_bwd_dkv"],
+             csrc + "flash_attention_bwd_bf16.cu",
+             pallas + "flash_attention.py:773"),
+            ("flash_attention_bwd_dq_ds_bert",
+             ds_flash_t["flash_attention_bwd_dq"],
+             csrc + "flash_attention_bwd_bf16.cu",
+             pallas + "flash_attention.py:773"),
+            ("flash_attention_fp32", fp32_flash_t["flash_attention"],
+             csrc + "flash_attention_fwd.cu",
+             pallas + "flash_attention.py:662"),
+            ("flash_attention_bwd_dkv_fp32",
+             fp32_flash_t["flash_attention_bwd_dkv"],
+             csrc + "flash_attention_bwd.cu",
+             pallas + "flash_attention.py:773"),
+            ("flash_attention_bwd_dq_fp32",
+             fp32_flash_t["flash_attention_bwd_dq"],
+             csrc + "flash_attention_bwd.cu",
+             pallas + "flash_attention.py:773"),
             ("fused_adam", train_t["fused_adam"], csrc + "fused_adam.cu",
              pallas + "fused_adam.py:46"),
             ("paged_attention", paged_t["paged_attention"],
@@ -2830,11 +3029,13 @@ def main():
             "max_abs_err": t["max_abs_err"], "max_err": t["max_abs_err"],
             "tol": (ADAM_TOL if name in ("fused_adam", "fused_lamb")
                     else 0.0 if name in ("quantize", "dequantize")
+                    else TOL[torch.float32] if name.endswith("_fp32")
                     else TOL[torch.bfloat16]),
             "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
+            **{key: t[key] for key in ("impl", "ms_rate0") if key in t},
             **({"apply_launches": t["apply_launches"]}
                if "apply_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}

@@ -28,7 +28,7 @@ from .dropout import keep_from_coords
 from .flash_attention import Dropout, _c_dropout_args, resolve_dropout
 from .sparse_attention.block_sparse_kernel import DevicePlan, device_plan
 
-HEAD_DIMS = (64, 128)   # the head dims the kernels are compiled for
+HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernels are compiled for
 
 
 def _tiles(x, tile):
@@ -318,8 +318,8 @@ def block_sparse_attention(q, k, v, sparsity_config, *, softmax_scale=None,
     tiled at ``KERNEL_TILE`` or its heads differ from q's (the caller
     takes the dense-mask route). Dropout: rate and the seed words
     (s0, s1), the flash kernels' keep bits. A CUDA tensor launches the
-    kernels (head_dim 64 or 128, float32 or bfloat16, else it raises); a
-    CPU tensor runs the plain versions."""
+    kernels (head_dim 64, 80, 96 or 128, float32 or bfloat16, else it
+    raises); a CPU tensor runs the plain versions."""
     b, s, h, d = q.shape
     plan = device_plan(sparsity_config, s, q.device)
     if plan is None or plan.plan.n_heads != h:

@@ -506,15 +506,25 @@ int launch_dkv(const Ptrs& p, const Lists& lists, int b, const SparseArgs& a,
 using LaunchFn = int (*)(const Ptrs&, const Lists&, int, const SparseArgs&,
                          const DropoutParams&, cudaStream_t);
 
+template <template <typename, int, bool> class Pick, typename E, int D>
+LaunchFn pick_drop(int dropout) {
+  return dropout ? Pick<E, D, true>::fn : Pick<E, D, false>::fn;
+}
+
+template <template <typename, int, bool> class Pick, typename E>
+LaunchFn pick_dim(int d, int dropout) {
+  if (d == 64) return pick_drop<Pick, E, 64>(dropout);
+  if (d == 80) return pick_drop<Pick, E, 80>(dropout);
+  if (d == 96) return pick_drop<Pick, E, 96>(dropout);
+  if (d == 128) return pick_drop<Pick, E, 128>(dropout);
+  return nullptr;
+}
+
 // the instance of one launcher template for (dtype, d, dropout), or null
 template <template <typename, int, bool> class Pick>
 LaunchFn pick(int dtype, int d, int dropout) {
-  if (dtype == 0 && d == 64) return dropout ? Pick<float, 64, true>::fn : Pick<float, 64, false>::fn;
-  if (dtype == 0 && d == 128) return dropout ? Pick<float, 128, true>::fn : Pick<float, 128, false>::fn;
-  if (dtype == 1 && d == 64)
-    return dropout ? Pick<__nv_bfloat16, 64, true>::fn : Pick<__nv_bfloat16, 64, false>::fn;
-  if (dtype == 1 && d == 128)
-    return dropout ? Pick<__nv_bfloat16, 128, true>::fn : Pick<__nv_bfloat16, 128, false>::fn;
+  if (dtype == 0) return pick_dim<Pick, float>(d, dropout);
+  if (dtype == 1) return pick_dim<Pick, __nv_bfloat16>(d, dropout);
   return nullptr;
 }
 
@@ -543,8 +553,8 @@ int run(LaunchFn fn, const Ptrs& p, const void* idx, const void* pid,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 128}; S a multiple of 64 (the
-// wrapper checks). q/k/v/dout are [b, S, h, d] with unit stride along d and
+// dtype: 0 = float32, 1 = bfloat16; d in {64, 80, 96, 128}; S a multiple of
+// 64 (the wrapper checks). q/k/v/dout are [b, S, h, d] with unit stride along d and
 // the given strides (in elements) for batch, sequence and head; idx/pid are
 // int32 [h, S / 64, width] lists and cnt int32 [h, S / 64] (kv lists for the
 // forward and dQ, the transposed qt lists for dK/dV); masks int8

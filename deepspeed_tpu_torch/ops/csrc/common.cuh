@@ -25,6 +25,13 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
+// The lanes of a group that reads one row with n 16-byte loads: n rounded
+// up to a power of two, so groups tile a warp (the decode and paged
+// kernels; surplus lanes load nothing).
+__host__ __device__ constexpr int lanes_for(int n) {
+  return n <= 1 ? 1 : 2 * lanes_for((n + 1) / 2);
+}
+
 // x rounded to T and back: the value-dtype cast of the probabilities
 // before the PV product (identity for fp32)
 template <typename T>
@@ -59,16 +66,35 @@ __device__ __forceinline__ uint32_t dropout_bh(const DropoutParams& dp,
          static_cast<uint32_t>(h) + static_cast<uint32_t>(dp.head_offset);
 }
 
+// The hash's first word is i * 0x27D4EB2F ^ j * 0x165667B1 ^
+// bh * 0x9E3779B1 ^ s0 ^ s1 for the absolute row i and column j, so a
+// tile can hoist the row term per row, the column term per column and the
+// rest per (batch, head); keep_bit finishes it.
+__device__ __forceinline__ uint32_t hash_row(const DropoutParams& dp,
+                                             int row) {
+  return static_cast<uint32_t>(row + dp.q_offset) * 0x27D4EB2Fu;
+}
+__device__ __forceinline__ uint32_t hash_col(const DropoutParams& dp,
+                                             int col) {
+  return static_cast<uint32_t>(col + dp.k_offset) * 0x165667B1u;
+}
+__device__ __forceinline__ uint32_t hash_base(const DropoutParams& dp,
+                                              uint32_t bh) {
+  return (bh * 0x9E3779B1u) ^ dp.s0 ^ dp.s1;
+}
+__device__ __forceinline__ bool keep_bit(const DropoutParams& dp,
+                                         uint32_t row_term,
+                                         uint32_t col_term, uint32_t base) {
+  uint32_t x = mix32(row_term ^ col_term ^ base);
+  x = mix32(x + 0x9E3779B9u);
+  return x >= dp.threshold;
+}
+
 // True when the probability at (row, col) of this call is kept.
 __device__ __forceinline__ bool dropout_keep(const DropoutParams& dp,
                                              uint32_t bh, int row, int col) {
-  const uint32_t i = static_cast<uint32_t>(row + dp.q_offset);
-  const uint32_t j = static_cast<uint32_t>(col + dp.k_offset);
-  uint32_t x = (i * 0x27D4EB2Fu) ^ (j * 0x165667B1u) ^ (bh * 0x9E3779B1u) ^
-               dp.s0;
-  x = mix32(x ^ dp.s1);
-  x = mix32(x + 0x9E3779B9u);
-  return x >= dp.threshold;
+  return keep_bit(dp, hash_row(dp, row), hash_col(dp, col),
+                  hash_base(dp, bh));
 }
 
 // The dropout arguments of the C entry points, in the order they come.

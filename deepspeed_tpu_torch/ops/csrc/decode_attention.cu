@@ -20,8 +20,12 @@
 // request's length and not the slot capacity, and the garbage that free
 // serving slots hold past their length is never read. Each key row is
 // read by a group of d * itemsize / 16 threads with one 16-byte load each
-// (coalesced along d; neighbouring groups read neighbouring rows), and
-// every group keeps its own fp32 running max, sum and d-slice of the
+// (coalesced along d; neighbouring groups read neighbouring rows). The
+// group spans that count rounded up to a power of two lanes, so it divides
+// the warp at any head dim: at d 80 or 96 (10 or 12 bf16 loads a row) the
+// surplus lanes of a 16-lane group load nothing and add zeros, and no
+// padding byte is read or stored. Every group
+// keeps its own fp32 running max, sum and d-slice of the
 // accumulator over four keys per step (four loads in flight per thread).
 // The groups' states merge at the end with shuffles inside a warp and
 // shared memory across warps. A split-K (flash-decoding) variant that
@@ -51,10 +55,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         long long k_ss, long long v_sb, long long v_sh,
                         long long v_ss, float scale) {
   constexpr int VEC = Vec16<T>::N;          // elements per 16-byte load
-  constexpr int TPK = D / VEC;              // threads per key row
+  constexpr int LOADS = D / VEC;            // 16-byte loads per key row
+  constexpr int TPK = lanes_for(LOADS);     // lanes per key group
   constexpr int GPW = 32 / TPK;             // key groups per warp
   constexpr int GROUPS = WARPS * GPW;
-  static_assert(TPK >= 1 && TPK <= 32 && 32 % TPK == 0, "bad head_dim");
+  static_assert(D % VEC == 0 && LOADS <= 32, "bad head_dim");
 
   __shared__ float m_s[WARPS], l_s[WARPS];
   __shared__ float acc_s[WARPS][D];
@@ -65,6 +70,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int g = warp * GPW + lane / TPK;    // this thread's key group
   const int t = lane % TPK;                 // its 16-byte slice of d
+  const bool active = t < LOADS;            // false on surplus lanes
 
   const int length = lengths[b];
   const int n = min(length, S);             // keys actually read
@@ -72,7 +78,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float slope = slopes != nullptr ? slopes[h] : 0.f;
 
   float qf[VEC];
-  {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) qf[e] = 0.f;
+  if (active) {
     const Vec16<T> qv = *reinterpret_cast<const Vec16<T>*>(
         q + b * q_sb + h * q_sh + t * VEC);
 #pragma unroll
@@ -93,7 +101,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = base + u * GROUPS + g;
-      if (j < n) {
+      if (active && j < n) {
         kv[u] = *reinterpret_cast<const Vec16<T>*>(kb + j * k_ss);
         vv[u] = *reinterpret_cast<const Vec16<T>*>(vb + j * v_ss);
       }
@@ -102,7 +110,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < UNROLL; ++u) {
       const int j = base + u * GROUPS + g;
       float part = 0.f;
-      if (j < n) {
+      if (active && j < n) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
           part = fmaf(qf[e], to_float(kv[u].x[e]), part);
@@ -127,9 +135,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (j < n) {
         const float p = expf(s[u] - m_new);
         l += p;
+        if (active) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          acc[e] = fmaf(p, to_float(vv[u].x[e]), acc[e]);
+          for (int e = 0; e < VEC; ++e)
+            acc[e] = fmaf(p, to_float(vv[u].x[e]), acc[e]);
+        }
       }
     }
     m = m_new;
@@ -150,7 +160,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     m = mm;
   }
-  if (lane < TPK) {
+  if (lane < LOADS) {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc_s[warp][t * VEC + e] = acc[e];
     if (lane == 0) {
@@ -193,7 +203,8 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 128} (the wrapper checks).
+// dtype: 0 = float32, 1 = bfloat16; d in {64, 80, 96, 128} (the wrapper
+// checks).
 // q is [B, H, d] and k/v [B, H, S, d], all with unit stride along d,
 // 16-byte aligned rows and the given element strides; lengths is int32
 // [B]; slopes is fp32 [H] or nullptr; o is contiguous [B, H, d].
@@ -211,11 +222,15 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
 #define DS_DECODE_ARGS                                                   \
   q, k, v, ln, sl, o, B, H, S, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, \
       v_ss, scale, st
+  using bf16 = __nv_bfloat16;
   if (dtype == 0 && d == 64) return launch<float, 64>(DS_DECODE_ARGS);
+  if (dtype == 0 && d == 80) return launch<float, 80>(DS_DECODE_ARGS);
+  if (dtype == 0 && d == 96) return launch<float, 96>(DS_DECODE_ARGS);
   if (dtype == 0 && d == 128) return launch<float, 128>(DS_DECODE_ARGS);
-  if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64>(DS_DECODE_ARGS);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(DS_DECODE_ARGS);
+  if (dtype == 1 && d == 64) return launch<bf16, 64>(DS_DECODE_ARGS);
+  if (dtype == 1 && d == 80) return launch<bf16, 80>(DS_DECODE_ARGS);
+  if (dtype == 1 && d == 96) return launch<bf16, 96>(DS_DECODE_ARGS);
+  if (dtype == 1 && d == 128) return launch<bf16, 128>(DS_DECODE_ARGS);
 #undef DS_DECODE_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dK/dV, then dQ.
+// Flash-attention backward for Hopper (sm_90a), fp32: dK/dV, then dQ.
+// bf16 inputs go to the tensor-core kernels of flash_attention_bwd_bf16.cu;
+// these are the port's fp32 parity mode.
 //
 // Replaces the TPU backward kernels reached through _flash_bwd
 // (deepspeed_tpu/ops/pallas/flash_attention.py:773): the monolithic
@@ -18,10 +20,9 @@
 //
 // What bounds it on the H100: at GPT-2 training shapes (d = 64, s = 1024)
 // the work is 7 products of b*h*visible*d FMAs against O(b*h*s*d) bytes,
-// far above the ~295 FLOP/byte ridge, so the bound is the math. This first
-// version, like the forward, does the products with fp32 FMAs from shared
-// memory (67 TFLOP/s peak, not the tensor cores' 989); wgmma/TMA are later
-// work.
+// far above the ~295 FLOP/byte ridge, so the bound is the math. Like the
+// fp32 forward, it does the products with fp32 FMAs from shared memory
+// (67 TFLOP/s peak), which keeps fp32 inputs exact for the parity tests.
 //
 // Design: two kernels, deterministic and free of atomics (a TPU grid
 // carries dK/dV in scratch across sequential steps; CTAs on Hopper run in
@@ -349,7 +350,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Both entry points take the same arguments apart from their outputs.
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 128} (the wrapper checks).
+// dtype: 0 = float32 (bfloat16 is the _bf16 entry points'); d in
+// {64, 80, 96, 128} (the wrapper checks).
 // q/k/v/dout are [b, s, h, d] with unit stride along d and the given
 // strides (in elements) for batch, sequence and head; lse and delta are
 // contiguous fp32 [b, h, sq]; bias is fp32 with unit stride along sk and
@@ -363,6 +365,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       long long o_sb, long long o_ss, long long o_sh, long long b_sb,        \
       long long b_sh, long long b_sq, float scale, int causal,               \
       DS_DROPOUT_PARAMS, void* stream
+#define DS_BWD_CALL(FN, D, DROP, OUT0, OUT1)                                 \
+  return FN<float, D, DROP>(q, k, v, dout, ls, dl, bi, OUT0, OUT1, b, a, dr, \
+                            st);
+#define DS_BWD_DIMS(FN, DROP, OUT0, OUT1)                                    \
+  if (d == 64) DS_BWD_CALL(FN, 64, DROP, OUT0, OUT1)                         \
+  if (d == 80) DS_BWD_CALL(FN, 80, DROP, OUT0, OUT1)                         \
+  if (d == 96) DS_BWD_CALL(FN, 96, DROP, OUT0, OUT1)                         \
+  if (d == 128) DS_BWD_CALL(FN, 128, DROP, OUT0, OUT1)
 #define DS_BWD_DISPATCH(FN, OUT0, OUT1)                                      \
   const BwdArgs a{h,    sq,   sk,   q_sb, q_ss, q_sh, k_sb,  k_ss,          \
                   k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,  b_sb,          \
@@ -372,32 +382,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const float* ls = static_cast<const float*>(lse);                         \
   const float* dl = static_cast<const float*>(delta);                       \
   const float* bi = static_cast<const float*>(bias);                        \
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);           \
   if (dropout) {                                                            \
-    if (dtype == 0 && d == 64)                                              \
-      return FN<float, 64, true>(q, k, v, dout, ls, dl, bi, OUT0, OUT1, b,  \
-                                 a, dr, st);                                \
-    if (dtype == 0 && d == 128)                                             \
-      return FN<float, 128, true>(q, k, v, dout, ls, dl, bi, OUT0, OUT1, b, \
-                                  a, dr, st);                               \
-    if (dtype == 1 && d == 64)                                              \
-      return FN<__nv_bfloat16, 64, true>(q, k, v, dout, ls, dl, bi, OUT0,   \
-                                         OUT1, b, a, dr, st);               \
-    if (dtype == 1 && d == 128)                                             \
-      return FN<__nv_bfloat16, 128, true>(q, k, v, dout, ls, dl, bi, OUT0,  \
-                                          OUT1, b, a, dr, st);              \
+    DS_BWD_DIMS(FN, true, OUT0, OUT1)                                       \
   } else {                                                                  \
-    if (dtype == 0 && d == 64)                                              \
-      return FN<float, 64, false>(q, k, v, dout, ls, dl, bi, OUT0, OUT1, b, \
-                                  a, dr, st);                               \
-    if (dtype == 0 && d == 128)                                             \
-      return FN<float, 128, false>(q, k, v, dout, ls, dl, bi, OUT0, OUT1,   \
-                                   b, a, dr, st);                           \
-    if (dtype == 1 && d == 64)                                              \
-      return FN<__nv_bfloat16, 64, false>(q, k, v, dout, ls, dl, bi, OUT0,  \
-                                          OUT1, b, a, dr, st);              \
-    if (dtype == 1 && d == 128)                                             \
-      return FN<__nv_bfloat16, 128, false>(q, k, v, dout, ls, dl, bi, OUT0, \
-                                           OUT1, b, a, dr, st);             \
+    DS_BWD_DIMS(FN, false, OUT0, OUT1)                                      \
   }                                                                         \
   return static_cast<int>(cudaErrorInvalidValue);
 

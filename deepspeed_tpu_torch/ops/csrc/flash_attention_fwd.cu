@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): O and the per-row LSE.
+// Flash-attention forward for Hopper (sm_90a), fp32: O and the per-row
+// LSE. bf16 inputs go to the tensor-core kernel of
+// flash_attention_fwd_bf16.cu; this one is the port's fp32 parity mode.
 //
 // Replaces the TPU kernels _fwd_kernel_resident and _fwd_kernel_streamed
 // (deepspeed_tpu/ops/pallas/flash_attention.py:277, :453), reached through
@@ -16,10 +18,9 @@
 // What bounds it on the H100: at serving-prefill shapes (GPT-2, d = 64,
 // sq = sk <= 1024) the work is 4*b*h*sq*sk_visible*d FLOPs against
 // O(b*h*(sq+sk)*d) bytes, far above the H100's ~295 FLOP/byte ridge, so
-// the bound is the math. This first version does the products with fp32
-// FMAs from shared memory (67 TFLOP/s peak, not the tensor cores' 989),
-// which keeps fp32 inputs exact for the parity tests; wgmma/TMA are later
-// work.
+// the bound is the math. It does the products with fp32 FMAs from shared
+// memory (67 TFLOP/s peak), which keeps fp32 inputs exact for the parity
+// tests (TF32 tensor cores would not).
 //
 // Design: one CTA of 256 threads per (64-row q tile, head, batch). The Q
 // tile and each 64-key K/V tile are staged in shared memory as fp32 (rows
@@ -220,7 +221,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 128} (the wrapper checks).
+// dtype: 0 = float32 (bfloat16 is flash_attention_fwd_bf16's); d in
+// {64, 80, 96, 128} (the wrapper checks).
 // q/k/v are [b, s, h, d] with unit stride along d and the given strides
 // (in elements) for batch, sequence and head; bias is fp32 with unit
 // stride along sk and stride 0 on its broadcast dims (nullptr for none);
@@ -241,13 +243,11 @@ extern "C" int flash_attention_fwd(
   q, k, v, bi, o, ls, b, h, sq, sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,    \
       v_sb, v_ss, v_sh, b_sb, b_sh, b_sq, scale, causal, dp, st
 #define DS_FLASH_DISPATCH(DROP)                                            \
-  if (dtype == 0 && d == 64) return launch<float, 64, DROP>(DS_FLASH_ARGS); \
-  if (dtype == 0 && d == 128)                                              \
-    return launch<float, 128, DROP>(DS_FLASH_ARGS);                        \
-  if (dtype == 1 && d == 64)                                               \
-    return launch<__nv_bfloat16, 64, DROP>(DS_FLASH_ARGS);                 \
-  if (dtype == 1 && d == 128)                                              \
-    return launch<__nv_bfloat16, 128, DROP>(DS_FLASH_ARGS);
+  if (d == 64) return launch<float, 64, DROP>(DS_FLASH_ARGS);              \
+  if (d == 80) return launch<float, 80, DROP>(DS_FLASH_ARGS);              \
+  if (d == 96) return launch<float, 96, DROP>(DS_FLASH_ARGS);              \
+  if (d == 128) return launch<float, 128, DROP>(DS_FLASH_ARGS);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dropout) {
     DS_FLASH_DISPATCH(true)
   } else {

@@ -24,8 +24,10 @@
 //
 // Design: one CTA of 128 threads per (slot, head). The CTA first copies its
 // own page-table row into shared memory (the TPU's scalar prefetch). A key
-// is read by a group of d * sizeof(page elem) / 16 threads with one 16-byte
-// load each (coalesced along d inside a page row); the logical page index
+// is read by d * sizeof(page elem) / 16 threads with one 16-byte load each
+// (coalesced along d inside a page row), in a group of that count rounded
+// up to a power of two lanes: at d 80 or 96 the surplus lanes load nothing,
+// so no padding byte is stored or read at any head dim. The logical page index
 // is clamped to max_pages - 1 as the TPU kernel does (:113). Every group
 // keeps its own fp32 running max, sum and d-slice of the accumulator over
 // four keys per step; int8 elements are converted and multiplied by the
@@ -73,10 +75,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                        long long vn_sb, long long vn_sh, float scale) {
   constexpr bool QUANT = sizeof(P) == 1;
   constexpr int VEC = Vec16<P>::N;          // elements per 16-byte load
-  constexpr int TPK = D / VEC;              // threads per key row
+  constexpr int LOADS = D / VEC;            // 16-byte loads per key row
+  constexpr int TPK = lanes_for(LOADS);     // lanes per key group
   constexpr int GPW = 32 / TPK;             // key groups per warp
   constexpr int GROUPS = WARPS * GPW;
-  static_assert(TPK >= 1 && TPK <= 32 && 32 % TPK == 0, "bad head_dim");
+  static_assert(D % VEC == 0 && LOADS <= 32, "bad head_dim");
 
   extern __shared__ int table_s[];          // this slot's page-table row
   __shared__ float m_s[WARPS], l_s[WARPS], s_cur_s;
@@ -88,6 +91,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   const int warp = threadIdx.x >> 5;
   const int g = warp * GPW + lane / TPK;    // this thread's key group
   const int t = lane % TPK;                 // its 16-byte slice of d
+  const bool active = t < LOADS;            // false on surplus lanes
 
   for (int i = threadIdx.x; i < max_pages; i += THREADS)
     table_s[i] = ptab[static_cast<long long>(b) * max_pages + i];
@@ -99,7 +103,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
 
   float qf[VEC];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) qf[e] = to_float(qb[t * VEC + e]) * scale;
+  for (int e = 0; e < VEC; ++e)
+    qf[e] = active ? to_float(qb[t * VEC + e]) * scale : 0.f;
   __syncthreads();
 
   const long long head_off = static_cast<long long>(h) * page_len;
@@ -118,7 +123,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     for (int u = 0; u < UNROLL; ++u) {
       const int j = base + u * GROUPS + g;
       ksc[u] = vsc[u] = 1.f;
-      if (j < n) {
+      if (active && j < n) {
         const int logical = min(j / page_len, max_pages - 1);
         const long long tok = table_s[logical] * page_stride + head_off +
                               j % page_len;   // (page, head, offset)
@@ -134,7 +139,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     for (int u = 0; u < UNROLL; ++u) {
       const int j = base + u * GROUPS + g;
       float part = 0.f;
-      if (j < n) {
+      if (active && j < n) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
           const float kf = QUANT ? page_float(kv[u].x[e]) * ksc[u]
@@ -162,11 +167,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
       if (j < n) {
         const float p = expf(s[u] - m_new);
         l += p;
+        if (active) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const float vf = QUANT ? page_float(vv[u].x[e]) * vsc[u]
-                                 : page_float(vv[u].x[e]);
-          acc[e] = fmaf(p, vf, acc[e]);
+          for (int e = 0; e < VEC; ++e) {
+            const float vf = QUANT ? page_float(vv[u].x[e]) * vsc[u]
+                                   : page_float(vv[u].x[e]);
+            acc[e] = fmaf(p, vf, acc[e]);
+          }
         }
       }
     }
@@ -188,7 +195,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     }
     m = mm;
   }
-  if (lane < TPK) {
+  if (lane < LOADS) {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc_s[warp][t * VEC + e] = acc[e];
     if (lane == 0) {
@@ -254,9 +261,9 @@ int launch(const void* q, const void* kn, const void* vn, const void* kp,
 
 // dtype (of q, k_new, v_new and o): 0 = float32, 1 = bfloat16; page_dtype:
 // the same code as dtype, or 2 = int8 with fp32 scale planes ks/vs
-// (nullptr otherwise); d in {64, 128} (the wrapper checks). q, k_new and
-// v_new are [B, H, d] with unit stride along d and the given (slot, head)
-// element strides; the pools are contiguous [num_pages, H, page_len, d]
+// (nullptr otherwise); d in {64, 80, 96, 128} (the wrapper checks). q,
+// k_new and v_new are [B, H, d] with unit stride along d and the given
+// (slot, head) element strides; the pools are contiguous [num_pages, H, page_len, d]
 // (scales [num_pages, H, page_len]); ptab is contiguous int32
 // [B, max_pages]; lengths int32 [B]; slopes fp32 [H] or nullptr; o is
 // contiguous [B, H, d].
@@ -279,22 +286,20 @@ extern "C" int paged_attention(
   q, kn, vn, kp, vp, ksf, vsf, pt, ln, sl, o, B, H, page_len, max_pages,    \
       q_sb, q_sh, kn_sb, kn_sh, vn_sb, vn_sh, scale, st
   using bf16 = __nv_bfloat16;
-  if (dtype == 0 && page_dtype == 0 && d == 64)
-    return launch<float, float, 64>(DS_PAGED_ARGS);
-  if (dtype == 0 && page_dtype == 0 && d == 128)
-    return launch<float, float, 128>(DS_PAGED_ARGS);
-  if (dtype == 1 && page_dtype == 1 && d == 64)
-    return launch<bf16, bf16, 64>(DS_PAGED_ARGS);
-  if (dtype == 1 && page_dtype == 1 && d == 128)
-    return launch<bf16, bf16, 128>(DS_PAGED_ARGS);
-  if (dtype == 0 && page_dtype == 2 && d == 64)
-    return launch<float, int8_t, 64>(DS_PAGED_ARGS);
-  if (dtype == 0 && page_dtype == 2 && d == 128)
-    return launch<float, int8_t, 128>(DS_PAGED_ARGS);
-  if (dtype == 1 && page_dtype == 2 && d == 64)
-    return launch<bf16, int8_t, 64>(DS_PAGED_ARGS);
-  if (dtype == 1 && page_dtype == 2 && d == 128)
-    return launch<bf16, int8_t, 128>(DS_PAGED_ARGS);
+#define DS_PAGED_DIMS(T, P, DT, PT)                                          \
+  if (dtype == DT && page_dtype == PT && d == 64)                            \
+    return launch<T, P, 64>(DS_PAGED_ARGS);                                  \
+  if (dtype == DT && page_dtype == PT && d == 80)                            \
+    return launch<T, P, 80>(DS_PAGED_ARGS);                                  \
+  if (dtype == DT && page_dtype == PT && d == 96)                            \
+    return launch<T, P, 96>(DS_PAGED_ARGS);                                  \
+  if (dtype == DT && page_dtype == PT && d == 128)                           \
+    return launch<T, P, 128>(DS_PAGED_ARGS);
+  DS_PAGED_DIMS(float, float, 0, 0)
+  DS_PAGED_DIMS(bf16, bf16, 1, 1)
+  DS_PAGED_DIMS(float, int8_t, 0, 2)
+  DS_PAGED_DIMS(bf16, int8_t, 1, 2)
+#undef DS_PAGED_DIMS
 #undef DS_PAGED_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

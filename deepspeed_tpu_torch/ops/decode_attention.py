@@ -15,7 +15,7 @@ import torch
 
 from ._common import NEG_INF, check_launch, kernel_dtype_code, use_kernel
 
-HEAD_DIMS = (64, 128)   # the head dims the kernel is compiled for
+HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernel is compiled for
 
 
 def decode_attention_reference(q, k, v, lengths, *, softmax_scale=None,

@@ -5,10 +5,13 @@ Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``
 ``flash_attention`` (:975): the forward ``_flash_fwd`` (:662) with its
 fused counter-based dropout, the backward ``_flash_bwd`` (:773) and the
 ``custom_vjp`` wiring (:957-972), here a ``torch.autograd.Function``. The
-kernels are ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ); their headers say what
-bounds them on the H100 and how they are laid out. A CUDA tensor launches
-the kernels, a CPU tensor runs ``flash_attention_reference`` and
+kernels are picked by dtype: bf16 runs the tensor-core kernels of
+``csrc/flash_attention_fwd_bf16.cu`` and ``csrc/flash_attention_bwd_bf16.cu``
+(dK/dV, then dQ), fp32 the FMA kernels of ``csrc/flash_attention_fwd.cu``
+and ``csrc/flash_attention_bwd.cu`` (exact fp32 products: the parity
+mode); their headers say what bounds them on the H100 and how they are
+laid out. Both hold to the same plain versions. A CUDA tensor launches the
+kernels, a CPU tensor runs ``flash_attention_reference`` and
 ``flash_attention_bwd_reference``. dBias is a dense recompute outside the
 kernels (``_dbias_dense`` :743), run only when the bias requires grad.
 """
@@ -22,8 +25,8 @@ from ._common import (NEG_INF, check_launch, kernel_dtype_code,
                       use_kernel)
 from .dropout import attention_dropout_keep, keep_threshold
 
-HEAD_DIMS = (64, 128)   # the head dims the kernels are compiled for
-BLOCK_K = 64            # the forward kernel's key tile (csrc BK)
+HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernels are compiled for
+BLOCK_K = 64            # the forward kernels' online-softmax step (csrc BK)
 
 
 class Dropout(NamedTuple):
@@ -199,9 +202,21 @@ def _bias_operand(bias, q, k):
     return bias.to(q.dtype if bias.shape[2] > 1 else torch.float32)
 
 
+def _kernel_layout(t):
+    """``t`` as the kernels read it: unit stride along d and, for the bf16
+    kernels' 16-byte copies, 16-byte aligned base and strides; otherwise a
+    contiguous copy."""
+    size = t.element_size()
+    if t.stride(-1) == 1 and (t.dtype != torch.bfloat16 or (
+            t.data_ptr() % 16 == 0
+            and all(t.stride(i) * size % 16 == 0 for i in range(3)))):
+        return t
+    return t.contiguous()
+
+
 def _kernel_operands(q, k, v, bias):
-    """Check q/k/v for the kernels; returns (dtype code, q, k, v with unit
-    stride along d, fp32 bias, bias strides)."""
+    """Check q/k/v for the kernels; returns (dtype code, q, k, v in the
+    kernels' layout, fp32 bias, bias strides)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if d not in HEAD_DIMS:
@@ -217,7 +232,7 @@ def _kernel_operands(q, k, v, bias):
                 or t.shape[3] != d or (name == "v" and t.shape[1] != sk):
             raise ValueError(f"flash_attention: {name} {tuple(t.shape)} "
                              f"does not match q {tuple(q.shape)} on {dev}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
     bstrides = (0, 0, 0)
     if bias is not None:
         bias = bias.float().to(dev)
@@ -232,6 +247,12 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _entry(lib, name, code):
+    """The C entry point of one flash kernel for the dtype code: the
+    tensor-core kernel for bf16 (code 1), the FMA kernel for fp32."""
+    return getattr(lib, name + "_bf16" if code == 1 else name)
+
+
 def _launch(q, k, v, bias, causal, scale, dropout):
     """Launch the forward kernel; returns (o, lse)."""
     from . import op_builder
@@ -243,8 +264,7 @@ def _launch(q, k, v, bias, causal, scale, dropout):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if b * h * sq == 0:
         return o, lse
-    lib = op_builder.load()
-    status = lib.flash_attention_fwd(
+    status = _entry(op_builder.load(), "flash_attention_fwd", code)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         o.data_ptr(), lse.data_ptr(), code, b, h, sq, sk, d,
@@ -290,7 +310,7 @@ def bwd_operands(q, k, v, o, lse, do, bias):
         raise ValueError(f"flash_attention backward: dO {tuple(do.shape)} "
                          f"{do.dtype} / O {tuple(o.shape)} do not match q "
                          f"{tuple(q.shape)} {q.dtype}")
-    do = do if do.stride(-1) == 1 else do.contiguous()
+    do = _kernel_layout(do)
     return BwdOperands(code, q, k, v, do, lse.float().contiguous(),
                        _delta(o, do).contiguous(), bias, bstrides)
 
@@ -305,9 +325,9 @@ def launch_bwd_dkv(ops: BwdOperands, causal, scale, dropout):
     if dk.numel() == 0:
         return dk, dv
     ins, rest = ops.c_args(causal, scale, dropout)
-    check_launch(op_builder.load().flash_attention_bwd_dkv(
-        *ins, dk.data_ptr(), dv.data_ptr(), *rest),
-        "flash_attention_bwd_dkv")
+    fn = _entry(op_builder.load(), "flash_attention_bwd_dkv", ops.code)
+    check_launch(fn(*ins, dk.data_ptr(), dv.data_ptr(), *rest),
+                 "flash_attention_bwd_dkv")
     flash_attention_bwd.dkv_launches += 1
     return dk, dv
 
@@ -319,8 +339,8 @@ def launch_bwd_dq(ops: BwdOperands, causal, scale, dropout):
     if dq.numel() == 0:
         return dq
     ins, rest = ops.c_args(causal, scale, dropout)
-    check_launch(op_builder.load().flash_attention_bwd_dq(
-        *ins, dq.data_ptr(), *rest), "flash_attention_bwd_dq")
+    fn = _entry(op_builder.load(), "flash_attention_bwd_dq", ops.code)
+    check_launch(fn(*ins, dq.data_ptr(), *rest), "flash_attention_bwd_dq")
     flash_attention_bwd.dq_launches += 1
     return dq
 
@@ -406,8 +426,9 @@ def flash_attention(q, k, v, *, bias=None, causal=True, softmax_scale=None,
     sharded block come with sequence parallelism; the ``Dropout`` tuple
     carries them). Gradients flow to q, k, v (and to the bias when it
     requires grad) through the backward kernels. A CUDA tensor launches
-    the kernels (head_dim 64 or 128, float32 or bfloat16, else it
-    raises); a CPU tensor runs the plain versions.
+    the kernels (head_dim 64, 80, 96 or 128; bfloat16 on the tensor
+    cores, float32 on FMAs; else it raises); a CPU tensor runs the plain
+    versions.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D [b, s, h, d] q/k/v")

@@ -37,22 +37,25 @@ _DROPOUT = [_i, _u, _u, _u, _f, _i, _i, _i, _i, _i]
 # dtype, b, h, sq, sk, d, then (batch, seq, head) strides of q, k, v, dO,
 # (batch, head, q) strides of the bias, scale, causal, dropout, stream
 _BWD = [_i] * 6 + [_ll] * 15 + [_f, _i] + _DROPOUT + [_p]
+# q, k, v, bias, o, lse, dtype, b, h, sq, sk, d,
+# q/k/v strides (batch, seq, head), bias strides (batch, head, q),
+# scale, causal, dropout, stream
+_FWD = [_p] * 6 + [_i] * 6 + [_ll] * 12 + [_f, _i] + _DROPOUT + [_p]
 _LAMB = [_p, _p, _i, _i, _p, _p] + [_f] * 10 + [_p]
 # the block-sparse dQ and dK/dV arguments after their pointers
 _SPARSE_BWD = [_i] * 6 + [_ll] * 12 + [_f, *_DROPOUT, _p]
 
 # argtypes of every C entry point; each returns cudaGetLastError() as int
 SIGNATURES = {
-    # q, k, v, bias, o, lse, dtype, b, h, sq, sk, d,
-    # q/k/v strides (batch, seq, head), bias strides (batch, head, q),
-    # scale, causal, dropout, stream
-    "flash_attention_fwd": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-                            _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
-                            _ll, _ll, _ll, _f, _i, *_DROPOUT, _p],
+    "flash_attention_fwd": _FWD,
     # q, k, v, dO, lse, delta, bias, dk, dv, then _BWD
     "flash_attention_bwd_dkv": [_p] * 9 + _BWD,
     # q, k, v, dO, lse, delta, bias, dq, then _BWD
     "flash_attention_bwd_dq": [_p] * 8 + _BWD,
+    # the bf16 tensor-core kernels: the same arguments as the three above
+    "flash_attention_fwd_bf16": _FWD,
+    "flash_attention_bwd_dkv_bf16": [_p] * 9 + _BWD,
+    "flash_attention_bwd_dq_bf16": [_p] * 8 + _BWD,
     # table, block_start, n_entries, n_blocks, grad_norm, lr, b1, 1-b1,
     # b2, 1-b2, c1, c2, eps, wd, l2, max_norm, stream
     "fused_adam": [_p, _p, _i, _i, _p] + [_f] * 11 + [_p],

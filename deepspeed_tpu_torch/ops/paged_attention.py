@@ -25,7 +25,7 @@ import torch
 
 from ._common import NEG_INF, check_launch, kernel_dtype_code, use_kernel
 
-HEAD_DIMS = (64, 128)   # the head dims the kernel is compiled for
+HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernel is compiled for
 _INT8_PAGES = 2         # the C entry point's page-dtype code for int8
 
 

@@ -138,11 +138,15 @@ class ServingConfig:
 
     @property
     def cache_len(self) -> int:
-        """Slot capacity. The decode and paged kernels take any capacity,
-        so unlike the JAX package (which rounds up to 128 for its Pallas
-        tiling) this is ``max_len`` itself; with paging, ``page_len``
-        must divide it."""
-        return self.max_len
+        """Slot capacity: ``max_len`` plus the speculation headroom
+        ``pad``, rounded up to a multiple of 128, as the JAX package
+        computes it, so page tables, the pool size, the prefill buckets
+        and the paging validation are the JAX engine's at every
+        ``max_len``. ``pad`` is 0 until speculative decoding is ported.
+        Admission and the per-request budget read ``max_len``; the
+        kernels read only the valid tokens of a slot."""
+        pad = 0
+        return (self.max_len + pad + 127) // 128 * 128
 
     def bucket_lengths(self) -> Tuple[int, ...]:
         """The prefill-length set: multiples of ``prefill_bucket`` up to

@@ -57,10 +57,13 @@ def _admit_impl(model, cache, state, prompt, prompt_len: int, slot: int,
     from position ``prompt_len - 1`` and activate the slot's state row (in
     place). The pad tail's K/V sits at positions >= prompt_len, which the
     slot's length mask never reads and later decode tokens overwrite in
-    order. Returns (token, done) as device tensors."""
+    order; its positions are clipped to the model's table (a bucket may
+    pass ``max_seq_len`` when ``cache_len`` does). Returns (token, done)
+    as device tensors."""
     row = make_row_cache(cache)
-    logits = _prefill_impl(model, row, prompt,
-                           torch.arange(prompt.shape[1], device=prompt.device))
+    positions = torch.arange(prompt.shape[1], device=prompt.device).clamp(
+        max=model.config.max_seq_len - 1)
+    logits = _prefill_impl(model, row, prompt, positions)
     tok = _sample_impl(logits[:, prompt_len - 1], generator, mode)[0]
     write_cache_row(cache, row, slot)
     remaining = max_new - 1

@@ -1,5 +1,5 @@
 """Paged-KV configuration (the ``serving.paging`` sub-block), a copy of
-``deepspeed_tpu/serving/paging/config.py`` with two changes:
+``deepspeed_tpu/serving/paging/config.py`` with one change:
 
 - ``kernel``: "auto" and "on" run the paged-attention kernel over the
   pool on a CUDA device (its plain version on the CPU); "off" runs the
@@ -7,11 +7,11 @@
   ``decode_attention`` kernel) — a user's explicit choice, never a
   fallback. The port's kernel takes any ``page_len``, so the JAX
   package's 128-alignment refusal does not apply.
-- The slot capacity the page table tiles is the port's
-  ``ServingConfig.cache_len``, which is ``max_len`` itself (the JAX
-  package rounds it up to a 128 multiple). Page decisions equal the JAX
-  engine's when ``max_len`` is a 128 multiple, which is how the parity
-  tests run.
+
+The slot capacity the page table tiles is ``ServingConfig.cache_len``,
+computed as the JAX package computes it (``max_len`` rounded up to a
+multiple of 128), so page decisions equal the JAX engine's at every
+``max_len``.
 """
 
 from dataclasses import dataclass
