@@ -67,9 +67,11 @@ Phases, each fatal on failure:
    steps): the loss of each step within 1e-4, each parameter tensor
    within 0.02 of the sum of its largest LAMB step per step. Phase 3 holds
    the block-sparse forward, dQ and dK/dV kernels (five patterns, 256 and
-   4096 tokens, dropout off and on) and the LAMB kernels (both clip
-   sides, no clip, a zero tensor) against their plain versions first,
-   and times them at phase 7's shapes;
+   4096 tokens, dropout off and on; bf16 dQ and dK/dV on the tensor
+   cores, each launched twice for the same bits, fp32 on FMAs) and the
+   LAMB kernels (both clip sides, no clip, a zero tensor) against their
+   plain versions first, and times them at phase 7's shapes (the fp32
+   dQ and dK/dV too, with 7b's launches);
 8. the compression slice end to end: a BERT-large stack of
    ``DeepSpeedTransformerLayer``s (d 1024, 24 layers, 16 heads, d_ff
    4096, pre-LN, word and position embeddings, a final LayerNorm and the
@@ -105,7 +107,7 @@ Phases, each fatal on failure:
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (eight faults) or
+``--planted-faults [name]`` runs ``--checks-only`` (twelve faults) or
 ``--8c-only`` (two) in copies of the checkout, each with one kernel
 fault planted (``PLANTED_FAULTS``; only those whose source file name
 contains ``name``, when given), and fails unless every copy fails; it
@@ -955,7 +957,9 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     """The three block-sparse kernels against their plain versions: every
     config of ``sparse_configs`` at each size, fp32 and bf16, dropout off
     and 0.1, head_dim 64 (and 80, 96, 128 at the smaller size). Both
-    backward versions take the kernel forward's (o, m, l)."""
+    backward versions take the kernel forward's (o, m, l). bf16 reaches
+    the tensor-core dQ and dK/dV kernels, fp32 the FMA kernels; every
+    bf16 case launches both twice and requires the same bits."""
     from deepspeed_tpu_torch.ops.block_sparse_attention import (
         block_sparse_dkv_reference, block_sparse_dq_reference,
         block_sparse_fwd_reference, launch_dkv, launch_dq, launch_fwd)
@@ -963,6 +967,7 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
         device_plan
     gates = {k: Gate(f"block_sparse {k}") for k in ("fwd", "dq", "dkv")}
+    repeats, differ = 0, []
     cases = [(s, d) for s in sizes for d in (HEAD_DIMS if s == min(sizes)
                                              else (64,))]
     for s, d in cases:
@@ -989,10 +994,19 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
                                                     plan, scale, drop)
                     rdk, rdv = block_sparse_dkv_reference(
                         q, k, v, do, delta, m, l, plan, scale, drop)
-                    torch.cuda.synchronize()
                     label = (f"S={s:4d} d={d:3d} {name:13s} rate={rate} "
                              f"({plan.plan.active_tiles} tiles, "
                              f"{len(plan.plan.masks)} masks)")
+                    if dtype == torch.bfloat16:
+                        again = (launch_dq(q, k, v, do, delta, m, l, plan,
+                                           scale, drop),
+                                 *launch_dkv(q, k, v, do, delta, m, l, plan,
+                                             scale, drop))
+                        repeats += 1
+                        if not all(torch.equal(a, b) for a, b in
+                                   zip((dq, dk, dv), again)):
+                            differ.append(label)
+                    torch.cuda.synchronize()
                     show = (s, d) == (max(sizes), 64) and \
                         name == "bigbird-64"
                     stats = (max(_rel_err(m, rm), _rel_err(l, rl))
@@ -1002,6 +1016,11 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
                     gates["dkv"].case(dtype, [dk, dv], [rdk, rdv], label, show)
     for g in gates.values():
         g.close()
+    log(f"  block_sparse bf16 dq, dkv: two launches bit-equal in "
+        f"{repeats - len(differ)}/{repeats} cases")
+    if differ:
+        raise AssertionError(f"block_sparse bf16 backward: two launches "
+                             f"differ in {differ}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1055,11 +1074,27 @@ def check_fused_lamb(dev, gen):
                                      "plain version or between two runs")
 
 
+def _natural_order(plan):
+    """``plan`` with its count tables' launch order replaced by the rows'
+    own order (head by head, tile by tile): the tail that the
+    heaviest-first order removes shows as the difference."""
+    n = plan.kv_cnt.numel()
+    tables = []
+    for t in (plan.kv_table, plan.qt_table):
+        t = t.clone()
+        t[n:2 * n] = torch.arange(n, dtype=t.dtype, device=t.device)
+        tables.append(t)
+    return plan._replace(kv_table=tables[0], qt_table=tables[1])
+
+
 def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1):
     """Phase 7's shape: BERT-base heads at 4096 tokens, micro batch 2, the
-    BigBird-64 pattern, attention dropout 0.1, bf16. The bound counts the
-    layout's live (q, k) pairs; the library call is SDPA with the layout's
-    dense mask, forward and backward."""
+    BigBird-64 pattern, attention dropout 0.1: the three kernels in bf16
+    (dQ and dK/dV on the tensor cores, also timed with the rows in their
+    own order, ``ms_natural_order``), and the fp32 FMA dQ and dK/dV (the
+    parity kernels, rows ``*_fp32``). The bound counts the layout's live
+    (q, k) pairs; the library call is SDPA with the layout's dense mask,
+    forward and backward, in the same dtype."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.block_sparse_attention import (
         block_sparse_dkv_reference, block_sparse_dq_reference,
@@ -1068,38 +1103,13 @@ def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1):
     from deepspeed_tpu_torch.ops.sparse_attention import layout_to_dense_mask
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
         device_plan
-    dt, scale = torch.bfloat16, 1.0 / d ** 0.5
+    scale = 1.0 / d ** 0.5
     cfg = bigbird_64(h)
     plan = device_plan(cfg, s, dev)
-    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
-                               dtype=dt) for _ in range(4))
+    natural = _natural_order(plan)
     drop = Dropout(rate, 0x1234, 0x5678, h)
-    o, m, l = launch_fwd(q, k, v, plan, scale, drop)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    bwd = (q, k, v, do, delta, m, l, plan, scale, drop)
-    runs = {"block_sparse_attention_fwd": (
-                lambda: launch_fwd(q, k, v, plan, scale, drop),
-                lambda: block_sparse_fwd_reference(q, k, v, plan, scale,
-                                                   drop)),
-            "block_sparse_attention_dq": (
-                lambda: launch_dq(*bwd),
-                lambda: block_sparse_dq_reference(*bwd)),
-            "block_sparse_attention_dkv": (
-                lambda: launch_dkv(*bwd),
-                lambda: block_sparse_dkv_reference(*bwd))}
     mask = layout_to_dense_mask(cfg, s, dev)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    lib_fwd = gpu_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, dropout_p=rate), iters=10)
-    lo = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                        dropout_p=rate)
-    dot = do.transpose(1, 2)
-    lib_bwd = gpu_ms(lambda: torch.autograd.grad(
-        lo, (qt, kt, vt), dot, retain_graph=True), iters=10)
     pairs = b * plan.plan.live_pairs
-    elem = q.element_size()
-    x = b * s * h * d * elem                     # one [b, s, h, d] tensor
     rows = b * h * s * 4                         # one fp32 per row
     # the lists as the kernels read them: the live (index, pattern id)
     # entries of each row (not the padding), the counts, the fine masks
@@ -1107,32 +1117,77 @@ def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1):
     kv_lists = 8 * int(plan.plan.kv_cnt.sum()) + nb(plan.kv_cnt, plan.masks)
     qt_lists = 8 * int(plan.plan.qt_cnt.sum()) + nb(plan.qt_cnt, plan.masks)
     out = {}
-    for name, products, nbytes, lib in (
-            # Q K^T, P V; reads q k v and the plan, writes o m l
-            ("block_sparse_attention_fwd", 2, 4 * x + 2 * rows + kv_lists,
-             lib_fwd),
-            # S, dP, dQ; reads q k v dO delta m l and the lists, writes dq
-            ("block_sparse_attention_dq", 3, 5 * x + 3 * rows + kv_lists,
-             lib_bwd),
-            # S, dP, dV, dK; reads q k v dO delta m l and the transposed
-            # lists, writes dk dv
-            ("block_sparse_attention_dkv", 4, 6 * x + 3 * rows + qt_lists,
-             lib_bwd)):
-        kernel, plain = runs[name]
-        bound, by = bound_ms(2 * products * pairs * d, nbytes,
-                             PEAK_BF16_FLOPS)
-        got, ref = kernel(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        err = max((a.float() - r.float()).abs().max().item()
-                  for a, r in zip(got, ref) if a.dtype == dt)
-        out[name] = dict(
-            shape=f"b={b} h={h} S={s} d={d} bf16 BigBird-64 (live pairs "
-            f"{pairs}, {100 * plan.plan.live_pairs / (h * s * s):.1f}% of "
-            f"S^2) dropout={rate}; library = SDPA with the dense layout "
-            f"mask{' (whole backward)' if name != 'block_sparse_attention_fwd' else ''}",
-            ms=gpu_ms(kernel, iters=10), plain_ms=gpu_ms(plain, iters=2),
-            library_ms=lib, bound_ms=bound, bound_by=by, max_abs_err=err)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
+                                   dtype=dt) for _ in range(4))
+        o, m, l = launch_fwd(q, k, v, plan, scale, drop)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, delta, m, l)
+        runs = {"block_sparse_attention_fwd": (
+                    lambda p=plan: launch_fwd(q, k, v, p, scale, drop),
+                    lambda: block_sparse_fwd_reference(q, k, v, plan, scale,
+                                                       drop)),
+                "block_sparse_attention_dq": (
+                    lambda p=plan: launch_dq(*bwd, p, scale, drop),
+                    lambda: block_sparse_dq_reference(*bwd, plan, scale,
+                                                      drop)),
+                "block_sparse_attention_dkv": (
+                    lambda p=plan: launch_dkv(*bwd, p, scale, drop),
+                    lambda: block_sparse_dkv_reference(*bwd, plan, scale,
+                                                       drop))}
+        if dt == torch.float32:
+            del runs["block_sparse_attention_fwd"]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_fwd = gpu_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, dropout_p=rate), iters=10)
+        lo = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                            dropout_p=rate)
+        dot = do.transpose(1, 2)
+        lib_bwd = gpu_ms(lambda: torch.autograd.grad(
+            lo, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        del lo
+        x = b * s * h * d * q.element_size()     # one [b, s, h, d] tensor
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+        suffix = "" if dt == torch.bfloat16 else "_fp32"
+        for name, products, nbytes, lib in (
+                # Q K^T, P V; reads q k v and the plan, writes o m l
+                ("block_sparse_attention_fwd", 2,
+                 4 * x + 2 * rows + kv_lists, lib_fwd),
+                # S, dP, dQ; reads q k v dO delta m l and the lists, writes dq
+                ("block_sparse_attention_dq", 3, 5 * x + 3 * rows + kv_lists,
+                 lib_bwd),
+                # S, dP, dV, dK; reads q k v dO delta m l and the transposed
+                # lists, writes dk dv
+                ("block_sparse_attention_dkv", 4,
+                 6 * x + 3 * rows + qt_lists, lib_bwd)):
+            if name not in runs:
+                continue
+            kernel, plain = runs[name]
+            bound, by = bound_ms(2 * products * pairs * d, nbytes, peak)
+            got, ref = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = max((a.float() - r.float()).abs().max().item()
+                      for a, r in zip(got, ref) if a.dtype == dt)
+            impl = ("FMA fp32" if dt == torch.float32 else
+                    "FMA fp32 on bf16" if name.endswith("fwd") else
+                    "tensor-core bf16 (mma.sync)")
+            t = dict(
+                shape=f"b={b} h={h} S={s} d={d} {str(dt)[6:]} BigBird-64 "
+                f"(live pairs {pairs}, "
+                f"{100 * plan.plan.live_pairs / (h * s * s):.1f}% of S^2) "
+                f"dropout={rate}; library = SDPA with the dense layout mask"
+                f"{'' if name.endswith('fwd') else ' (whole backward)'}",
+                impl=impl, ms=gpu_ms(kernel, iters=10),
+                plain_ms=gpu_ms(plain, iters=2), library_ms=lib,
+                bound_ms=bound, bound_by=by, max_abs_err=err)
+            if dt == torch.bfloat16 and not name.endswith("fwd"):
+                t["ms_natural_order"] = gpu_ms(
+                    lambda: kernel(natural), iters=10)
+            out[name + suffix] = t
+        del q, k, v, do, o, qt, kt, vt
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2181,12 +2236,15 @@ def phase_sparse_bert_parity():
               "optimizer": {"type": "FusedLamb",
                             "params": {"lr": lr, "weight_decay": 0.01}}}
     runs = {}
+    counters = {k: v for k, v in _ds_counters().items()
+                if k.startswith("block_sparse")}
     for dev in ("cuda", "cpu"):
         model, cfg = sparse_bert(base, seq)
         batch = bert_batch(2, seq, cfg.vocab_size, SEED + 9)
         engine, _, _, _ = initialize(model=model, config=config,
                                      loss_fn=bert_train_loss, seed=SEED,
                                      device=dev)
+        reset_counters(counters)
         losses, moves = [], []
         prev = {k: v.detach().cpu().clone() for k, v in
                 engine.module.state_dict().items()}
@@ -2197,6 +2255,8 @@ def phase_sparse_bert_parity():
             moves.append({k: (now[k] - prev[k]).abs().max().item()
                           for k in now})
             prev = now
+        if dev == "cuda":
+            counts = read_counters(counters)    # the fp32 FMA kernels'
         runs[dev] = (losses, prev, moves)
     loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0],
                                               runs["cpu"][0]))
@@ -2223,9 +2283,11 @@ def phase_sparse_bert_parity():
         f"({PARAM_TOL} x the sum of its largest LAMB step per step, lr {lr} "
         f"x trust ratio) "
         f"{'ok' if ok else 'FAIL'}")
+    log(f"  launches of the card run: {counts}")
     if not ok:
         raise AssertionError("sparse BERT training on the card and on the "
                              "CPU disagree")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -2710,6 +2772,29 @@ PLANTED_FAULTS = (
      (("dpT[j][e] = p * (dfac * dpT[j][e] - dlq) * a.scale;  // dS",
        "dpT[j][e] = p * (dfac * round_to<bf16>(dpT[j][e]) - dlq) * "
        "a.scale;  // dS"),), "--checks-only"),
+    # the bf16 tensor-core block-sparse backward
+    ("bf16 block-sparse dK/dV: the keep bit taken at the transposed "
+     "fragment coordinate (key, q row)", "block_sparse_attention_bwd_bf16.cu",
+     (("hash_col(dr, k0 + kl0", "hash_row(dr, k0 + kl0"),
+      ("hash_row(dr, q0 + qh * QC + c0", "hash_col(dr, q0 + qh * QC + c0")),
+     "--checks-only"),
+    ("bf16 block-sparse dQ and dK/dV: a partial fine mask treated as all "
+     "live", "block_sparse_attention_bwd_bf16.cu",
+     (("return l.table[2 * a.H * a.nt + pid] != 0;",
+       "return l.table[2 * a.H * a.nt + pid] != 0 || true;"),),
+     "--checks-only"),
+    ("bf16 block-sparse dK/dV: P o D truncated to bf16 (round toward zero), "
+     "not rounded to nearest, before dV", "block_sparse_attention_bwd_bf16.cu",
+     (("c_to_a(pa, sT[2 * kc], sT[2 * kc + 1]);    // P o D rounded to bf16",
+       "for (int e2 = 0; e2 < 4; ++e2) pa[e2] = __byte_perm("
+       "__float_as_uint(sT[2 * kc + (e2 >> 1)][(e2 & 1) * 2]), "
+       "__float_as_uint(sT[2 * kc + (e2 >> 1)][(e2 & 1) * 2 + 1]), "
+       "0x7632);"),), "--checks-only"),
+    ("bf16 block-sparse dK/dV: dP rounded to bf16 before delta is "
+     "subtracted (dS rounded twice)", "block_sparse_attention_bwd_bf16.cu",
+     (("float dfac = 1.f, d = dpT[jj][e];",
+       "float dfac = 1.f, d = round_to<bf16>(dpT[jj][e]);"),),
+     "--checks-only"),
 )
 
 
@@ -2748,7 +2833,8 @@ def run_planted_faults(only=None):
                 capture_output=True, text=True, timeout=900)
         lines = [ln for ln in (res.stdout + res.stderr).splitlines()
                  if "FAIL" in ln or "cases ok" in ln and (
-                     "layernorm" in ln or "quantizer" in ln or "flash" in ln)
+                     "layernorm" in ln or "quantizer" in ln or "flash" in ln
+                     or "block_sparse" in ln)
                  or "Error" in ln or "after step" in ln]
         failed = res.returncode != 0
         caught += failed
@@ -2856,6 +2942,9 @@ def main():
                else f"{t['library_ms']:.4f} ms")
         extra = (f" ({t['impl']}; rate 0: {t['ms_rate0']:.4f} ms)"
                  if "ms_rate0" in t else
+                 f" ({t['impl']}; rows in their own order: "
+                 f"{t['ms_natural_order']:.4f} ms)"
+                 if "ms_natural_order" in t else
                  f" ({t['impl']})" if "impl" in t else "")
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{extra}, "
             f"plain {t['plain_ms']:.4f} ms, library {lib}, bound "
@@ -2906,7 +2995,7 @@ def main():
     sparse_counts, _ = phase_sparse_bert_bf16(
         card, profile="--profile" in sys.argv[1:])
     set_gemm_flags((False, False, False))
-    phase_sparse_bert_parity()
+    fp32_sparse_counts = phase_sparse_bert_parity()
 
     log("phase 8: a BERT-large stack of DeepSpeedTransformerLayers with "
         "8-bit compression-aware training and MoQ")
@@ -2946,9 +3035,11 @@ def main():
     for name in ("wo_int8_matmul_small_m", "wo_int8_matmul"):
         paged_t[name]["launches"] = int8_counts[name]
     # the sparse slice's kernels: phase 3's timings at phase 7's shapes;
-    # launches of 7a
+    # launches of 7a (bf16) and, for the fp32 FMA dQ and dK/dV, of 7b (the
+    # card's fp32 run)
     for name, t in sparse_t.items():
-        t["launches"] = sparse_counts[name]
+        t["launches"] = (fp32_sparse_counts[name[:-5]]
+                         if name.endswith("_fp32") else sparse_counts[name])
     sparse_t["fused_lamb"]["apply_launches"] = sparse_counts[
         "fused_lamb_apply"]
     # the LayerNorm and quantizer kernels: phase 3's timings at phase 8's
@@ -3009,9 +3100,15 @@ def main():
              sparse_t["block_sparse_attention_fwd"],
              csrc + "block_sparse_attention.cu", sparse + ":355"),
             ("block_sparse_attention_dq", sparse_t["block_sparse_attention_dq"],
-             csrc + "block_sparse_attention.cu", sparse + ":379"),
+             csrc + "block_sparse_attention_bwd_bf16.cu", sparse + ":379"),
             ("block_sparse_attention_dkv",
              sparse_t["block_sparse_attention_dkv"],
+             csrc + "block_sparse_attention_bwd_bf16.cu", sparse + ":402"),
+            ("block_sparse_attention_dq_fp32",
+             sparse_t["block_sparse_attention_dq_fp32"],
+             csrc + "block_sparse_attention.cu", sparse + ":379"),
+            ("block_sparse_attention_dkv_fp32",
+             sparse_t["block_sparse_attention_dkv_fp32"],
              csrc + "block_sparse_attention.cu", sparse + ":402"),
             ("fused_lamb", sparse_t["fused_lamb"], csrc + "fused_lamb.cu",
              pallas + "fused_lamb.py:49"),
@@ -3035,7 +3132,8 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
-            **{key: t[key] for key in ("impl", "ms_rate0") if key in t},
+            **{key: t[key] for key in ("impl", "ms_rate0", "ms_natural_order")
+               if key in t},
             **({"apply_launches": t["apply_launches"]}
                if "apply_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}

@@ -5,7 +5,9 @@ Counterpart of ``deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py``
 ``_sparse_fwd`` (:355), ``_sparse_dq`` (:379), ``_sparse_dkv`` (:402) and
 the ``custom_vjp`` around them (:428-467), here a
 ``torch.autograd.Function``. The kernels are
-``csrc/block_sparse_attention.cu``; they walk a ``DevicePlan``
+``csrc/block_sparse_attention.cu`` (the forward; dQ and dK/dV on fp32 FMAs,
+the parity mode) and, for bf16, ``csrc/block_sparse_attention_bwd_bf16.cu``
+(dQ and dK/dV on the tensor cores); they walk a ``DevicePlan``
 (``sparse_attention/block_sparse_kernel.py``) of 64-token tiles. A CUDA
 tensor launches them, a CPU tensor runs the plain versions, which walk
 the same lists in the same order: per (head, q-tile) the k-tiles of
@@ -25,7 +27,8 @@ import torch
 
 from ._common import NEG_INF, check_launch, kernel_dtype_code, use_kernel
 from .dropout import keep_from_coords
-from .flash_attention import Dropout, _c_dropout_args, resolve_dropout
+from .flash_attention import (Dropout, _c_dropout_args, _entry,
+                              _kernel_layout, resolve_dropout)
 from .sparse_attention.block_sparse_kernel import DevicePlan, device_plan
 
 HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernels are compiled for
@@ -178,7 +181,8 @@ def _strides(t):
 
 def _check(q, k, v, plan: DevicePlan, extra=()):
     """Check the operands for the kernels; returns (dtype code, q, k, v
-    and ``extra`` with unit stride along d)."""
+    and ``extra`` in the kernels' layout: unit stride along d, and 16-byte
+    aligned for the bf16 kernels' copies)."""
     b, s, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"block_sparse_attention: the CUDA kernels take "
@@ -195,14 +199,15 @@ def _check(q, k, v, plan: DevicePlan, extra=()):
             raise ValueError(f"block_sparse_attention: operand "
                              f"{tuple(t.shape)} {t.dtype} does not match q "
                              f"{tuple(q.shape)} {q.dtype}")
-    return (code, *(t if t.stride(-1) == 1 else t.contiguous() for t in ts))
+    return (code, *(_kernel_layout(t) for t in ts))
 
 
 def _lists(plan, transposed):
-    """Pointers of one list family and the masks, and the list width."""
-    idx, pid, cnt = ((plan.qt_idx, plan.qt_pid, plan.qt_cnt) if transposed
-                     else (plan.kv_idx, plan.kv_pid, plan.kv_cnt))
-    return ((idx.data_ptr(), pid.data_ptr(), cnt.data_ptr(),
+    """Pointers of one list family (its count table in the counts' place)
+    and the masks, and the list width."""
+    idx, pid, table = ((plan.qt_idx, plan.qt_pid, plan.qt_table) if transposed
+                       else (plan.kv_idx, plan.kv_pid, plan.kv_table))
+    return ((idx.data_ptr(), pid.data_ptr(), table.data_ptr(),
              plan.masks.data_ptr()), idx.shape[-1])
 
 
@@ -238,12 +243,14 @@ def _bwd_args(q, k, v, do, delta, m, l, plan):
 
 def launch_dq(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
               dropout=None):
-    """Launch the dQ kernel; returns dq [b, S, h, d]."""
+    """Launch the dQ kernel (the tensor-core kernel for bf16, the FMA
+    kernel for fp32); returns dq [b, S, h, d]."""
     from . import op_builder
     keep, ins, shape, strides = _bwd_args(q, k, v, do, delta, m, l, plan)
     dq = torch.empty(keep[0].shape, dtype=q.dtype, device=q.device)
     ptrs, width = _lists(plan, False)
-    check_launch(op_builder.load().block_sparse_attention_dq(
+    fn = _entry(op_builder.load(), "block_sparse_attention_dq", shape[0])
+    check_launch(fn(
         *ins, *ptrs, dq.data_ptr(), *shape, width, *strides, float(scale),
         *_c_dropout_args(dropout),
         torch.cuda.current_stream(q.device).cuda_stream),
@@ -254,13 +261,15 @@ def launch_dq(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
 
 def launch_dkv(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
                dropout=None):
-    """Launch the dK/dV kernel; returns (dk, dv) [b, S, h, d]."""
+    """Launch the dK/dV kernel (the tensor-core kernel for bf16, the FMA
+    kernel for fp32); returns (dk, dv) [b, S, h, d]."""
     from . import op_builder
     keep, ins, shape, strides = _bwd_args(q, k, v, do, delta, m, l, plan)
     dk = torch.empty(keep[0].shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     ptrs, width = _lists(plan, True)
-    check_launch(op_builder.load().block_sparse_attention_dkv(
+    fn = _entry(op_builder.load(), "block_sparse_attention_dkv", shape[0])
+    check_launch(fn(
         *ins, *ptrs, dk.data_ptr(), dv.data_ptr(), *shape, width, *strides,
         float(scale), *_c_dropout_args(dropout),
         torch.cuda.current_stream(q.device).cuda_stream),

@@ -22,10 +22,11 @@
 // What bounds it on the H100: at the BERT-base BigBird shape (b 2, h 12,
 // S 4096, d 64, 14.6% of the score matrix live) the forward does
 // 4 d FLOPs per live (q, k) pair, ~15 GFLOP, against ~25 MB of q/k/v/o:
-// far above the ~295 FLOP/byte ridge, so the bound is the math. This first
-// version, like the flash kernels, does the products with fp32 FMAs from
-// shared memory (67 TFLOP/s peak, not the tensor cores' 989); wgmma/TMA are
-// later work.
+// far above the ~295 FLOP/byte ridge, so the bound is the math. These
+// kernels do the products with fp32 FMAs from shared memory (67 TFLOP/s
+// peak, not the tensor cores' 989): the forward for fp32 and bf16, dQ and
+// dK/dV for fp32 only (the port's parity mode); bf16 dQ and dK/dV run on
+// the tensor cores in block_sparse_attention_bwd_bf16.cu.
 //
 // Design: the TPU grid keeps a head's whole K/V resident in VMEM and runs a
 // dynamic-trip fori_loop over the row's list. Here one CTA of 256 threads
@@ -553,8 +554,8 @@ int run(LaunchFn fn, const Ptrs& p, const void* idx, const void* pid,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 80, 96, 128}; S a multiple of
-// 64 (the wrapper checks). q/k/v/dout are [b, S, h, d] with unit stride along d and
+// dtype: 0 = float32, 1 = bfloat16 (the forward; dQ and dK/dV take float32
+// only); d in {64, 80, 96, 128}; S a multiple of 64 (the wrapper checks). q/k/v/dout are [b, S, h, d] with unit stride along d and
 // the given strides (in elements) for batch, sequence and head; idx/pid are
 // int32 [h, S / 64, width] lists and cnt int32 [h, S / 64] (kv lists for the
 // forward and dQ, the transposed qt lists for dK/dV); masks int8
@@ -585,9 +586,10 @@ extern "C" int block_sparse_attention_dq(
   const Ptrs p{q, k, v, dout, static_cast<const float*>(delta),
                static_cast<const float*>(m), static_cast<const float*>(l),
                dq, nullptr, nullptr};
-  return run(pick<PickDq>(dtype, d, dropout), p, idx, pid, cnt, masks, b, h,
-             S, width, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-             o_sb, o_ss, o_sh, scale, DS_DROPOUT_STRUCT, stream);
+  return run(dtype == 0 ? pick_dim<PickDq, float>(d, dropout) : nullptr, p,
+             idx, pid, cnt, masks, b, h, S, width, q_sb, q_ss, q_sh, k_sb,
+             k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale,
+             DS_DROPOUT_STRUCT, stream);
 }
 
 extern "C" int block_sparse_attention_dkv(
@@ -602,7 +604,8 @@ extern "C" int block_sparse_attention_dkv(
   const Ptrs p{q, k, v, dout, static_cast<const float*>(delta),
                static_cast<const float*>(m), static_cast<const float*>(l),
                dk, dv, nullptr};
-  return run(pick<PickDkv>(dtype, d, dropout), p, idx, pid, cnt, masks, b, h,
-             S, width, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-             o_sb, o_ss, o_sh, scale, DS_DROPOUT_STRUCT, stream);
+  return run(dtype == 0 ? pick_dim<PickDkv, float>(d, dropout) : nullptr, p,
+             idx, pid, cnt, masks, b, h, S, width, q_sb, q_ss, q_sh, k_sb,
+             k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale,
+             DS_DROPOUT_STRUCT, stream);
 }

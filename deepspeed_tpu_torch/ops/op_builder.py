@@ -82,6 +82,9 @@ SIGNATURES = {
     "fused_lamb_phase1": _LAMB,
     "fused_lamb_apply": _LAMB,
     "block_sparse_attention_dkv": [_p] * 13 + _SPARSE_BWD,
+    # the bf16 tensor-core dQ and dK/dV: the same arguments as the two above
+    "block_sparse_attention_dq_bf16": [_p] * 12 + _SPARSE_BWD,
+    "block_sparse_attention_dkv_bf16": [_p] * 13 + _SPARSE_BWD,
     # x, gamma, beta, y, mean, rstd, dtype, n, d, eps, stream
     "layernorm_fwd": [_p] * 6 + [_i] * 3 + [_f, _p],
     # dy, x, gamma, mean, rstd, dx, partials, dgamma, dbeta, dtype, n, d,

@@ -19,7 +19,9 @@ matrix, a 128-tile plan 34.9% of it. ``compile_layout(config, s,
 tile=128 or 256)`` builds the JAX package's plan for that tile, array for
 array. ``device_plan`` keeps the plan's int32 tables and masks on a
 device, cached by (``cache_key()``, seq, device), so a call copies
-nothing from the host.
+nothing from the host; with each list family goes its count table, which
+also gives the kernels the rows' launch order (the longest lists first)
+and which fine masks are all live.
 """
 
 from dataclasses import dataclass
@@ -158,7 +160,9 @@ def compile_layout(config, seq_len: int,
 
 class DevicePlan(NamedTuple):
     """A plan's tables and masks on one device (int32 lists, int8 masks)
-    and the host plan they came from."""
+    and the host plan they came from. ``kv_table`` / ``qt_table`` are the
+    count tables the kernels take (``count_table``); ``kv_cnt`` /
+    ``qt_cnt`` are views of their heads."""
     plan: LayoutPlan
     seq_len: int
     kv_idx: torch.Tensor
@@ -168,10 +172,23 @@ class DevicePlan(NamedTuple):
     qt_pid: torch.Tensor
     qt_cnt: torch.Tensor
     masks: torch.Tensor
+    kv_table: torch.Tensor
+    qt_table: torch.Tensor
 
     @property
     def device(self):
         return self.masks.device
+
+
+def count_table(cnt: np.ndarray, masks: np.ndarray) -> np.ndarray:
+    """The kernels' int32 count table of one list family: the counts
+    [H * nt], then the rows in launch order (count descending, ties by
+    row: the same plan always gives the same order), then one flag per
+    fine mask, 1 when every entry of the mask is live."""
+    flat = cnt.reshape(-1).astype(np.int64)
+    order = np.argsort(-flat, kind="stable")
+    full = masks.reshape(len(masks), -1).all(axis=1)
+    return np.concatenate([flat, order, full]).astype(np.int32)
 
 
 _DEVICE_PLANS = {}
@@ -193,9 +210,13 @@ def device_plan(config, seq_len: int, device) -> Optional[DevicePlan]:
     if plan is None:
         return None
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    kv_table = to(count_table(plan.kv_cnt, plan.masks))
+    qt_table = to(count_table(plan.qt_cnt, plan.masks))
+    rows = plan.kv_cnt.shape
     dp = DevicePlan(plan, seq_len, to(plan.kv_idx), to(plan.kv_pid),
-                    to(plan.kv_cnt), to(plan.qt_idx), to(plan.qt_pid),
-                    to(plan.qt_cnt), to(plan.masks))
+                    kv_table[:rows[0] * rows[1]].view(rows), to(plan.qt_idx),
+                    to(plan.qt_pid), qt_table[:rows[0] * rows[1]].view(rows),
+                    to(plan.masks), kv_table, qt_table)
     if len(_DEVICE_PLANS) >= 16:
         _DEVICE_PLANS.pop(next(iter(_DEVICE_PLANS)))
     _DEVICE_PLANS[key] = dp

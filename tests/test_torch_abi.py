@@ -1,0 +1,205 @@
+"""The C interface of the CUDA kernels and the host tables they read.
+
+``ops/op_builder.py`` binds every ``extern "C"`` entry point of
+``ops/csrc/*.cu`` with ``ctypes`` argtypes from ``SIGNATURES``; ``ctypes``
+does not check them against the C declaration, so a wrong count passes
+silently and the kernel reads garbage. Here each entry point's parameters
+are counted from its source (parameter macros such as
+``DS_DROPOUT_PARAMS`` expanded from their ``#define``) and held equal to
+its entry. The block-sparse wrappers must pick the tensor-core entry
+points for bf16 and the FMA ones for fp32, with exactly the bound
+arguments; and the plan's count tables (``count_table``) must give the
+kernels a deterministic heaviest-first launch order and the all-live
+flag of every fine mask.
+"""
+
+import os
+import re
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.flash_attention import Dropout
+from deepspeed_tpu_torch.ops.op_builder import SIGNATURES, _DROPOUT
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as psc
+from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
+    compile_layout, count_table, device_plan)
+
+CSRC = os.path.join(os.path.dirname(op_builder.__file__), "csrc")
+
+
+def _read(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def _macros(text):
+    """Object-like ``#define NAME body`` (continuation lines joined)."""
+    text = text.replace("\\\n", " ")
+    return {m.group(1): m.group(2).strip() for m in re.finditer(
+        r"^#define (\w+)(?!\()[ \t]+(.*)$", text, re.M)}
+
+
+def _params(plist, macros):
+    """The number of parameters of a C parameter list, macros expanded."""
+    n = 0
+    for p in (x.strip() for x in plist.split(",")):
+        n += _params(macros[p], macros) if p in macros else bool(p)
+    return n
+
+
+def _entry_points():
+    """{name: parameter count} of every extern "C" function in csrc."""
+    common = _macros(_read("common.cuh"))
+    out = {}
+    for name in sorted(os.listdir(CSRC)):
+        if not name.endswith(".cu"):
+            continue
+        text = _read(name)
+        macros = {**common, **_macros(text)}
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            assert m.group(1) not in out, m.group(1)
+            out[m.group(1)] = _params(m.group(2), macros)
+    return out
+
+
+ENTRY_POINTS = _entry_points()
+
+
+def test_the_dropout_macro_is_the_dropout_argtypes():
+    macros = _macros(_read("common.cuh"))
+    assert _params("DS_DROPOUT_PARAMS", macros) == len(_DROPOUT)
+
+
+def test_every_entry_point_has_a_signature():
+    assert set(ENTRY_POINTS) == set(SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(SIGNATURES))
+def test_signature_arity_matches_the_source(name):
+    assert name in ENTRY_POINTS, f"{name}: no extern \"C\" function"
+    assert ENTRY_POINTS[name] == len(SIGNATURES[name]), name
+
+
+def test_bf16_entry_points_take_the_fma_kernels_arguments():
+    for name in SIGNATURES:
+        if name.endswith("_bf16"):
+            assert SIGNATURES[name] == SIGNATURES[name[:-5]], name
+
+
+# --------------------------------------------------------------------------
+# the block-sparse wrappers' dispatch, through a stand-in library
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """op_builder.load() returns a library whose entry points record
+    (name, arguments) and check the count against SIGNATURES."""
+    calls = []
+
+    def entry(name):
+        def fn(*args):
+            assert len(args) == len(SIGNATURES[name]), name
+            calls.append((name, args))
+            return 0
+        return fn
+    lib = types.SimpleNamespace(**{n: entry(n) for n in SIGNATURES})
+    monkeypatch.setattr(op_builder, "load", lambda *a, **k: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a, **k: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "_bf16"),
+                                          (torch.float32, "")],
+                         ids=["bf16", "fp32"])
+def test_block_sparse_backward_picks_the_entry_for_the_dtype(fake_lib, dtype,
+                                                             suffix):
+    mod = sys.modules["deepspeed_tpu_torch.ops.block_sparse_attention"]
+    plan = device_plan(psc.BigBirdSparsityConfig(2, block=64), 256, "cpu")
+    q, k, v, do = (torch.zeros(1, 256, 2, 64, dtype=dtype) for _ in range(4))
+    stats = [torch.zeros(1, 2, 256) for _ in range(3)]
+    before = (mod.block_sparse_attention.dq_launches,
+              mod.block_sparse_attention.dkv_launches)
+    drop = Dropout(0.1, 1, 2, 2)
+    mod.launch_dq(q, k, v, do, *stats, plan, 0.125, drop)
+    mod.launch_dkv(q, k, v, do, *stats, plan, 0.125, drop)
+    assert [c[0] for c in fake_lib] == [
+        "block_sparse_attention_dq" + suffix,
+        "block_sparse_attention_dkv" + suffix]
+    # the count table stands where the counts stood: [12 + 1] pointers in
+    assert fake_lib[0][1][9] == plan.kv_table.data_ptr()
+    assert fake_lib[1][1][9] == plan.qt_table.data_ptr()
+    assert fake_lib[0][1][9] == plan.kv_cnt.data_ptr()
+    assert (mod.block_sparse_attention.dq_launches,
+            mod.block_sparse_attention.dkv_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+
+
+# --------------------------------------------------------------------------
+# the count tables
+# --------------------------------------------------------------------------
+
+TABLE_CONFIGS = [
+    ("bigbird-64", lambda: psc.BigBirdSparsityConfig(
+        12, block=64, num_random_blocks=3), 4096),
+    ("bigbird-16", lambda: psc.BigBirdSparsityConfig(4, block=16), 512),
+    ("fixed-uni-16", lambda: psc.FixedSparsityConfig(
+        4, block=16, attention="unidirectional"), 512),
+    ("longformer-16", lambda: psc.BSLongformerSparsityConfig(4, block=16),
+     512),
+]
+
+
+@pytest.mark.parametrize("name,make,s", TABLE_CONFIGS,
+                         ids=[c[0] for c in TABLE_CONFIGS])
+def test_count_table_order_and_all_live_flags(name, make, s):
+    plan = compile_layout(make(), s)
+    dp = device_plan(make(), s, "cpu")
+    rows = plan.kv_cnt.size
+    for cnt, table in ((plan.kv_cnt, dp.kv_table), (plan.qt_cnt,
+                                                    dp.qt_table)):
+        t = table.numpy()
+        assert t.dtype == np.int32 and t.shape == (2 * rows + len(
+            plan.masks),)
+        np.testing.assert_array_equal(t[:rows], cnt.reshape(-1))
+        order = t[rows:2 * rows]
+        np.testing.assert_array_equal(np.sort(order), np.arange(rows))
+        # count descending, ties by row
+        key = [(-int(cnt.reshape(-1)[r]), int(r)) for r in order]
+        assert key == sorted(key)
+        np.testing.assert_array_equal(
+            t[2 * rows:], plan.masks.reshape(len(plan.masks), -1).all(1))
+    np.testing.assert_array_equal(dp.kv_cnt.numpy(), plan.kv_cnt)
+    np.testing.assert_array_equal(dp.qt_cnt.numpy(), plan.qt_cnt)
+
+
+def test_count_table_is_the_same_on_every_build():
+    """Two builds of one plan, without the plan caches, give the same
+    table: the launch order is a pure function of the plan."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_kernel
+    make = lambda: psc.BigBirdSparsityConfig(12, block=64,
+                                             num_random_blocks=3)
+    tables = []
+    for _ in range(2):
+        block_sparse_kernel._PLAN_CACHE.clear()
+        plan = compile_layout(make(), 4096)
+        tables.append(count_table(plan.qt_cnt, plan.masks))
+    np.testing.assert_array_equal(tables[0], tables[1])
+    # the global tiles' 64-entry rows lead: 2 a head
+    rows = plan.qt_cnt.size
+    lead = tables[0][rows:rows + 24]
+    assert (plan.qt_cnt.reshape(-1)[lead] == 64).all()
+    assert (plan.qt_cnt.reshape(-1)[tables[0][rows + 24:2 * rows]] < 64).all()
+
+
+def test_bigbird_64_mask_is_all_live_and_block_16_masks_are_not():
+    bb = compile_layout(psc.BigBirdSparsityConfig(12, block=64), 4096)
+    assert count_table(bb.kv_cnt, bb.masks)[-len(bb.masks):].tolist() == [1]
+    lf = compile_layout(psc.BSLongformerSparsityConfig(4, block=16), 512)
+    flags = count_table(lf.kv_cnt, lf.masks)[-len(lf.masks):]
+    assert 0 in flags

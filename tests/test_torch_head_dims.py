@@ -284,7 +284,8 @@ def _dispatched_dims(name):
                          "flash_attention_bwd_bf16.cu")),
     ("decode_attention", ("decode_attention.cu",)),
     ("paged_attention", ("paged_attention.cu",)),
-    ("block_sparse_attention", ("block_sparse_attention.cu",)),
+    ("block_sparse_attention", ("block_sparse_attention.cu",
+                                "block_sparse_attention_bwd_bf16.cu")),
 ])
 def test_head_dims_match_the_cuda_dispatch(module, sources):
     mod = importlib.import_module(f"deepspeed_tpu_torch.ops.{module}")
