@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--profile | --checks-only | --8c-only |
-                           --planted-faults]
+                           --7a-only | --planted-faults [name]]
 
 Phases, each fatal on failure:
 
@@ -20,7 +20,8 @@ Phases, each fatal on failure:
    training shapes beside the plain version, one PyTorch library call
    computing the same function, and the least time the card could take
    (the flash kernels in bf16 on the tensor cores at dropout 0.1 and 0,
-   and in fp32 on FMAs);
+   and in fp32: the forward on FMAs, the backward on 3xTF32 tensor-core
+   products);
 4. the slice end to end: GPT-2 125M at full width and depth (random
    weights from a seed) served through ``init_inference(...).serve()``:
    (a) fp32, every request token-exact against the port's ``generate()``
@@ -53,13 +54,18 @@ Phases, each fatal on failure:
    (c) >= 0.9 and one decode step's logits within 0.2 of the bf16 pool.
    Phase 3 holds the paged-attention kernel (fp32, bf16 and int8 pages
    over NaN-poisoned pools) and both int8 matmul kernels against their
-   plain versions first, and times them at phase 6's shapes;
+   plain versions first (and their one summation order bit for bit:
+   across m, across a row's place in its 16-row tile, at a ragged k, and
+   with the tiled kernel's k segments split over CTAs or not), and times
+   them at phase 6's shapes;
 7. the sparse slice end to end: BERT-base made sparse with the BigBird-64
    pattern (``SparseAttentionUtils``, position table extended to 4096)
    and trained through ``initialize(...)`` -> ``train_batch`` with
    FusedLamb: (a) bf16 on fp32 masters, attention dropout 0.1, micro 2 x
    gas 2 sequences of 4096 tokens, 8 steps on one seeded MLM + NSP batch:
-   finite losses that fall, exact launch counts of the three block-sparse
+   finite losses whose mean over the last period (two steps) lies at
+   least ``LOSS_FALL`` below the first period's, exact launch counts of
+   the three block-sparse
    kernels (12 layers x 2 microbatches a step) and the two LAMB launches
    (one each a step), no flash or Adam launch, step time and tokens/s
    (``--profile``: the device-busy share of one step); (b) the card
@@ -106,11 +112,13 @@ Phases, each fatal on failure:
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
-``--8c-only`` builds the kernels and runs phase 8c alone (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (twelve faults) or
-``--8c-only`` (two) in copies of the checkout, each with one kernel
-fault planted (``PLANTED_FAULTS``; only those whose source file name
-contains ``name``, when given), and fails unless every copy fails; it
+``--8c-only`` builds the kernels and runs phase 8c alone (no result);
+``--7a-only`` phase 7a likewise.
+``--planted-faults [name]`` runs ``--checks-only`` (fourteen faults),
+``--8c-only`` (two) or ``--7a-only`` (one) in copies of the checkout,
+each with one kernel fault planted (``PLANTED_FAULTS``; only those
+whose source file name contains ``name``, when given), and fails unless
+every copy fails; it
 prints no result line either. 8c also reads the step-1 gradient of the
 1-D element that differs most between card and CPU.
 
@@ -134,6 +142,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12      # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 # max |out - ref| over max(1, max |ref|): fp32 at FMA order; bf16 at a few
 # output ulps, which catches a wrong tile or element but not a misplaced
@@ -322,7 +331,8 @@ def check_paged(dev, gen):
     """The paged kernel against its plain version over fp32, bf16 and int8
     pages, page_len 16 and 128, d 64, 80, 96 and 128, ALiBi on and off,
     lengths 0, 1, ragged and a full table, with NaN in every unreadable
-    position."""
+    position; with fp32 and bf16 pages also bit-equal to the decode
+    kernel over the same tokens."""
     from deepspeed_tpu_torch.models.layers import alibi_slopes
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
@@ -353,20 +363,55 @@ def check_paged(dev, gen):
                                   f"page_len={page_len:3d} d={d:3d} "
                                   f"alibi={alibi!s:5s}",
                                   show=page_len == 128 and not alibi)
+                        if not quant:
+                            _paged_is_decode(q, kn, vn, k, v, table, lens,
+                                             lengths, page_len, slopes)
     gate.close()
+    log("  paged: bit-equal to the decode kernel over the same tokens "
+        "(fp32 and bf16 pages, every case)")
+
+
+def _paged_is_decode(q, kn, vn, k, v, table, lens, lengths, page_len,
+                     slopes):
+    """The paged kernel over a slot's pages plus the current token gives
+    the contiguous decode kernel's bits over the same tokens, as serving
+    must give ``generate()``'s."""
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    B, H, d = q.shape
+    kc = torch.zeros(B, H, max(lengths) + 1, d, device=q.device,
+                     dtype=q.dtype)
+    vc = torch.zeros_like(kc)
+    for b, n in enumerate(lengths):
+        pages = table[b, :-(-n // page_len)].long()
+        kc[b, :, :n] = k[pages].transpose(0, 1).reshape(H, -1, d)[:, :n]
+        vc[b, :, :n] = v[pages].transpose(0, 1).reshape(H, -1, d)[:, :n]
+        kc[b, :, n], vc[b, :, n] = kn[b], vn[b]
+    o = paged_attention(q, k, v, table, lens, kn, vn, alibi_slopes=slopes)
+    ref = decode_attention(q, kc, vc, lens + 1, alibi_slopes=slopes)
+    if not torch.equal(o, ref):
+        raise AssertionError(
+            f"paged_attention {q.dtype} d={d} page_len={page_len}: "
+            f"{int((o != ref).sum())} of {o.numel()} outputs differ from "
+            "the decode kernel over the same tokens")
 
 
 def check_int8(dev, gen):
     """Both int8 kernels against the plain version over m 1, 8, 16, 256,
-    1000, the four GPT-2 125M weight shapes and fp32 and bf16 x; and the
-    summation order: rows of an m = 16 call (small-m kernel) and of an
-    m = 1 call equal the same rows of an m = 1000 call (tiled) bit for
-    bit."""
+    1000, the four GPT-2 125M weight shapes and a ragged k (200: neither
+    a whole segment nor a whole 16-row step), fp32 and bf16 x; and the
+    summation order, bit for bit: rows of an m = 16 call (small-m kernel)
+    and of an m = 1 call equal the same rows of an m = 1000 call (tiled),
+    rows 5..20 of the m = 1000 call equal an m = 16 call on those rows (so
+    each row sits elsewhere in its 16-row tile), and (bf16) the tiled
+    kernel's m = 256 and m = 1000 calls give the same bits with the k
+    segments split over CTAs as in one CTA a tile."""
     from deepspeed_tpu_torch.ops.wo_int8_matmul import (
-        wo_int8_matmul, wo_int8_matmul_reference)
+        SEG, _launch, tiled_splits, wo_int8_matmul, wo_int8_matmul_reference)
     gate = Gate("wo_int8")
+    splits_seen = set()
     for dtype in (torch.float32, torch.bfloat16):
-        for k, n in GPT2_WEIGHTS:
+        for k, n in GPT2_WEIGHTS + INT8_RAGGED:
             q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                               dtype=torch.int8)
             scale = torch.rand(1, n, generator=gen, device=dev) * 0.01
@@ -379,18 +424,37 @@ def check_int8(dev, gen):
                 gate.case(dtype, [outs[m]], [ref],
                           f"k={k:4d} n={n:4d} m={m:4d}",
                           show=m in (16, 256) and dtype == torch.bfloat16)
+            window = wo_int8_matmul(x[5:21], q, scale)
             if not (torch.equal(outs[16], outs[1000][:16])
                     and torch.equal(outs[1], outs[1000][:1])
-                    and torch.equal(outs[256][:16], outs[16])):
+                    and torch.equal(outs[256][:16], outs[16])
+                    and torch.equal(window, outs[1000][5:21])):
                 raise AssertionError(
                     f"wo_int8_matmul k={k} n={n} {dtype}: a row's result "
-                    "depends on m (the kernels' summation orders differ)")
+                    "depends on m or on its place in the batch (the "
+                    "kernels' summation orders differ)")
+            if dtype != torch.bfloat16:
+                continue
+            for m in (256, 1000):
+                segs = -(-k // SEG)
+                runs = {s: _launch(x[:m], q, scale, dtype, splits=s)
+                        for s in sorted({1, 2, segs,
+                                         tiled_splits(m, k, n)})}
+                splits_seen.update(s for s in runs if s > 1)
+                if not all(torch.equal(y, outs[m]) for y in runs.values()):
+                    raise AssertionError(
+                        f"wo_int8_matmul k={k} n={n} m={m} bf16: the tiled "
+                        f"kernel's bits depend on the k split ({sorted(runs)} "
+                        "CTAs along k)")
     gate.close()
-    log("  wo_int8: rows of m = 1, 16, 256 and 1000 calls bit-equal (one "
-        "summation order in both kernels)")
+    log("  wo_int8: rows of m = 1, 16, 256 and 1000 calls and rows 5..20 "
+        "bit-equal (one summation order in both kernels, fp32 FMAs and "
+        "bf16 mma.sync); bf16 tiled bit-equal split over "
+        f"{sorted(splits_seen)} CTAs along k and unsplit")
 
 
 GPT2_WEIGHTS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+INT8_RAGGED = ((200, 768),)   # k % 128 != 0 and k % 16 != 0
 
 
 def served_lengths(n, seed):
@@ -456,7 +520,8 @@ def time_int8(dev, gen, m):
     chunk, the tiled kernel), bf16 x. Library: dequantize + torch.matmul;
     also the bf16 torch.matmul with the dense weight alone."""
     from deepspeed_tpu_torch.ops.wo_int8_matmul import (
-        wo_int8_matmul, wo_int8_matmul_reference)
+        SMALL_M, _launch, tiled_splits, wo_int8_matmul,
+        wo_int8_matmul_reference)
     dt = torch.bfloat16
     mats = []
     for k, n in GPT2_WEIGHTS:
@@ -466,6 +531,8 @@ def time_int8(dev, gen, m):
         x = torch.randn(m, k, generator=gen, device=dev, dtype=dt)
         mats.append((x, q, scale, (q.float() * scale).to(dt)))
     kernel = gpu_ms(lambda: [wo_int8_matmul(x, q, s) for x, q, s, _ in mats])
+    unsplit = (None if m <= SMALL_M else gpu_ms(
+        lambda: [_launch(x, q, s, dt, splits=1) for x, q, s, _ in mats]))
     plain = gpu_ms(lambda: [wo_int8_matmul_reference(x, q, s)
                             for x, q, s, _ in mats], iters=10)
     library = gpu_ms(lambda: [x @ (q.float() * s).to(dt)
@@ -478,12 +545,17 @@ def time_int8(dev, gen, m):
     err = max((wo_int8_matmul(x, q, s).float()
                - wo_int8_matmul_reference(x, q, s).float()).abs().max().item()
               for x, q, s, _ in mats)
+    split = ("" if unsplit is None else
+             "; k split over " + "/".join(str(tiled_splits(m, k, n))
+                                          for k, n in GPT2_WEIGHTS)
+             + f" CTAs, unsplit {unsplit:.4f} ms")
     return dict(shape=f"m={m}, one layer's four matrices "
                 "768x2304, 768x768, 768x3072, 3072x768, bf16 x; library = "
-                f"dequantize + matmul; dense bf16 matmul {dense:.4f} ms",
-                ms=kernel, plain_ms=plain, library_ms=library,
+                f"dequantize + matmul; dense bf16 matmul {dense:.4f} ms"
+                + split, ms=kernel, plain_ms=plain, library_ms=library,
                 dense_matmul_ms=dense, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
+                max_abs_err=err,
+                **({} if unsplit is None else {"ms_unsplit": unsplit}))
 
 
 def _alibi_bias(h, s, dev):
@@ -715,8 +787,11 @@ def check_fused_adam(dev, gen):
                                  "plain version")
 
 
+# the backward kernels' (and the bf16 forward's) products; the fp32
+# forward stays on FMAs
 FLASH_IMPL = {torch.bfloat16: "tensor-core bf16 (mma.sync)",
-              torch.float32: "FMA fp32"}
+              torch.float32: "3xTF32 tensor cores (mma.sync)"}
+FLASH_FWD_FP32_IMPL = "FMA fp32"
 
 
 def _flash_train_inputs(dev, gen, b, h, s, d, dtype, padded):
@@ -799,7 +874,13 @@ def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
     act = b * s * h * d * elem                    # one [b, s, h, d] tensor
     rows = b * h * s * 4                          # one fp32 per row
     nbias = 0 if bias is None else bias.numel() * 4
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    # fp32: the forward's FMAs; the backward's 3xTF32 products, three TF32
+    # products for each fp32 one (its FMA bound beside it)
+    peaks = ({name: PEAK_BF16_FLOPS for name in times[rate]}
+             if dtype == torch.bfloat16 else
+             {"flash_attention": PEAK_FP32_FLOPS,
+              "flash_attention_bwd_dkv": PEAK_TF32_FLOPS / 3,
+              "flash_attention_bwd_dq": PEAK_TF32_FLOPS / 3})
     out = {}
     for name, products, nbytes, pl, lb in (
             # QK^T, PV; reads q k v (bias), writes o lse
@@ -811,12 +892,19 @@ def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
             # S, dP, dQ; reads q k v dO lse delta (bias), writes dq
             ("flash_attention_bwd_dq", 3, 5 * act + 2 * rows + nbias,
              plain["bwd"], lib["bwd"])):
-        bound, by = bound_ms(2 * products * visible * d, nbytes, peak)
+        flops = 2 * products * visible * d
+        bound, by = bound_ms(flops, nbytes, peaks[name])
+        fma = ""
+        if dtype == torch.float32 and name != "flash_attention":
+            fma = (f"; bound at 3xTF32 (165 TFLOP/s), on FMAs (67) "
+                   f"{bound_ms(flops, nbytes, PEAK_FP32_FLOPS)[0]:.4f} ms")
         out[name] = dict(
             shape=(f"b={b} h={h} sq=sk={s} d={d} {str(dtype)[6:]} "
                    + ("padding bias" if padded else "causal")
-                   + f" dropout={rate}"),
-            impl=FLASH_IMPL[dtype], ms=times[rate][name],
+                   + f" dropout={rate}" + fma),
+            impl=(FLASH_FWD_FP32_IMPL if dtype == torch.float32
+                  and name == "flash_attention" else FLASH_IMPL[dtype]),
+            ms=times[rate][name],
             ms_rate0=times[0.0][name], plain_ms=pl, library_ms=lb,
             bound_ms=bound, bound_by=by, max_abs_err=errs[name])
     return out
@@ -2143,6 +2231,12 @@ def bert_train_loss(model, batch, rng, train):
                               batch["nsp_labels"])
 
 
+# phase 7a: the least fall of the mean loss over a period (the first two
+# steps against the last two). Readings (H100): the sound run 1.5298, a run
+# whose LAMB apply launch is skipped 0.0017; 0.05 is ~30x from each
+LOSS_FALL = 0.05
+
+
 def phase_sparse_bert_bf16(card, profile=False, steps=8):
     """BERT-base (12 layers, d 768) made sparse at 4096 tokens, bf16 on
     fp32 masters, attention dropout 0.1, FusedLamb, 8 train_batch calls on
@@ -2201,9 +2295,13 @@ def phase_sparse_bert_bf16(card, profile=False, steps=8):
                              "times")
     losses = [float(x) for x in losses]
     log("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    # the losses bounce with period 2: compare whole periods
+    fall = np.mean(losses[:2]) - np.mean(losses[-2:])
+    log(f"  mean of the first two losses - mean of the last two: "
+        f"{fall:.4f} (gate >= {LOSS_FALL})")
+    if not all(np.isfinite(losses)) or not fall >= LOSS_FALL:
         raise AssertionError("sparse BERT losses are not finite or did not "
-                             "fall on the repeated batch")
+                             "fall over a period on the repeated batch")
     step_ms = (marks[-1] - marks[0]) / (steps - 1) * 1e3
     tokens = n * SPARSE_SEQ
     log(f"  step wall {step_ms:.2f} ms (mean of steps 2-{steps}, each ending "
@@ -2795,6 +2893,23 @@ PLANTED_FAULTS = (
      (("float dfac = 1.f, d = dpT[jj][e];",
        "float dfac = 1.f, d = round_to<bf16>(dpT[jj][e]);"),),
      "--checks-only"),
+    # the int8 matmul's summation order and the fp32 backward's products
+    ("bf16 tiled int8: the mma accumulators carried across k segments (one "
+     "chain over k), not fresh per segment", "wo_int8_matmul.cu",
+     (("sum[i][j][e] = __fadd_rn(sum[i][j][e], acc[i][j][e]);\n"
+       "          acc[i][j][e] = 0.f;",
+       "sum[i][j][e] = acc[i][j][e];"),), "--checks-only"),
+    ("fp32 flash backward: the lo terms dropped (plain TF32 products)",
+     "mma.cuh",
+     (("  mma_tf32(c, alo, bhi[0], bhi[1]);\n"
+       "  mma_tf32(c, ahi, blo[0], blo[1]);\n", ""),), "--checks-only"),
+    # phase 7a's loss gate against a run whose parameters never move
+    ("7a: the LAMB apply launch skipped (parameters unchanged)",
+     "fused_lamb.cu",
+     (("extern \"C\" int fused_lamb_apply(DS_LAMB_PARAMS) {\n"
+       "  if (n_blocks <= 0) return 0;",
+       "extern \"C\" int fused_lamb_apply(DS_LAMB_PARAMS) {\n"
+       "  if (n_blocks <= 0 || true) return 0;"),), "--7a-only"),
 )
 
 
@@ -2804,8 +2919,8 @@ def run_planted_faults(only=None):
     into a temporary directory, make the fault's edits to one kernel
     source there (as ``sed`` would; each pattern must occur), run
     ``chip_smoke.py`` with the fault's flag (``--checks-only`` or
-    ``--8c-only``) in the copy, and require it to fail. Logs each run's
-    failing gate lines (and 8c's readings)."""
+    ``--8c-only`` or ``--7a-only``) in the copy, and require it to fail.
+    Logs each run's failing gate lines (and 8c's and 7a's readings)."""
     import shutil
     import tempfile
     faults = [f for f in PLANTED_FAULTS if only is None or only in f[1]]
@@ -2834,8 +2949,8 @@ def run_planted_faults(only=None):
         lines = [ln for ln in (res.stdout + res.stderr).splitlines()
                  if "FAIL" in ln or "cases ok" in ln and (
                      "layernorm" in ln or "quantizer" in ln or "flash" in ln
-                     or "block_sparse" in ln)
-                 or "Error" in ln or "after step" in ln]
+                     or "block_sparse" in ln or "wo_int8" in ln)
+                 or "Error" in ln or "after step" in ln or "losses" in ln]
         failed = res.returncode != 0
         caught += failed
         log(f"planted fault: {name} ({src}): {flag} exit "
@@ -2844,7 +2959,7 @@ def run_planted_faults(only=None):
         for ln in lines[:12]:
             log("    " + ln.strip()[:400])
     log(f"{caught} of {len(faults)} planted faults fail the kernel "
-        "checks or phase 8c")
+        "checks, phase 7a or phase 8c")
     if not faults or caught != len(faults):
         raise AssertionError("a planted kernel fault passed the checks")
 
@@ -2898,6 +3013,11 @@ def main():
     if "--8c-only" in sys.argv[1:]:
         phase_ds_bert_parity()
         log("phase 8c passed (--8c-only: no other phase, no result)")
+        return 0
+    if "--7a-only" in sys.argv[1:]:
+        set_gemm_flags(defaults)
+        phase_sparse_bert_bf16(card)
+        log("phase 7a passed (--7a-only: no other phase, no result)")
         return 0
 
     log("phase 3: kernels against their plain versions")

@@ -156,8 +156,26 @@ class GPT(nn.Module):
             cache.index = cache.index + s
         h = self.ln_f(h)
         if self.lm_head is None:
-            return h @ self.wte.to(cfg.dtype).t()
+            w = self.wte.to(cfg.dtype)
+            return h @ w.t() if cache is None else tied_head_rows(h, w)
         return self.lm_head(h)
+
+
+HEAD_ROWS = 64   # rows of every GEMM of the tied head when decoding
+
+
+def tied_head_rows(h, w):
+    """``h @ w.t()`` in GEMMs of exactly ``HEAD_ROWS`` rows (the last one
+    zero-padded). A GEMM library picks its algorithm by shape, so a row's
+    logits would otherwise depend on how many rows share the call: the
+    serving engine's batched decode step and ``generate()``'s one-row step
+    would round some logits differently. With one shape they are the same
+    bits wherever the row sits."""
+    x = h.reshape(-1, h.shape[-1])
+    n = x.shape[0]
+    x = torch.cat([x, x.new_zeros(-n % HEAD_ROWS, x.shape[1])])
+    out = torch.cat([blk @ w.t() for blk in x.split(HEAD_ROWS)])
+    return out[:n].reshape(*h.shape[:-1], w.shape[0])
 
 
 def gpt_loss_fn(logits, labels, loss_mask=None, z_loss=0.0):

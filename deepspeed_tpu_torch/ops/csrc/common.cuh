@@ -111,7 +111,7 @@ __device__ __forceinline__ bool dropout_keep(const DropoutParams& dp,
 // The 4x4 blocks of S = Q K^T and dP = dO V^T owned by thread (ty, tx) of
 // a 256-thread CTA on 64-row tiles: q rows ty + 16i of Qs/dOs, keys
 // tx + 16j of Ks/Vs, all fp32 in shared memory with rows of D + 1 floats.
-// Shared by the flash and block-sparse backward kernels.
+// The block-sparse fp32 backward kernels' products.
 template <int D>
 __device__ __forceinline__ void tile_scores(const float* Qs,
                                             const float* dOs,

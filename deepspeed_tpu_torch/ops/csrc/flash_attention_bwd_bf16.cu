@@ -3,7 +3,8 @@
 //
 // Replaces, for bf16 inputs, the TPU backward kernels reached through
 // _flash_bwd (deepspeed_tpu/ops/pallas/flash_attention.py:773); fp32 inputs
-// keep the FMA kernels of flash_attention_bwd.cu, the port's parity mode.
+// go to the 3xTF32 kernels of flash_attention_bwd.cu, the port's parity
+// mode.
 // Same function and rounding points as those kernels and the plain version
 // (ops/flash_attention.py flash_attention_bwd_reference), from the
 // forward's saved LSE and delta = rowsum(dO o O) (the wrapper's):

@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the bf16 flash kernels, as inline PTX
-// (no CUTLASS include, so a build stays seconds long): cp.async copies
-// into shared memory, ldmatrix fragment loads and the
-// mma.sync.m16n8k16 bf16 product with fp32 accumulators.
+// Tensor-core building blocks of the kernels, as inline PTX (no CUTLASS
+// include, so a build stays seconds long): cp.async copies into shared
+// memory, ldmatrix fragment loads, the mma.sync.m16n8k16 bf16 product and
+// the mma.sync.m16n8k8 tf32 product with fp32 accumulators, and the split
+// of an fp32 value into two tf32 halves for 3xTF32 products.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major) a[0]: (g, 2t..2t+1)   a[1]: (g + 8, 2t..2t+1)
@@ -11,6 +12,18 @@
 // so the C fragments of two neighbouring n-blocks, packed to bf16, are the
 // A fragment of one 16-deep step of the next product (the probabilities
 // never leave registers).
+//
+// Fragment layout of m16n8k8 tf32 (one fp32-sized value a register):
+//   A (16 x 8, row-major) a[0]: (g, t)  a[1]: (g + 8, t)
+//                         a[2]: (g, t + 4)  a[3]: (g + 8, t + 4)
+//   B (8 x 8, "col")      b0: (k t, n g)  b1: (k t + 4, n g)
+//   C                     as m16n8k16.
+// ldmatrix reads an 8 x 4 block of 32-bit values as an 8 x 8 b16 matrix
+// and hands lane (g, t) element (g, t): the A fragment of a row-major [m][k]
+// tile, and the B fragment of an [n][k] tile. The C fragment of an n8 block
+// is an A fragment of the next product with its 8 k positions permuted
+// (position t <- column 2t, t + 4 <- 2t + 1): a = {c[0], c[2], c[1],
+// c[3]}, the B rows read in the same order (see c_to_a_tf32).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,7 +62,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -74,6 +87,45 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A B on the tensor cores (tf32 inputs, fp32 accumulators)
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split of an fp32 value (CUTLASS's OpMultiplyAddFastF32):
+// hi = tf32(x), lo = tf32(x - hi), so x = hi + lo up to 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += A B of fp32 A and B as three tf32 products, the small terms first:
+// lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B); lo(A) lo(B) (2^-22 relative) is
+// dropped
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(c, alo, bhi[0], bhi[1]);
+  mma_tf32(c, ahi, blo[0], blo[1]);
+  mma_tf32(c, ahi, bhi[0], bhi[1]);
 }
 
 // 2^x on the SFU (MUFU.EX2, about 2 ulp; results below 2^-126 flush to 0)

@@ -33,9 +33,13 @@
 // four keys per step; int8 elements are converted and multiplied by the
 // token's scale in registers. The loop runs over j < length only, so the
 // garbage (or NaN) that unowned pages and the tail of the last page hold is
-// never read. Groups merge with shuffles inside a warp and shared memory
-// across warps; the current token is folded in last, as one more online
-// softmax column. Splitting a long row over several CTAs is later work.
+// never read. The current token is key n of the same loop (read from
+// k_new / v_new at full precision), so the keys, their groups, the
+// online-softmax steps and the merge (shuffles inside a warp, shared
+// memory across warps) are decode_attention.cu's for a cache holding the
+// same n + 1 tokens: a token decoded from the pool is the bits of one
+// decoded from a contiguous cache (serving against generate()). Splitting
+// a long row over several CTAs is later work.
 #include "common.cuh"
 
 namespace {
@@ -82,7 +86,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   static_assert(D % VEC == 0 && LOADS <= 32, "bad head_dim");
 
   extern __shared__ int table_s[];          // this slot's page-table row
-  __shared__ float m_s[WARPS], l_s[WARPS], s_cur_s;
+  __shared__ float m_s[WARPS], l_s[WARPS];
   __shared__ float acc_s[WARPS][D];
 
   const int b = blockIdx.x / H;
@@ -97,9 +101,12 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     table_s[i] = ptab[static_cast<long long>(b) * max_pages + i];
 
   const int n = lengths[b];                 // pool tokens of this slot
+  const int nk = n + 1;                     // and the current token
   const float q_pos = static_cast<float>(n);
   const float slope = slopes != nullptr ? slopes[h] : 0.f;
   const T* qb = q + b * q_sb + h * q_sh;
+  const T* knb = kn + b * kn_sb + h * kn_sh + t * VEC;
+  const T* vnb = vn + b * vn_sb + h * vn_sh + t * VEC;
 
   float qf[VEC];
 #pragma unroll
@@ -115,8 +122,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
 
   // the trip count is uniform across the CTA so every lane reaches the
-  // group shuffles; keys at or past n are masked, not read
-  for (int base = 0; base < n; base += GROUPS * UNROLL) {
+  // group shuffles; keys past the current one (n) are masked, not read
+  for (int base = 0; base < nk; base += GROUPS * UNROLL) {
     Vec16<P> kv[UNROLL], vv[UNROLL];
     float ksc[UNROLL], vsc[UNROLL], s[UNROLL];
 #pragma unroll
@@ -146,13 +153,17 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                                  : page_float(kv[u].x[e]);
           part = fmaf(qf[e], kf, part);
         }
+      } else if (active && j == n) {  // the current token
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          part = fmaf(qf[e], to_float(knb[e]), part);
       }
 #pragma unroll
       for (int off = TPK / 2; off > 0; off >>= 1)
         part += __shfl_xor_sync(0xffffffffu, part, off);
       // ALiBi (slope 0 without it), then the length mask
-      s[u] = j < n ? part + slope * (static_cast<float>(j) - q_pos)
-                   : DS_NEG_INF;
+      s[u] = j < nk ? part + slope * (static_cast<float>(j) - q_pos)
+                    : DS_NEG_INF;
     }
     float m_new = m;
 #pragma unroll
@@ -164,14 +175,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = base + u * GROUPS + g;
-      if (j < n) {
+      if (j < nk) {
         const float p = expf(s[u] - m_new);
         l += p;
         if (active) {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
-            const float vf = QUANT ? page_float(vv[u].x[e]) * vsc[u]
-                                   : page_float(vv[u].x[e]);
+            const float vf = j == n ? to_float(vnb[e])
+                             : QUANT ? page_float(vv[u].x[e]) * vsc[u]
+                                     : page_float(vv[u].x[e]);
             acc[e] = fmaf(p, vf, acc[e]);
           }
         }
@@ -203,23 +215,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
       l_s[warp] = l;
     }
   }
-  // the current token's logit: q . k_new over d, by warp 0
-  if (warp == 0) {
-    const T* knb = kn + b * kn_sb + h * kn_sh;
-    float part = 0.f;
-    for (int c = lane; c < D; c += 32)
-      part = fmaf(to_float(qb[c]) * scale, to_float(knb[c]), part);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) s_cur_s = part;
-  }
   __syncthreads();
 
-  // merge the warps, then fold the current token in as the last column
-  // (bias 0, always valid); thread c writes output element c
-  const T* vnb = vn + b * vn_sb + h * vn_sh;
-  const float s_cur = s_cur_s;
+  // merge the warps; thread c writes output element c
   for (int c = threadIdx.x; c < D; c += THREADS) {
     float mm = DS_NEG_INF;
 #pragma unroll
@@ -231,11 +229,6 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
       lt += l_s[w] * f;
       at += acc_s[w][c] * f;
     }
-    const float m_new = fmaxf(mm, s_cur);
-    const float corr = expf(mm - m_new);
-    const float p = expf(s_cur - m_new);
-    lt = lt * corr + p;
-    at = at * corr + p * to_float(vnb[c]);
     o[(static_cast<long long>(b) * H + h) * D + c] = from_float<T>(at / lt);
   }
 }

@@ -7,12 +7,13 @@ fused counter-based dropout, the backward ``_flash_bwd`` (:773) and the
 ``custom_vjp`` wiring (:957-972), here a ``torch.autograd.Function``. The
 kernels are picked by dtype: bf16 runs the tensor-core kernels of
 ``csrc/flash_attention_fwd_bf16.cu`` and ``csrc/flash_attention_bwd_bf16.cu``
-(dK/dV, then dQ), fp32 the FMA kernels of ``csrc/flash_attention_fwd.cu``
-and ``csrc/flash_attention_bwd.cu`` (exact fp32 products: the parity
-mode); their headers say what bounds them on the H100 and how they are
-laid out. Both hold to the same plain versions. A CUDA tensor launches the
-kernels, a CPU tensor runs ``flash_attention_reference`` and
-``flash_attention_bwd_reference``. dBias is a dense recompute outside the
+(dK/dV, then dQ), fp32 (the parity mode) the FMA forward of
+``csrc/flash_attention_fwd.cu`` (exact fp32 products) and the backward of
+``csrc/flash_attention_bwd.cu`` (3xTF32 tensor-core products, within
+about 2^-22 of an fp32 product); their headers say what bounds them on
+the H100 and how they are laid out. Both hold to the same plain versions.
+A CUDA tensor launches the kernels, a CPU tensor runs
+``flash_attention_reference`` and ``flash_attention_bwd_reference``. dBias is a dense recompute outside the
 kernels (``_dbias_dense`` :743), run only when the bias requires grad.
 """
 
@@ -203,13 +204,12 @@ def _bias_operand(bias, q, k):
 
 
 def _kernel_layout(t):
-    """``t`` as the kernels read it: unit stride along d and, for the bf16
-    kernels' 16-byte copies, 16-byte aligned base and strides; otherwise a
-    contiguous copy."""
+    """``t`` as the kernels read it: unit stride along d and, for the
+    16-byte copies of the bf16 kernels and the fp32 backward, 16-byte
+    aligned base and strides; otherwise a contiguous copy."""
     size = t.element_size()
-    if t.stride(-1) == 1 and (t.dtype != torch.bfloat16 or (
-            t.data_ptr() % 16 == 0
-            and all(t.stride(i) * size % 16 == 0 for i in range(3)))):
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            t.stride(i) * size % 16 == 0 for i in range(3)):
         return t
     return t.contiguous()
 
@@ -249,7 +249,7 @@ def _strides(t):
 
 def _entry(lib, name, code):
     """The C entry point of one flash kernel for the dtype code: the
-    tensor-core kernel for bf16 (code 1), the FMA kernel for fp32."""
+    bf16 tensor-core kernel for code 1, the fp32 kernel for code 0."""
     return getattr(lib, name + "_bf16" if code == 1 else name)
 
 
@@ -427,7 +427,8 @@ def flash_attention(q, k, v, *, bias=None, causal=True, softmax_scale=None,
     carries them). Gradients flow to q, k, v (and to the bias when it
     requires grad) through the backward kernels. A CUDA tensor launches
     the kernels (head_dim 64, 80, 96 or 128; bfloat16 on the tensor
-    cores, float32 on FMAs; else it raises); a CPU tensor runs the plain
+    cores, float32 forward on FMAs and backward on 3xTF32 tensor-core
+    products; else it raises); a CPU tensor runs the plain
     versions.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:

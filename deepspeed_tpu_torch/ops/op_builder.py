@@ -68,8 +68,8 @@ SIGNATURES = {
     # q/k_new/v_new strides (slot, head), scale, stream
     "paged_attention": [_p] * 11 + [_i] * 7 + [_ll] * 6 + [_f, _p],
     # x, q, scale, y, partials, dtype, out dtype, m, k, n, x row stride,
-    # small, stream
-    "wo_int8_matmul": [_p] * 5 + [_i] * 5 + [_ll, _i, _p],
+    # small, splits, stream
+    "wo_int8_matmul": [_p] * 5 + [_i] * 5 + [_ll, _i, _i, _p],
     # q, k, v, list idx/pid/cnt, masks, o, m, l, dtype, b, h, S, d, list
     # width, q/k/v strides (batch, seq, head), scale, dropout, stream
     "block_sparse_attention_fwd": [_p] * 10 + [_i] * 6 + [_ll] * 9

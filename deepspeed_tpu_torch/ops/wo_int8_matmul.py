@@ -6,13 +6,19 @@ converted to x's dtype, fp32 accumulation and the per-output-channel
 ``scale [1, n]`` applied once at the end, cast to ``out_dtype``. The
 kernels are ``csrc/wo_int8_matmul.cu``; its header says what bounds them
 and the one summation order both follow, so a row's result does not
-depend on m.
+depend on m: k in segments of ``SEG`` rows, each segment's partial a
+chain from zero (bf16 x: ``mma.sync`` bf16 products on the tensor cores
+over 16-row steps; fp32 x: fp32 FMAs row by row), the partials added in
+segment order, then the scale.
 
 Routing is by m alone (the JAX package's env-var and calibration-file
 routing of its GEMV is TPU tuning and is not ported): m <= ``SMALL_M``
 (decode, m = the slot batch) runs the small-m kernel, which streams the
-weights once; larger m (prefill chunks) runs the tiled kernel. A CUDA
-tensor launches a kernel, a CPU tensor runs ``wo_int8_matmul_reference``.
+weights once; larger m (prefill chunks) runs the tiled kernel, whose
+k segments ``tiled_splits`` spreads over several CTAs when the output
+tiles alone would not fill the card (bf16 x; the same bits either way).
+A CUDA tensor launches a kernel, a CPU tensor runs
+``wo_int8_matmul_reference``.
 """
 
 import torch
@@ -21,6 +27,17 @@ from ._common import check_launch, kernel_dtype_code, use_kernel
 
 SMALL_M = 16     # the largest m routed to the small-m (decode) kernel
 SEG = 128        # k rows of one segment of the kernels' summation order
+TILE_M, TILE_N = 32, 64  # the bf16 tiled kernel's output tile
+SPLIT_TILES = 66  # no split at or above this many tiles (half the 132 SMs)
+
+
+def tiled_splits(m, k, n):
+    """The bf16 tiled kernel's CTAs along k for an [m, k] x [k, n] call:
+    1 (one CTA walks every segment of its tile) when there are at least
+    ``SPLIT_TILES`` output tiles, else one CTA a segment
+    (``csrc/wo_int8_matmul.cu`` header)."""
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    return 1 if tiles >= SPLIT_TILES else -(-k // SEG)
 
 
 def wo_int8_matmul_reference(x, q, scale, out_dtype=None):
@@ -34,8 +51,10 @@ def wo_int8_matmul_reference(x, q, scale, out_dtype=None):
     return (y * scale.reshape(1, n).float()).to(out_dtype)
 
 
-def _launch(x2, q, scale, out_dtype):
-    """Launch on x2 [m, k]; returns [m, n]."""
+def _launch(x2, q, scale, out_dtype, splits=None):
+    """Launch on x2 [m, k]; returns [m, n]. ``splits`` overrides
+    ``tiled_splits`` for the bf16 tiled kernel (the checks run one shape
+    both ways)."""
     from . import op_builder
     m, k = x2.shape
     n = q.shape[1]
@@ -56,18 +75,27 @@ def _launch(x2, q, scale, out_dtype):
     scale = scale.contiguous()
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
+    if code == 1 and (x2.data_ptr() % 16 or x2.stride(0) % 8):
+        # the bf16 kernels copy x rows in 16-byte chunks: rows padded to
+        # a multiple of 8 elements
+        xp = x2.new_zeros((m, -(-k // 8) * 8))
+        xp[:, :k] = x2
+        x2 = xp
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return y
     small = m <= SMALL_M
     segs = -(-k // SEG)
+    if splits is None:
+        splits = tiled_splits(m, k, n)
+    partials = segs > 1 and (small or code == 0 or splits > 1)
     part = (torch.empty((segs, m, n), dtype=torch.float32, device=dev)
-            if segs > 1 else None)
+            if partials else None)
     lib = op_builder.load()
     status = lib.wo_int8_matmul(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
         part.data_ptr() if part is not None else None, code, out_code, m, k,
-        n, x2.stride(0), int(small),
+        n, x2.stride(0), int(small), int(splits),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(status, "wo_int8_matmul")
     if small:
@@ -83,8 +111,8 @@ def wo_int8_matmul(x, q, scale, *, out_dtype=None):
     x: [..., k] bf16/fp32; q: [k, n] int8; scale: per output channel,
     [1, n] or [n] fp32. Returns [..., n] in ``out_dtype`` (default x's
     dtype). ``small_m_launches`` counts launches of the small-m kernel,
-    ``tiled_launches`` those of the tiled kernel (each with its
-    segment-partial reduction)."""
+    ``tiled_launches`` those of the tiled kernel (each with the
+    segment-partial reduction it needs)."""
     out_dtype = out_dtype or x.dtype
     k, n = q.shape
     lead = x.shape[:-1]
