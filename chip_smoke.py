@@ -20,8 +20,7 @@ Phases, each fatal on failure:
    training shapes beside the plain version, one PyTorch library call
    computing the same function, and the least time the card could take
    (the flash kernels in bf16 on the tensor cores at dropout 0.1 and 0,
-   and in fp32: the forward on FMAs, the backward on 3xTF32 tensor-core
-   products);
+   and in fp32 on 3xTF32 tensor-core products, also at head_dim 128);
 4. the slice end to end: GPT-2 125M at full width and depth (random
    weights from a seed) served through ``init_inference(...).serve()``:
    (a) fp32, every request token-exact against the port's ``generate()``
@@ -102,8 +101,10 @@ Phases, each fatal on failure:
    sum of its largest LAMB step (phase 7b's rule); then the same run
    with both blocks off as a control: losses within 1e-4, every 2-D
    parameter within 1e-6 after each step, the 1-D rule. Phase 3
-   holds the LayerNorm kernels (rows 1-8193, widths 768-8192, fp32
-   max_rel <= 1e-5, bf16 ``Gate``, an offset row set and a constant row)
+   holds the LayerNorm kernels (rows 1-8193, widths 768-8192 on both
+   sides of the warp-per-row kernels' limit and one not a whole vector,
+   fp32 max_rel <= 1e-5, bf16 ``Gate``, an offset row set and a constant
+   row; two backward launches bit-equal)
    and the quantize / dequantize kernels and ``fake_quantize`` (bit-equal:
    sym, asym, stochastic; bits 4/8/12; groups 1/16/1024; fp32 and bf16;
    an all-zero group; stochastic rounding reproducible and unbiased)
@@ -114,7 +115,7 @@ Phases, each fatal on failure:
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result);
 ``--7a-only`` phase 7a likewise.
-``--planted-faults [name]`` runs ``--checks-only`` (fourteen faults),
+``--planted-faults [name]`` runs ``--checks-only`` (eighteen faults),
 ``--8c-only`` (two) or ``--7a-only`` (one) in copies of the checkout,
 each with one kernel fault planted (``PLANTED_FAULTS``; only those
 whose source file name contains ``name``, when given), and fails unless
@@ -635,16 +636,19 @@ class Gate:
 
 
 def check_flash_dropout(dev, gen, sizes=(128, 1024)):
-    """The forward with dropout against its plain version: one wrong keep
-    bit moves an output by far more than the fp32 tolerance."""
+    """The forward on the training grid against its plain version, with
+    dropout (one wrong keep bit moves an output by far more than the fp32
+    tolerance) and without; logs fp32's worst reading per bias (ALiBi's
+    scores reach ~1000, where the exp's argument loses bits first)."""
     from deepspeed_tpu_torch.ops.flash_attention import (
         _bias_operand, flash_attention_fwd, flash_attention_reference)
     gate = Gate("flash+dropout")
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for d in HEAD_DIMS:
             for s in sizes:
                 for name, b, bias in _train_cases(dev, s):
-                    for rate in (0.1, 0.5):
+                    for rate in (0.0, 0.1, 0.5):
                         q, k, v = (torch.randn(b, s, 12, d, generator=gen,
                                                device=dev, dtype=dtype)
                                    for _ in range(3))
@@ -655,11 +659,19 @@ def check_flash_dropout(dev, gen, sizes=(128, 1024)):
                         ro, rlse = flash_attention_reference(
                             q, k, v, bias_in, causal=True, dropout=drop)
                         torch.cuda.synchronize()
+                        gap = (lse - rlse).abs().max().item()
                         gate.case(dtype, [o], [ro],
                                   f"d={d:3d} s={s:4d} {name:7s} rate={rate}",
                                   show=s == 1024 and name == "causal",
-                                  extra=(lse - rlse).abs().max().item()
-                                  if dtype == torch.float32 else 0.0)
+                                  extra=gap if dtype == torch.float32
+                                  else 0.0)
+                        if dtype == torch.float32:
+                            w = worst.setdefault(name, [0.0, 0.0])
+                            w[0] = max(w[0], _rel_err(o, ro))
+                            w[1] = max(w[1], gap)
+    log("  flash+dropout float32 worst by bias, o max_rel / LSE gap: "
+        + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}"
+                    for k, v in worst.items()))
     gate.close()
 
 
@@ -699,7 +711,7 @@ def check_flash_train_shapes(dev, gen):
     """The bf16 forward and both backward kernels at the shapes phases 5a
     and 8a give them, grids several waves deep: GPT-2's micro batch (b 8,
     h 12, s 1024, causal) and phase 8's (b 64, h 16, s 128, padding
-    bias), dropout 0.1 and 0."""
+    bias), dropout 0.1 and 0; the fp32 forward at both shapes too."""
     from deepspeed_tpu_torch.ops.flash_attention import (
         Dropout, _bias_operand, flash_attention_bwd,
         flash_attention_bwd_reference, flash_attention_fwd,
@@ -724,6 +736,13 @@ def check_flash_train_shapes(dev, gen):
                      f" rate={rate}")
             gate.case(dt, [o], [ro], label + " (o)", show=True)
             gate.case(dt, grads, refs, label + " (dq, dk, dv)", show=True)
+            q32, k32, v32 = (t.float() for t in (q, k, v))
+            b32 = _bias_operand(bias, q32, k32)
+            o, lse = flash_attention_fwd(q32, k32, v32, b32, **kw)
+            ro, rlse = flash_attention_reference(q32, k32, v32, b32, **kw)
+            torch.cuda.synchronize()
+            gate.case(torch.float32, [o], [ro], label + " fp32 (o)",
+                      show=True, extra=(lse - rlse).abs().max().item())
     gate.close()
 
 
@@ -787,11 +806,12 @@ def check_fused_adam(dev, gen):
                                  "plain version")
 
 
-# the backward kernels' (and the bf16 forward's) products; the fp32
-# forward stays on FMAs
+# the flash kernels' products; the fp32 forward's design also names where
+# K and V are split into their tf32 halves
 FLASH_IMPL = {torch.bfloat16: "tensor-core bf16 (mma.sync)",
               torch.float32: "3xTF32 tensor cores (mma.sync)"}
-FLASH_FWD_FP32_IMPL = "FMA fp32"
+FLASH_FWD_FP32_IMPL = ("3xTF32 tensor cores (mma.sync), K and V split once "
+                       "a CTA, exp as ex2 of (x - m) log2 e")
 
 
 def _flash_train_inputs(dev, gen, b, h, s, d, dtype, padded):
@@ -874,13 +894,10 @@ def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
     act = b * s * h * d * elem                    # one [b, s, h, d] tensor
     rows = b * h * s * 4                          # one fp32 per row
     nbias = 0 if bias is None else bias.numel() * 4
-    # fp32: the forward's FMAs; the backward's 3xTF32 products, three TF32
-    # products for each fp32 one (its FMA bound beside it)
-    peaks = ({name: PEAK_BF16_FLOPS for name in times[rate]}
-             if dtype == torch.bfloat16 else
-             {"flash_attention": PEAK_FP32_FLOPS,
-              "flash_attention_bwd_dkv": PEAK_TF32_FLOPS / 3,
-              "flash_attention_bwd_dq": PEAK_TF32_FLOPS / 3})
+    # fp32: 3xTF32 products, three TF32 products for each fp32 one (the
+    # FMA bound beside it)
+    peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+            else PEAK_TF32_FLOPS / 3)
     out = {}
     for name, products, nbytes, pl, lb in (
             # QK^T, PV; reads q k v (bias), writes o lse
@@ -893,9 +910,9 @@ def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
             ("flash_attention_bwd_dq", 3, 5 * act + 2 * rows + nbias,
              plain["bwd"], lib["bwd"])):
         flops = 2 * products * visible * d
-        bound, by = bound_ms(flops, nbytes, peaks[name])
+        bound, by = bound_ms(flops, nbytes, peak)
         fma = ""
-        if dtype == torch.float32 and name != "flash_attention":
+        if dtype == torch.float32:
             fma = (f"; bound at 3xTF32 (165 TFLOP/s), on FMAs (67) "
                    f"{bound_ms(flops, nbytes, PEAK_FP32_FLOPS)[0]:.4f} ms")
         out[name] = dict(
@@ -1310,7 +1327,10 @@ def time_fused_lamb(dev, gen):
 
 LN_TOL = 1e-5        # fp32 LayerNorm kernels against their plain versions
 LN_ROWS = (1, 255, 8192, 8193)
-LN_WIDTHS = (768, 1024, 4096, 8192)
+# 1024 and 1032: the two sides of the warp-per-row kernels' limit
+# (layernorm.cu WARP_ROW_MAX_D); 1023: no whole 16-byte vectors (the
+# CTA-per-row ones)
+LN_WIDTHS = (768, 1023, 1024, 1032, 4096, 8192)
 
 
 def _ln_case(dev, gen, n, d, dtype, offset, constant=False):
@@ -1325,10 +1345,12 @@ def _ln_case(dev, gen, n, d, dtype, offset, constant=False):
 
 def check_layernorm(dev, gen, rows=LN_ROWS, widths=LN_WIDTHS):
     """The LayerNorm forward and backward kernels against their plain
-    versions: rows 1, 255, 8192 and 8193 (the backward's CTAs own 1 or 32-33
-    rows), widths 768-8192, fp32 (max_rel <= 1e-5) and bf16 (``Gate``),
-    half the widths with an offset of 100 (mean/std 100: a one-pass
-    variance reads ~6e-4 there, the two-pass ~2e-6), and a constant row."""
+    versions: rows 1, 255, 8192 and 8193 (the backward's CTAs own 1 to 32
+    rows, a warp 0 to 8), widths 768-8192 through both the warp-per-row
+    and the CTA-per-row kernels, fp32 (max_rel <= 1e-5) and bf16
+    (``Gate``), widths 1024 and 8192 with an offset of 100 (mean/std 100:
+    a one-pass variance reads ~6e-4 there, the two-pass ~2e-6), and a
+    constant row."""
     from deepspeed_tpu_torch.ops.layernorm import (
         launch_bwd, launch_fwd, layer_norm_bwd_reference,
         layer_norm_fwd_reference)
@@ -1376,6 +1398,9 @@ def time_layernorm(dev, gen, n=DS_MICRO * DS_SEQ, d=1024):
     ry, rmean, rrstd = layer_norm_fwd_reference(x, gamma, beta, eps)
     bwd_args = (dy, x, gamma, mean, rstd)
     got, ref = launch_bwd(*bwd_args), layer_norm_bwd_reference(*bwd_args)
+    if not all(torch.equal(a, b) for a, b in zip(got, launch_bwd(*bwd_args))):
+        raise AssertionError("layernorm_bwd: two launches differ in dx, "
+                             "dgamma or dbeta")
     # torch's layer_norm takes gamma and beta in x's dtype on the card
     xl = x.detach().requires_grad_()
     gl, bl = (t.to(dt).requires_grad_() for t in (gamma, beta))
@@ -1766,6 +1791,11 @@ def device_profile(name, fn, wall, card, iters=10, grad=False):
         f"({100 * (1 - busy_ms / wall):.1f}% idle) [{card}]")
     for key, dur in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {dur / iters / 1e3:8.4f} ms  {key}")
+    ln = {k: v for k, v in by_name.items() if k.startswith("ln_")}
+    if ln:
+        log(f"    LayerNorm kernels {sum(ln.values()) / iters / 1e3:.4f} ms "
+            "per call: " + ", ".join(f"{k} {v / iters / 1e3:.4f}"
+                                     for k, v in sorted(ln.items())))
 
 
 def phase_cpu_parity(model_fp32):
@@ -1903,7 +1933,7 @@ def phase_train_parity():
         reset_counters(counters)
         losses = [float(engine.train_batch(batch)) for _ in range(2)]
         if dev == "cuda":
-            counts = read_counters(counters)    # the fp32 FMA kernels'
+            counts = read_counters(counters)    # the fp32 3xTF32 kernels'
         runs[dev] = (losses, {k: v.detach().cpu() for k, v in
                               engine.module.state_dict().items()})
     loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0],
@@ -2819,15 +2849,26 @@ def phase_ds_bert_parity(devices=("cuda", "cpu"), n_layers=4):
 # --------------------------------------------------------------------------
 
 PLANTED_FAULTS = (
-    ("LayerNorm variance in the one-pass form E[x^2] - mean^2",
-     "layernorm.cu",
+    ("LayerNorm variance in the one-pass form E[x^2] - mean^2 (CTA-per-row "
+     "forward)", "layernorm.cu",
      (("const float c = __fsub_rn(row[j], mean);", "const float c = row[j];"),
       ("const float var = __fdiv_rn(block_sum(ss), fd);",
        "const float var = __fsub_rn(__fdiv_rn(block_sum(ss), fd), "
        "__fmul_rn(mean, mean));")), "--checks-only"),
+    ("LayerNorm variance in the one-pass form E[x^2] - mean^2 (warp-per-row "
+     "forward)", "layernorm.cu",
+     (("const float dev = __fsub_rn(xv[c][i], mean);",
+       "const float dev = xv[c][i];"),
+      ("const float var = __fdiv_rn(warp_sum(ss), fd);",
+       "const float var = __fsub_rn(__fdiv_rn(warp_sum(ss), fd), "
+       "__fmul_rn(mean, mean));")), "--checks-only"),
     ("the dgamma/dbeta reduction skips the last CTA's partial",
      "layernorm.cu",
      (("c < ctas; c += RED_WARPS", "c < ctas - 1; c += RED_WARPS"),),
+     "--checks-only"),
+    ("the warp-per-row backward's combine drops the last warp's dgamma/dbeta "
+     "sums", "layernorm.cu",
+     (("    if (w == k) {", "    if (w == k && k + 1 < BWD_WARPS) {"),),
      "--checks-only"),
     ("codes truncated instead of rounded half to even (rintf)",
      "quantizer.cu", (("rintf(", "truncf("),), "--checks-only"),
@@ -2903,6 +2944,13 @@ PLANTED_FAULTS = (
      "mma.cuh",
      (("  mma_tf32(c, alo, bhi[0], bhi[1]);\n"
        "  mma_tf32(c, ahi, blo[0], blo[1]);\n", ""),), "--checks-only"),
+    ("fp32 flash forward: the lo terms dropped (plain TF32 products, hi "
+     "only)", "flash_attention_fwd.cu",
+     (("  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", ""),),
+     "--checks-only"),
+    ("fp32 flash forward: hi(A) lo(B), one of the three terms, dropped",
+     "flash_attention_fwd.cu",
+     (("  mma_tf32(c, ah, bl0, bl1);\n", ""),), "--checks-only"),
     # phase 7a's loss gate against a run whose parameters never move
     ("7a: the LAMB apply launch skipped (parameters unchanged)",
      "fused_lamb.cu",
@@ -2913,39 +2961,44 @@ PLANTED_FAULTS = (
 )
 
 
-def run_planted_faults(only=None):
-    """Each fault of ``PLANTED_FAULTS`` (those whose source file name
-    contains ``only``, when given): copy chip_smoke.py and the package
-    into a temporary directory, make the fault's edits to one kernel
-    source there (as ``sed`` would; each pattern must occur), run
-    ``chip_smoke.py`` with the fault's flag (``--checks-only`` or
-    ``--8c-only`` or ``--7a-only``) in the copy, and require it to fail.
-    Logs each run's failing gate lines (and 8c's and 7a's readings)."""
+def run_in_copy(name, src, edits, flag):
+    """Copy chip_smoke.py and the package into a temporary directory, make
+    ``edits`` to one kernel source there (as ``sed`` would; each pattern
+    must occur) and run ``chip_smoke.py flag`` in the copy; returns the
+    finished process and its seconds."""
     import shutil
     import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
+        shutil.copytree(os.path.join(REPO, "deepspeed_tpu_torch"),
+                        os.path.join(tmp, "deepspeed_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        path = os.path.join(tmp, "deepspeed_tpu_torch", "ops", "csrc", src)
+        with open(path) as f:
+            text = f.read()
+        for old, new in edits:
+            if old not in text:
+                raise AssertionError(f"{name!r}: {old!r} not found in {src}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "chip_smoke.py", flag],
+                             cwd=tmp, capture_output=True, text=True,
+                             timeout=900)
+        return res, time.perf_counter() - t0
+
+
+def run_planted_faults(only=None):
+    """Each fault of ``PLANTED_FAULTS`` (those whose source file name
+    contains ``only``, when given) made in a copy of the checkout
+    (``run_in_copy``) with the fault's flag (``--checks-only`` or
+    ``--8c-only`` or ``--7a-only``); each copy must fail. Logs each run's
+    failing gate lines (and 8c's and 7a's readings)."""
     faults = [f for f in PLANTED_FAULTS if only is None or only in f[1]]
     caught = 0
     for name, src, edits, flag in faults:
-        with tempfile.TemporaryDirectory() as tmp:
-            shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
-            shutil.copytree(os.path.join(REPO, "deepspeed_tpu_torch"),
-                            os.path.join(tmp, "deepspeed_tpu_torch"),
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            path = os.path.join(tmp, "deepspeed_tpu_torch", "ops", "csrc",
-                                src)
-            with open(path) as f:
-                text = f.read()
-            for old, new in edits:
-                if old not in text:
-                    raise AssertionError(f"planted fault {name!r}: "
-                                         f"{old!r} not found in {src}")
-                text = text.replace(old, new)
-            with open(path, "w") as f:
-                f.write(text)
-            t0 = time.perf_counter()
-            res = subprocess.run(
-                [sys.executable, "chip_smoke.py", flag], cwd=tmp,
-                capture_output=True, text=True, timeout=900)
+        res, secs = run_in_copy(f"planted fault {name}", src, edits, flag)
         lines = [ln for ln in (res.stdout + res.stderr).splitlines()
                  if "FAIL" in ln or "cases ok" in ln and (
                      "layernorm" in ln or "quantizer" in ln or "flash" in ln
@@ -2954,7 +3007,7 @@ def run_planted_faults(only=None):
         failed = res.returncode != 0
         caught += failed
         log(f"planted fault: {name} ({src}): {flag} exit "
-            f"{res.returncode} in {time.perf_counter() - t0:.1f} s, "
+            f"{res.returncode} in {secs:.1f} s, "
             f"{'caught' if failed else 'NOT CAUGHT'}")
         for ln in lines[:12]:
             log("    " + ln.strip()[:400])
@@ -3043,7 +3096,7 @@ def main():
     decode_t = time_decode(dev, gen)
     train_t = time_flash_train(dev, gen)
     train_t["fused_adam"] = time_fused_adam(dev, gen)
-    # phase 8's shape (bf16) and the fp32 FMA kernels at GPT-2's
+    # phase 8's shape (bf16) and the fp32 kernels at GPT-2's
     ds_flash_t = time_flash_train(dev, gen, b=DS_MICRO, h=16, s=DS_SEQ,
                                   padded=True)
     fp32_flash_t = time_flash_train(dev, gen, dtype=torch.float32)
@@ -3054,9 +3107,14 @@ def main():
     sparse_t = time_block_sparse(dev, gen)
     sparse_t["fused_lamb"] = time_fused_lamb(dev, gen)
     ds_t = {**time_layernorm(dev, gen), **time_quantizer(dev, gen)}
+    # the fp32 kernels at head_dim 128, the widest (logged only: no main
+    # path runs them)
+    fp32_d128_t = time_flash_train(dev, gen, d=128, dtype=torch.float32)
     for name, t in (("flash_attention (serving prefill)", flash_t),
                     ("decode_attention", decode_t), *train_t.items(),
                     *ds_flash_t.items(), *fp32_flash_t.items(),
+                    *((f"{k} (head_dim 128)", t)
+                      for k, t in fp32_d128_t.items()),
                     *paged_t.items(), *sparse_t.items(), *ds_t.items()):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
@@ -3142,7 +3200,7 @@ def main():
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq", "fused_adam"):
         train_t[name]["launches"] = train_counts[name]
-    # the flash kernels at phase 8's shape: 8a's launches; the fp32 FMA
+    # the flash kernels at phase 8's shape: 8a's launches; the fp32
     # kernels at GPT-2's training shape: 5b's (the card's fp32 run)
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):

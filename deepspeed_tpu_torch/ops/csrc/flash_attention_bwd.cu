@@ -94,23 +94,6 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(float) * 6 * BQ * (D + 4);
 }
 
-// Rows [r0, r0 + ROWS) of an [s, D] fp32 head slice (row stride ss
-// elements, 16-byte aligned) into shared rows of D + 4 floats, with
-// cp.async by NT threads; rows at or past `limit` are zero-filled.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long ss, int r0,
-                                              int limit) {
-  constexpr int CH = D / 4;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < limit;
-    // a zero-filled chunk still names an address inside the slice
-    const float* s = src + (ok ? (r0 + r) * ss : 0) + c * 4;
-    cp_async16(dst + r * (D + 4) + c * 4, s, ok ? 16 : 0);
-  }
-}
-
 // lse and delta of rows [q0, q0 + BQ) of one (b, h) into shared memory with
 // cp.async; rows past sq are zero-filled (the kernels mask them)
 template <int NT>
@@ -126,29 +109,10 @@ __device__ __forceinline__ void load_row_stats_async(float* ls, float* dl,
   }
 }
 
-// The hi and lo tf32 halves of N fragment registers
-template <int N>
-__device__ __forceinline__ void split_frag(const uint32_t (&x)[N],
-                                           uint32_t (&hi)[N],
-                                           uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
-}
-
-// The A fragment (hi, lo) of the next product from the C fragment of one
-// n8 block, its k positions permuted as mma.cuh says
-__device__ __forceinline__ void c_to_a_tf32(uint32_t (&hi)[4],
-                                            uint32_t (&lo)[4],
-                                            const float (&c)[4]) {
-  split_tf32(c[0], hi[0], lo[0]);
-  split_tf32(c[2], hi[1], lo[1]);
-  split_tf32(c[1], hi[2], lo[2]);
-  split_tf32(c[3], hi[3], lo[3]);
-}
-
-// The B fragment (hi, lo) of that product: rows r and r + 1 (the permuted
-// k positions t and t + 4, r = 8 * block + 2t) of a [k][n] fp32 tile in
-// shared memory (row pitch P), at column col (= 8 * n block + g)
+// The B fragment (hi, lo) of the product whose A comes from c_to_a_tf32
+// (mma.cuh): rows r and r + 1 (the permuted k positions t and t + 4,
+// r = 8 * block + 2t) of a [k][n] fp32 tile in shared memory (row pitch
+// P), at column col (= 8 * n block + g)
 template <int P>
 __device__ __forceinline__ void b_rows_tf32(uint32_t (&hi)[2],
                                             uint32_t (&lo)[2],

@@ -2,7 +2,7 @@
 //
 // Replaces, for bf16 inputs, the TPU kernels _fwd_kernel_resident and
 // _fwd_kernel_streamed (deepspeed_tpu/ops/pallas/flash_attention.py:277,
-// :453), reached through _flash_fwd (:662); fp32 inputs keep the FMA
+// :453), reached through _flash_fwd (:662); fp32 inputs go to the 3xTF32
 // kernel of flash_attention_fwd.cu, the port's parity mode. Same function
 // and the same rounding points as that kernel and the plain version
 // (ops/flash_attention.py flash_attention_reference): O and the natural-log

@@ -1,8 +1,9 @@
 // Tensor-core building blocks of the kernels, as inline PTX (no CUTLASS
 // include, so a build stays seconds long): cp.async copies into shared
 // memory, ldmatrix fragment loads, the mma.sync.m16n8k16 bf16 product and
-// the mma.sync.m16n8k8 tf32 product with fp32 accumulators, and the split
-// of an fp32 value into two tf32 halves for 3xTF32 products.
+// the mma.sync.m16n8k8 tf32 product with fp32 accumulators, the split of
+// an fp32 value into two tf32 halves for 3xTF32 products, and the fp32
+// tile and fragment helpers that the 3xTF32 flash kernels share.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major) a[0]: (g, 2t..2t+1)   a[1]: (g + 8, 2t..2t+1)
@@ -169,4 +170,41 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
     const bf16* s = src + (ok ? (r0 + r) * ss : 0) + c * 8;
     cp_async16(dst + r * (D + 8) + c * 8, s, ok ? 16 : 0);
   }
+}
+
+// Rows [r0, r0 + ROWS) of an [s, D] fp32 head slice (row stride ss
+// elements, 16-byte aligned) into shared rows of D + 4 floats, with
+// cp.async by NT threads; rows at or past `limit` are zero-filled.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long ss, int r0,
+                                              int limit) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < limit;
+    // a zero-filled chunk still names an address inside the slice
+    const float* s = src + (ok ? (r0 + r) * ss : 0) + c * 4;
+    cp_async16(dst + r * (D + 4) + c * 4, s, ok ? 16 : 0);
+  }
+}
+
+// The hi and lo tf32 halves of N fragment registers
+template <int N>
+__device__ __forceinline__ void split_frag(const uint32_t (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// The A fragment (hi, lo) of the next product from the C fragment of one
+// n8 block, its k positions permuted as the header comment says
+__device__ __forceinline__ void c_to_a_tf32(uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4],
+                                            const float (&c)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
 }

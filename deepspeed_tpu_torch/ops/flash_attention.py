@@ -7,11 +7,12 @@ fused counter-based dropout, the backward ``_flash_bwd`` (:773) and the
 ``custom_vjp`` wiring (:957-972), here a ``torch.autograd.Function``. The
 kernels are picked by dtype: bf16 runs the tensor-core kernels of
 ``csrc/flash_attention_fwd_bf16.cu`` and ``csrc/flash_attention_bwd_bf16.cu``
-(dK/dV, then dQ), fp32 (the parity mode) the FMA forward of
-``csrc/flash_attention_fwd.cu`` (exact fp32 products) and the backward of
-``csrc/flash_attention_bwd.cu`` (3xTF32 tensor-core products, within
-about 2^-22 of an fp32 product); their headers say what bounds them on
-the H100 and how they are laid out. Both hold to the same plain versions.
+(dK/dV, then dQ), fp32 (the parity mode) the forward of
+``csrc/flash_attention_fwd.cu`` and the backward of
+``csrc/flash_attention_bwd.cu``, both on 3xTF32 tensor-core products
+(within about 2^-22 of an fp32 product); their headers say what bounds
+them on the H100 and how they are laid out. Both hold to the same plain
+versions.
 A CUDA tensor launches the kernels, a CPU tensor runs
 ``flash_attention_reference`` and ``flash_attention_bwd_reference``. dBias is a dense recompute outside the
 kernels (``_dbias_dense`` :743), run only when the bias requires grad.
@@ -427,9 +428,8 @@ def flash_attention(q, k, v, *, bias=None, causal=True, softmax_scale=None,
     carries them). Gradients flow to q, k, v (and to the bias when it
     requires grad) through the backward kernels. A CUDA tensor launches
     the kernels (head_dim 64, 80, 96 or 128; bfloat16 on the tensor
-    cores, float32 forward on FMAs and backward on 3xTF32 tensor-core
-    products; else it raises); a CPU tensor runs the plain
-    versions.
+    cores, float32 on 3xTF32 tensor-core products; else it raises); a
+    CPU tensor runs the plain versions.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D [b, s, h, d] q/k/v")

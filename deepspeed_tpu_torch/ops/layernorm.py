@@ -11,8 +11,11 @@ which the JAX package leaves to XLA and the port writes as a kernel too:
 
 The kernels are ``csrc/layernorm.cu`` (one forward launch; a backward of
 two launches, dx with per-CTA partials of dgamma and dbeta, then a fixed-
-order sum of the partials, so the result is bit-reproducible). A CUDA
-tensor launches them, a CPU tensor runs ``layer_norm_fwd_reference`` and
+order sum of the partials, so the result is bit-reproducible). Rows of at
+most 1024 elements that are whole 16-byte vectors go to the warp-per-row
+kernels, which hold a row in registers; other rows to the CTA-per-row
+kernels (the C entry points pick by width). A CUDA tensor launches
+them, a CPU tensor runs ``layer_norm_fwd_reference`` and
 ``layer_norm_bwd_reference``. x is fp32 or bf16 with fp32 gamma and beta;
 y and dx come out in x's dtype, dgamma and dbeta in gamma's.
 
@@ -25,6 +28,11 @@ import torch
 from ._common import check_launch, kernel_dtype_code, use_kernel
 
 MAX_D = 16384          # the widest row the kernels take (shared memory)
+# csrc/layernorm.cu's constants: the warps of a backward CTA, and the
+# backward's CTAs (two a card's 132 SMs)
+BWD_WARPS = 4
+BWD_CTAS = 264
+VEC_BYTES = 16         # the warp-per-row kernels' loads and stores
 
 
 def layer_norm_fwd_reference(x2d, gamma, beta, eps):
@@ -68,16 +76,24 @@ def _check(x2d, gamma, beta=None):
 
 
 def bwd_ctas(n: int) -> int:
-    """CTAs of the backward's first launch, each owning a contiguous run
-    of rows and one partial row of dgamma and dbeta: at most 256, so the
-    second launch sums at most 256 partials per column."""
-    return min(n, 256)
+    """CTAs of the backward's first launch, each owning the contiguous
+    rows [c n / ctas, (c + 1) n / ctas) and one partial row of dgamma and
+    dbeta: ``BWD_CTAS``, or fewer so that each of a CTA's ``BWD_WARPS``
+    warps has a row on average; the second launch sums the partials."""
+    return min(BWD_CTAS, -(-n // BWD_WARPS))
+
+
+def _aligned(t):
+    """``t`` itself when its data is 16-byte aligned (the vector loads),
+    else an aligned copy."""
+    return t if t.data_ptr() % VEC_BYTES == 0 else t.clone()
 
 
 def launch_fwd(x2d, gamma, beta, eps):
     """The forward kernel on contiguous [n, d]; returns (y, mean, rstd)."""
     from . import op_builder
     _check(x2d, gamma, beta)
+    x2d, gamma, beta = (_aligned(t) for t in (x2d, gamma, beta))
     n, d = x2d.shape
     dev = x2d.device
     y = torch.empty_like(x2d)
@@ -104,6 +120,7 @@ def launch_bwd(dy2d, x2d, gamma, mean, rstd):
     if dy2d.shape != x2d.shape or dy2d.dtype != x2d.dtype:
         raise ValueError("fused_layer_norm: the incoming gradient must match "
                          "x in shape and dtype")
+    dy2d, x2d, gamma = (_aligned(t) for t in (dy2d, x2d, gamma))
     dx = torch.empty_like(x2d)
     dgamma = torch.empty(d, dtype=torch.float32, device=dev)
     dbeta = torch.empty(d, dtype=torch.float32, device=dev)

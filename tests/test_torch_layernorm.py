@@ -9,6 +9,9 @@ dgamma and dbeta sum up to 64 rows), bf16 atol 2e-2 (one bf16 rounding of
 outputs of magnitude ~1-3).
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import jax
@@ -18,7 +21,8 @@ import torch
 from deepspeed_tpu.ops.pallas.layernorm import \
     fused_layer_norm as jax_fused_layer_norm
 from deepspeed_tpu_torch.ops import fused_layer_norm
-from deepspeed_tpu_torch.ops.layernorm import (bwd_ctas,
+from deepspeed_tpu_torch.ops.layernorm import (BWD_CTAS, BWD_WARPS,
+                                               VEC_BYTES, bwd_ctas,
                                                layer_norm_bwd_reference,
                                                layer_norm_fwd_reference)
 
@@ -108,9 +112,81 @@ def test_backward_partition_covers_every_row():
     tile [0, n) (the dgamma/dbeta partials miss no row)."""
     for n in (1, 2, 255, 256, 257, 8192, 8193):
         ctas = bwd_ctas(n)
+        assert 1 <= ctas <= min(n, BWD_CTAS)
         bounds = [c * n // ctas for c in range(ctas + 1)]
         assert bounds[0] == 0 and bounds[-1] == n
         assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's width dispatch and row partition against csrc/layernorm.cu
+# ---------------------------------------------------------------------------
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "deepspeed_tpu_torch", "ops", "csrc", "layernorm.cu")
+
+
+def _source():
+    with open(CSRC) as f:
+        return f.read()
+
+
+def _rows_of_warps(n, ctas):
+    """The rows of each (CTA, warp) of the warp-per-row backward, as the
+    kernel computes them: CTA c owns [c n / ctas, (c + 1) n / ctas), its
+    warp w the w-th of BWD_WARPS equal cuts of that run."""
+    out = []
+    for c in range(ctas):
+        c0, c1 = c * n // ctas, (c + 1) * n // ctas
+        out.append([range(c0 + (c1 - c0) * w // BWD_WARPS,
+                          c0 + (c1 - c0) * (w + 1) // BWD_WARPS)
+                    for w in range(BWD_WARPS)])
+    return out
+
+
+def test_constants_match_the_kernels():
+    src = _source()
+    found = re.findall(r"constexpr int BWD_WARPS = (\d+);", src)
+    assert found == [str(BWD_WARPS)]
+    # a vector is 16 bytes of the row's dtype; whole vectors up to the
+    # limit go to the warp-per-row kernels
+    assert VEC_BYTES == 16
+    assert "return 16 / static_cast<int>(sizeof(T));" in src
+    assert "return d % vec_width<T>() == 0 && d <= WARP_ROW_MAX_D;" in src
+    # the backward's first launch takes the wrapper's CTA count
+    assert "(c1 - c0) * w / BWD_WARPS" in src
+
+
+@pytest.mark.parametrize("d,dtype,kernel", [
+    (8, torch.bfloat16, "warp"), (4, torch.float32, "warp"),
+    (768, torch.bfloat16, "warp"), (1024, torch.bfloat16, "warp"),
+    (1024, torch.float32, "warp"), (1020, torch.float32, "warp"),
+    (1020, torch.bfloat16, "cta"), (1023, torch.bfloat16, "cta"),
+    (1023, torch.float32, "cta"), (1032, torch.bfloat16, "cta"),
+    (4096, torch.float32, "cta"), (12, torch.bfloat16, "cta")])
+def test_width_dispatch(d, dtype, kernel):
+    """The C entry points' rule, with layernorm.cu's WARP_ROW_MAX_D, sends
+    rows of ``d`` elements of ``dtype`` to ``kernel``: the warp-per-row
+    kernels for whole 16-byte vectors up to 1024 elements."""
+    src = _source()
+    assert "return d % vec_width<T>() == 0 && d <= WARP_ROW_MAX_D;" in src
+    max_d = re.findall(r"constexpr int WARP_ROW_MAX_D = (\d+);", src)
+    assert max_d == ["1024"]
+    vec = VEC_BYTES // torch.empty((), dtype=dtype).element_size()
+    warp = d % vec == 0 and d <= int(max_d[0])
+    assert ("warp" if warp else "cta") == kernel
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 255, 1055, 1056, 1057, 8192,
+                               8193])
+def test_backward_rows_over_ctas_and_warps(n):
+    """Each row belongs to exactly one warp of one CTA, in order; at most
+    ``BWD_CTAS`` CTAs, and no CTA without a row."""
+    ctas = bwd_ctas(n)
+    assert ctas == min(BWD_CTAS, -(-n // BWD_WARPS))
+    parts = _rows_of_warps(n, ctas)
+    assert all(sum(len(r) for r in warps) > 0 for warps in parts)
+    assert [i for warps in parts for r in warps for i in r] == list(range(n))
 
 
 def test_the_wrapper_refuses_what_the_kernels_do_not_take():
