@@ -72,11 +72,13 @@ Phases, each fatal on failure:
    steps): the loss of each step within 1e-4, each parameter tensor
    within 0.02 of the sum of its largest LAMB step per step. Phase 3 holds
    the block-sparse forward, dQ and dK/dV kernels (five patterns, 256 and
-   4096 tokens, dropout off and on; bf16 dQ and dK/dV on the tensor
-   cores, each launched twice for the same bits, fp32 on FMAs) and the
-   LAMB kernels (both clip sides, no clip, a zero tensor) against their
-   plain versions first, and times them at phase 7's shapes (the fp32
-   dQ and dK/dV too, with 7b's launches);
+   4096 tokens, dropout off and on; bf16 on the tensor cores, the fp32
+   forward on 3xTF32 products and the fp32 dQ and dK/dV on FMAs; the
+   forward in both dtypes and the bf16 backward launched twice for the
+   same bits; q tiles with empty lists writing O = 0, m = NEG_INF, l = 1)
+   and the LAMB kernels (both clip sides, no clip, a zero tensor) against
+   their plain versions first, and times them at phase 7's shapes (bf16
+   at 7a's, fp32 at 7b's with 7b's launches, and logged at 7a's);
 8. the compression slice end to end: a BERT-large stack of
    ``DeepSpeedTransformerLayer``s (d 1024, 24 layers, 16 heads, d_ff
    4096, pre-LN, word and position embeddings, a final LayerNorm and the
@@ -115,7 +117,7 @@ Phases, each fatal on failure:
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result);
 ``--7a-only`` phase 7a likewise.
-``--planted-faults [name]`` runs ``--checks-only`` (eighteen faults),
+``--planted-faults [name]`` runs ``--checks-only`` (twenty-four faults),
 ``--8c-only`` (two) or ``--7a-only`` (one) in copies of the checkout,
 each with one kernel fault planted (``PLANTED_FAULTS``; only those
 whose source file name contains ``name``, when given), and fails unless
@@ -1058,13 +1060,30 @@ def sparse_configs():
             ("dense-64", DenseSparsityConfig(num_heads=12, block=64))]
 
 
+def _without_rows(plan, every=3):
+    """``plan`` with the kv lists of every ``every``-th row (of the count
+    table's rows, head by head, tile by tile) cut to length 0: those q
+    tiles see no live key (the forward's contract for them: O = 0,
+    m = NEG_INF, l = 1). The launch order is unchanged."""
+    n = plan.kv_cnt.numel()
+    table = plan.kv_table.clone()
+    table[:n:every] = 0
+    return plan._replace(kv_table=table, kv_cnt=table[:n].view(
+        plan.kv_cnt.shape))
+
+
 def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     """The three block-sparse kernels against their plain versions: every
     config of ``sparse_configs`` at each size, fp32 and bf16, dropout off
     and 0.1, head_dim 64 (and 80, 96, 128 at the smaller size). Both
     backward versions take the kernel forward's (o, m, l). bf16 reaches
-    the tensor-core dQ and dK/dV kernels, fp32 the FMA kernels; every
-    bf16 case launches both twice and requires the same bits."""
+    the tensor-core kernels, fp32 the 3xTF32 forward and the FMA dQ and
+    dK/dV; every case launches the forward twice and every bf16 case
+    dQ and dK/dV twice, and each pair must give the same bits. Then the
+    forward alone on BigBird-64 plans with a third of the q tiles' lists
+    cut to nothing (``_without_rows``): those rows must write O = 0,
+    m = NEG_INF and l = 1."""
+    from deepspeed_tpu_torch.ops._common import NEG_INF
     from deepspeed_tpu_torch.ops.block_sparse_attention import (
         block_sparse_dkv_reference, block_sparse_dq_reference,
         block_sparse_fwd_reference, launch_dkv, launch_dq, launch_fwd)
@@ -1072,7 +1091,13 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
         device_plan
     gates = {k: Gate(f"block_sparse {k}") for k in ("fwd", "dq", "dkv")}
-    repeats, differ = 0, []
+    repeats = {"fwd": [0, []], "bwd": [0, []]}   # cases, labels that differ
+
+    def repeat(which, label, first, again):
+        repeats[which][0] += 1
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            repeats[which][1].append(label)
+
     cases = [(s, d) for s in sizes for d in (HEAD_DIMS if s == min(sizes)
                                              else (64,))]
     for s, d in cases:
@@ -1102,15 +1127,14 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
                     label = (f"S={s:4d} d={d:3d} {name:13s} rate={rate} "
                              f"({plan.plan.active_tiles} tiles, "
                              f"{len(plan.plan.masks)} masks)")
+                    repeat("fwd", f"{str(dtype)[6:]} {label}", (o, m, l),
+                           launch_fwd(q, k, v, plan, scale, drop))
                     if dtype == torch.bfloat16:
-                        again = (launch_dq(q, k, v, do, delta, m, l, plan,
-                                           scale, drop),
-                                 *launch_dkv(q, k, v, do, delta, m, l, plan,
-                                             scale, drop))
-                        repeats += 1
-                        if not all(torch.equal(a, b) for a, b in
-                                   zip((dq, dk, dv), again)):
-                            differ.append(label)
+                        repeat("bwd", label, (dq, dk, dv), (
+                            launch_dq(q, k, v, do, delta, m, l, plan, scale,
+                                      drop),
+                            *launch_dkv(q, k, v, do, delta, m, l, plan,
+                                        scale, drop)))
                     torch.cuda.synchronize()
                     show = (s, d) == (max(sizes), 64) and \
                         name == "bigbird-64"
@@ -1119,13 +1143,43 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
                     gates["fwd"].case(dtype, [o], [ro], label, show, stats)
                     gates["dq"].case(dtype, [dq], [rdq], label, show)
                     gates["dkv"].case(dtype, [dk, dv], [rdk, rdv], label, show)
+    s, d = min(sizes), 64
+    plan = _without_rows(device_plan(bigbird_64(h), s, dev))
+    empty = (plan.kv_cnt == 0)[None, :, :, None].expand(
+        b, h, -1, 64).reshape(b, h, s)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.1):
+            q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev,
+                                   dtype=dtype) for _ in range(3))
+            drop = Dropout(rate, 0x4321, 0x9E3779B9, h) if rate else None
+            o, m, l = launch_fwd(q, k, v, plan, 0.125, drop)
+            ro, rm, rl = block_sparse_fwd_reference(q, k, v, plan, 0.125,
+                                                    drop)
+            torch.cuda.synchronize()
+            label = (f"S={s:4d} d={d:3d} bigbird-64 rate={rate}, "
+                     f"{int(empty[0].sum()) // 64} of {h * s // 64} q tiles "
+                     "with empty lists")
+            stats = (max(_rel_err(m, rm), _rel_err(l, rl))
+                     if dtype == torch.float32 else 0.0)
+            ok = gates["fwd"].case(dtype, [o], [ro], label, True, stats)
+            rows_ok = (bool((o.transpose(1, 2)[empty] == 0).all())
+                       and bool((m[empty] == NEG_INF).all())
+                       and bool((l[empty] == 1).all()))
+            log(f"  block_sparse fwd {str(dtype)[6:]} {label}: those rows "
+                f"O = 0, m = NEG_INF, l = 1: {rows_ok}")
+            if not (ok and rows_ok):
+                raise AssertionError("block_sparse fwd: rows with no live "
+                                     "tile disagree with the contract")
     for g in gates.values():
         g.close()
-    log(f"  block_sparse bf16 dq, dkv: two launches bit-equal in "
-        f"{repeats - len(differ)}/{repeats} cases")
-    if differ:
-        raise AssertionError(f"block_sparse bf16 backward: two launches "
-                             f"differ in {differ}")
+    for which, what in (("fwd", "fwd (fp32 and bf16)"),
+                        ("bwd", "bf16 dq, dkv")):
+        n, differ = repeats[which]
+        log(f"  block_sparse {what}: two launches bit-equal in "
+            f"{n - len(differ)}/{n} cases")
+        if differ:
+            raise AssertionError(f"block_sparse {what}: two launches differ "
+                                 f"in {differ}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1192,14 +1246,45 @@ def _natural_order(plan):
     return plan._replace(kv_table=tables[0], qt_table=tables[1])
 
 
-def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1):
-    """Phase 7's shape: BERT-base heads at 4096 tokens, micro batch 2, the
-    BigBird-64 pattern, attention dropout 0.1: the three kernels in bf16
-    (dQ and dK/dV on the tensor cores, also timed with the rows in their
-    own order, ``ms_natural_order``), and the fp32 FMA dQ and dK/dV (the
-    parity kernels, rows ``*_fp32``). The bound counts the layout's live
-    (q, k) pairs; the library call is SDPA with the layout's dense mask,
-    forward and backward, in the same dtype."""
+# the block-sparse kernels' designs, by (kernel, dtype)
+SPARSE_IMPL = {
+    ("fwd", torch.bfloat16): "tensor-core bf16 (mma.sync), count-table "
+    "order, fresh accumulators per tile",
+    ("fwd", torch.float32): "3xTF32 tensor cores (mma.sync), K and V split "
+    "once a CTA, count-table order, fresh accumulators per tile",
+    ("bwd", torch.bfloat16): "tensor-core bf16 (mma.sync)",
+    ("bwd", torch.float32): "FMA fp32"}
+
+
+def _heaviest_rows(plan):
+    """``plan`` with only its longest lists (both families): the other
+    rows' counts are 0. Timed alone, those rows' CTAs each have an SM to
+    themselves: the time the longest rows take, against which the whole
+    kernel's time shows whether they set its pace."""
+    n = plan.kv_cnt.numel()
+    tables = []
+    for t in (plan.kv_table, plan.qt_table):
+        t = t.clone()
+        t[:n] = torch.where(t[:n] == t[:n].max(), t[:n], 0)
+        tables.append(t)
+    return plan._replace(kv_table=tables[0], qt_table=tables[1],
+                         kv_cnt=tables[0][:n].view(plan.kv_cnt.shape),
+                         qt_cnt=tables[1][:n].view(plan.qt_cnt.shape))
+
+
+def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1,
+                      dtype=torch.bfloat16):
+    """The three kernels in ``dtype`` at one shape of the BigBird-64
+    pattern, attention dropout 0.1: phase 7a's (BERT-base heads, 4096
+    tokens, micro batch 2) by default; the fp32 kernels are the parity
+    mode, whose launches phase 7b counts at b 1, S 1024. Each kernel's
+    time, also with the rows in their own order (``ms_natural_order``),
+    the plain version's, the longest rows' alone (``ms_heaviest_rows``,
+    ``_heaviest_rows``), one PyTorch call's (SDPA with the layout's dense
+    mask, forward and whole backward, in ``dtype``) and the bound of the
+    layout's live (q, k) pairs: bf16 at the tensor cores' rate, the fp32
+    forward at 3xTF32's (the FMA bound beside it), the fp32 dQ and dK/dV
+    on FMAs."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.block_sparse_attention import (
         block_sparse_dkv_reference, block_sparse_dq_reference,
@@ -1211,7 +1296,7 @@ def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1):
     scale = 1.0 / d ** 0.5
     cfg = bigbird_64(h)
     plan = device_plan(cfg, s, dev)
-    natural = _natural_order(plan)
+    natural, heaviest = _natural_order(plan), _heaviest_rows(plan)
     drop = Dropout(rate, 0x1234, 0x5678, h)
     mask = layout_to_dense_mask(cfg, s, dev)
     pairs = b * plan.plan.live_pairs
@@ -1221,78 +1306,73 @@ def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1):
     nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     kv_lists = 8 * int(plan.plan.kv_cnt.sum()) + nb(plan.kv_cnt, plan.masks)
     qt_lists = 8 * int(plan.plan.qt_cnt.sum()) + nb(plan.qt_cnt, plan.masks)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
+                               dtype=dtype) for _ in range(4))
+    o, m, l = launch_fwd(q, k, v, plan, scale, drop)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, delta, m, l)
+    runs = {"block_sparse_attention_fwd": (
+                lambda p=plan: launch_fwd(q, k, v, p, scale, drop),
+                lambda: block_sparse_fwd_reference(q, k, v, plan, scale,
+                                                   drop)),
+            "block_sparse_attention_dq": (
+                lambda p=plan: launch_dq(*bwd, p, scale, drop),
+                lambda: block_sparse_dq_reference(*bwd, plan, scale, drop)),
+            "block_sparse_attention_dkv": (
+                lambda p=plan: launch_dkv(*bwd, p, scale, drop),
+                lambda: block_sparse_dkv_reference(*bwd, plan, scale, drop))}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_fwd = gpu_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, dropout_p=rate), iters=10)
+    lo = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                        dropout_p=rate)
+    dot = do.transpose(1, 2)
+    lib_bwd = gpu_ms(lambda: torch.autograd.grad(
+        lo, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    del lo
+    x = b * s * h * d * q.element_size()         # one [b, s, h, d] tensor
     out = {}
-    for dt in (torch.bfloat16, torch.float32):
-        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
-                                   dtype=dt) for _ in range(4))
-        o, m, l = launch_fwd(q, k, v, plan, scale, drop)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        bwd = (q, k, v, do, delta, m, l)
-        runs = {"block_sparse_attention_fwd": (
-                    lambda p=plan: launch_fwd(q, k, v, p, scale, drop),
-                    lambda: block_sparse_fwd_reference(q, k, v, plan, scale,
-                                                       drop)),
-                "block_sparse_attention_dq": (
-                    lambda p=plan: launch_dq(*bwd, p, scale, drop),
-                    lambda: block_sparse_dq_reference(*bwd, plan, scale,
-                                                      drop)),
-                "block_sparse_attention_dkv": (
-                    lambda p=plan: launch_dkv(*bwd, p, scale, drop),
-                    lambda: block_sparse_dkv_reference(*bwd, plan, scale,
-                                                       drop))}
-        if dt == torch.float32:
-            del runs["block_sparse_attention_fwd"]
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        lib_fwd = gpu_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, dropout_p=rate), iters=10)
-        lo = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                            dropout_p=rate)
-        dot = do.transpose(1, 2)
-        lib_bwd = gpu_ms(lambda: torch.autograd.grad(
-            lo, (qt, kt, vt), dot, retain_graph=True), iters=10)
-        del lo
-        x = b * s * h * d * q.element_size()     # one [b, s, h, d] tensor
-        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
-        suffix = "" if dt == torch.bfloat16 else "_fp32"
-        for name, products, nbytes, lib in (
-                # Q K^T, P V; reads q k v and the plan, writes o m l
-                ("block_sparse_attention_fwd", 2,
-                 4 * x + 2 * rows + kv_lists, lib_fwd),
-                # S, dP, dQ; reads q k v dO delta m l and the lists, writes dq
-                ("block_sparse_attention_dq", 3, 5 * x + 3 * rows + kv_lists,
-                 lib_bwd),
-                # S, dP, dV, dK; reads q k v dO delta m l and the transposed
-                # lists, writes dk dv
-                ("block_sparse_attention_dkv", 4,
-                 6 * x + 3 * rows + qt_lists, lib_bwd)):
-            if name not in runs:
-                continue
-            kernel, plain = runs[name]
-            bound, by = bound_ms(2 * products * pairs * d, nbytes, peak)
-            got, ref = kernel(), plain()
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            err = max((a.float() - r.float()).abs().max().item()
-                      for a, r in zip(got, ref) if a.dtype == dt)
-            impl = ("FMA fp32" if dt == torch.float32 else
-                    "FMA fp32 on bf16" if name.endswith("fwd") else
-                    "tensor-core bf16 (mma.sync)")
-            t = dict(
-                shape=f"b={b} h={h} S={s} d={d} {str(dt)[6:]} BigBird-64 "
-                f"(live pairs {pairs}, "
-                f"{100 * plan.plan.live_pairs / (h * s * s):.1f}% of S^2) "
-                f"dropout={rate}; library = SDPA with the dense layout mask"
-                f"{'' if name.endswith('fwd') else ' (whole backward)'}",
-                impl=impl, ms=gpu_ms(kernel, iters=10),
-                plain_ms=gpu_ms(plain, iters=2), library_ms=lib,
-                bound_ms=bound, bound_by=by, max_abs_err=err)
-            if dt == torch.bfloat16 and not name.endswith("fwd"):
-                t["ms_natural_order"] = gpu_ms(
-                    lambda: kernel(natural), iters=10)
-            out[name + suffix] = t
-        del q, k, v, do, o, qt, kt, vt
-        torch.cuda.empty_cache()
+    for name, products, nbytes, lib in (
+            # Q K^T, P V; reads q k v and the plan, writes o m l
+            ("block_sparse_attention_fwd", 2,
+             4 * x + 2 * rows + kv_lists, lib_fwd),
+            # S, dP, dQ; reads q k v dO delta m l and the lists, writes dq
+            ("block_sparse_attention_dq", 3, 5 * x + 3 * rows + kv_lists,
+             lib_bwd),
+            # S, dP, dV, dK; reads q k v dO delta m l and the transposed
+            # lists, writes dk dv
+            ("block_sparse_attention_dkv", 4,
+             6 * x + 3 * rows + qt_lists, lib_bwd)):
+        kernel, plain = runs[name]
+        fwd = name.endswith("fwd")
+        flops = 2 * products * pairs * d
+        peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                else PEAK_TF32_FLOPS / 3 if fwd else PEAK_FP32_FLOPS)
+        bound, by = bound_ms(flops, nbytes, peak)
+        fma = ""
+        if dtype == torch.float32 and fwd:
+            fma = (f"; bound at 3xTF32 (165 TFLOP/s), on FMAs (67) "
+                   f"{bound_ms(flops, nbytes, PEAK_FP32_FLOPS)[0]:.4f} ms")
+        got, ref = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max((a.float() - r.float()).abs().max().item()
+                  for a, r in zip(got, ref) if a.dtype == dtype)
+        out[name] = dict(
+            shape=f"b={b} h={h} S={s} d={d} {str(dtype)[6:]} BigBird-64 "
+            f"(live pairs {pairs}, "
+            f"{100 * plan.plan.live_pairs / (h * s * s):.1f}% of S^2) "
+            f"dropout={rate}; library = SDPA with the dense layout mask"
+            f"{'' if fwd else ' (whole backward)'}{fma}",
+            impl=SPARSE_IMPL["fwd" if fwd else "bwd", dtype],
+            ms=gpu_ms(kernel, iters=10),
+            ms_natural_order=gpu_ms(lambda: kernel(natural), iters=10),
+            ms_heaviest_rows=gpu_ms(lambda: kernel(heaviest), iters=10),
+            plain_ms=gpu_ms(plain, iters=2), library_ms=lib,
+            bound_ms=bound, bound_by=by, max_abs_err=err)
+    del q, k, v, do, o, qt, kt, vt
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2919,9 +2999,8 @@ PLANTED_FAULTS = (
      "--checks-only"),
     ("bf16 block-sparse dQ and dK/dV: a partial fine mask treated as all "
      "live", "block_sparse_attention_bwd_bf16.cu",
-     (("return l.table[2 * a.H * a.nt + pid] != 0;",
-       "return l.table[2 * a.H * a.nt + pid] != 0 || true;"),),
-     "--checks-only"),
+     (("const bool full = mask_full(lists, a, p_id);",
+       "const bool full = true;"),), "--checks-only"),
     ("bf16 block-sparse dK/dV: P o D truncated to bf16 (round toward zero), "
      "not rounded to nearest, before dV", "block_sparse_attention_bwd_bf16.cu",
      (("c_to_a(pa, sT[2 * kc], sT[2 * kc + 1]);    // P o D rounded to bf16",
@@ -2934,6 +3013,34 @@ PLANTED_FAULTS = (
      (("float dfac = 1.f, d = dpT[jj][e];",
        "float dfac = 1.f, d = round_to<bf16>(dpT[jj][e]);"),),
      "--checks-only"),
+    # the block-sparse forward: bf16 on the tensor cores, fp32 on 3xTF32
+    ("bf16 block-sparse forward: p' truncated to bf16 (round toward zero), "
+     "not rounded to nearest, before PV", "block_sparse_attention_fwd_bf16.cu",
+     (("c_to_a(pa[kc], s[2 * kc], s[2 * kc + 1]);  // p' rounded to bf16",
+       "for (int e2 = 0; e2 < 4; ++e2) pa[kc][e2] = __byte_perm("
+       "__float_as_uint(s[2 * kc + (e2 >> 1)][(e2 & 1) * 2]), "
+       "__float_as_uint(s[2 * kc + (e2 >> 1)][(e2 & 1) * 2 + 1]), "
+       "0x7632);"),), "--checks-only"),
+    ("bf16 block-sparse forward: the keep bit taken at the transposed "
+     "coordinate (key, q row)", "block_sparse_attention_fwd_bf16.cu",
+     (("hash_row(dr, q0 + rl0", "hash_col(dr, q0 + rl0"),
+      ("hash_col(dr, k0 + jj * 8", "hash_row(dr, k0 + jj * 8")),
+     "--checks-only"),
+    ("bf16 block-sparse forward: a partial fine mask treated as all live",
+     "block_sparse_attention_fwd_bf16.cu",
+     (("const bool full = mask_full(lists, a, p_id);",
+       "const bool full = true;"),), "--checks-only"),
+    ("bf16 block-sparse forward: a row with no live tile left with l = 0",
+     "block_sparse_attention_fwd_bf16.cu",
+     (("const float safe_l = l[i] > 0.f ? l[i] : 1.f;",
+       "const float safe_l = l[i];"),), "--checks-only"),
+    ("fp32 block-sparse forward: the lo terms dropped (plain TF32 products, "
+     "hi only)", "block_sparse_attention_fwd.cu",
+     (("  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", ""),),
+     "--checks-only"),
+    ("fp32 block-sparse forward: hi(A) lo(B), one of the three terms, "
+     "dropped", "block_sparse_attention_fwd.cu",
+     (("  mma_tf32(c, ah, bl0, bl1);\n", ""),), "--checks-only"),
     # the int8 matmul's summation order and the fp32 backward's products
     ("bf16 tiled int8: the mma accumulators carried across k segments (one "
      "chain over k), not fresh per segment", "wo_int8_matmul.cu",
@@ -3104,7 +3211,12 @@ def main():
                "paged_attention_int8": time_paged(dev, gen, quant=True),
                "wo_int8_matmul_small_m": time_int8(dev, gen, 16),
                "wo_int8_matmul": time_int8(dev, gen, 256)}
+    # bf16 at 7a's shape; fp32 (the parity mode) at 7b's, where its
+    # launches are counted, and at 7a's (logged only)
     sparse_t = time_block_sparse(dev, gen)
+    sparse_t.update({name + "_fp32": t for name, t in time_block_sparse(
+        dev, gen, b=1, s=1024, dtype=torch.float32).items()})
+    sparse_fp32_7a_t = time_block_sparse(dev, gen, dtype=torch.float32)
     sparse_t["fused_lamb"] = time_fused_lamb(dev, gen)
     ds_t = {**time_layernorm(dev, gen), **time_quantizer(dev, gen)}
     # the fp32 kernels at head_dim 128, the widest (logged only: no main
@@ -3115,13 +3227,17 @@ def main():
                     *ds_flash_t.items(), *fp32_flash_t.items(),
                     *((f"{k} (head_dim 128)", t)
                       for k, t in fp32_d128_t.items()),
-                    *paged_t.items(), *sparse_t.items(), *ds_t.items()):
+                    *paged_t.items(), *sparse_t.items(),
+                    *((f"{k}_fp32 (7a's shape)", t)
+                      for k, t in sparse_fp32_7a_t.items()),
+                    *ds_t.items()):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
         extra = (f" ({t['impl']}; rate 0: {t['ms_rate0']:.4f} ms)"
                  if "ms_rate0" in t else
                  f" ({t['impl']}; rows in their own order: "
-                 f"{t['ms_natural_order']:.4f} ms)"
+                 f"{t['ms_natural_order']:.4f} ms; the longest rows "
+                 f"alone: {t['ms_heaviest_rows']:.4f} ms)"
                  if "ms_natural_order" in t else
                  f" ({t['impl']})" if "impl" in t else "")
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{extra}, "
@@ -3213,8 +3329,8 @@ def main():
     for name in ("wo_int8_matmul_small_m", "wo_int8_matmul"):
         paged_t[name]["launches"] = int8_counts[name]
     # the sparse slice's kernels: phase 3's timings at phase 7's shapes;
-    # launches of 7a (bf16) and, for the fp32 FMA dQ and dK/dV, of 7b (the
-    # card's fp32 run)
+    # launches of 7a (bf16) and, for the fp32 kernels, of 7b (the card's
+    # fp32 run, whose shape the *_fp32 timings take)
     for name, t in sparse_t.items():
         t["launches"] = (fp32_sparse_counts[name[:-5]]
                          if name.endswith("_fp32") else sparse_counts[name])
@@ -3276,12 +3392,15 @@ def main():
              csrc + "wo_int8_matmul.cu", pallas + "wo_int8_matmul.py:167"),
             ("block_sparse_attention_fwd",
              sparse_t["block_sparse_attention_fwd"],
-             csrc + "block_sparse_attention.cu", sparse + ":355"),
+             csrc + "block_sparse_attention_fwd_bf16.cu", sparse + ":355"),
             ("block_sparse_attention_dq", sparse_t["block_sparse_attention_dq"],
              csrc + "block_sparse_attention_bwd_bf16.cu", sparse + ":379"),
             ("block_sparse_attention_dkv",
              sparse_t["block_sparse_attention_dkv"],
              csrc + "block_sparse_attention_bwd_bf16.cu", sparse + ":402"),
+            ("block_sparse_attention_fwd_fp32",
+             sparse_t["block_sparse_attention_fwd_fp32"],
+             csrc + "block_sparse_attention_fwd.cu", sparse + ":355"),
             ("block_sparse_attention_dq_fp32",
              sparse_t["block_sparse_attention_dq_fp32"],
              csrc + "block_sparse_attention.cu", sparse + ":379"),
@@ -3310,8 +3429,8 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
-            **{key: t[key] for key in ("impl", "ms_rate0", "ms_natural_order")
-               if key in t},
+            **{key: t[key] for key in ("impl", "ms_rate0", "ms_natural_order",
+                                       "ms_heaviest_rows") if key in t},
             **({"apply_launches": t["apply_launches"]}
                if "apply_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}

@@ -4,10 +4,12 @@ plain versions.
 Counterpart of ``deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py``
 ``_sparse_fwd`` (:355), ``_sparse_dq`` (:379), ``_sparse_dkv`` (:402) and
 the ``custom_vjp`` around them (:428-467), here a
-``torch.autograd.Function``. The kernels are
-``csrc/block_sparse_attention.cu`` (the forward; dQ and dK/dV on fp32 FMAs,
-the parity mode) and, for bf16, ``csrc/block_sparse_attention_bwd_bf16.cu``
-(dQ and dK/dV on the tensor cores); they walk a ``DevicePlan``
+``torch.autograd.Function``. The kernels split by dtype: bf16 runs on the
+tensor cores (``csrc/block_sparse_attention_fwd_bf16.cu``, the forward;
+``csrc/block_sparse_attention_bwd_bf16.cu``, dQ and dK/dV), fp32, the
+parity mode, on 3xTF32 tensor-core products (the forward,
+``csrc/block_sparse_attention_fwd.cu``) and FMAs (dQ and dK/dV,
+``csrc/block_sparse_attention.cu``); they walk a ``DevicePlan``
 (``sparse_attention/block_sparse_kernel.py``) of 64-token tiles. A CUDA
 tensor launches them, a CPU tensor runs the plain versions, which walk
 the same lists in the same order: per (head, q-tile) the k-tiles of
@@ -181,8 +183,8 @@ def _strides(t):
 
 def _check(q, k, v, plan: DevicePlan, extra=()):
     """Check the operands for the kernels; returns (dtype code, q, k, v
-    and ``extra`` in the kernels' layout: unit stride along d, and 16-byte
-    aligned for the bf16 kernels' copies)."""
+    and ``extra`` in the kernels' layout: unit stride along d, 16-byte
+    aligned base and strides for the kernels' cp.async copies)."""
     b, s, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"block_sparse_attention: the CUDA kernels take "
@@ -212,7 +214,8 @@ def _lists(plan, transposed):
 
 
 def launch_fwd(q, k, v, plan: DevicePlan, scale, dropout=None):
-    """Launch the forward kernel; returns (o, m, l)."""
+    """Launch the forward kernel (the bf16 or the 3xTF32 fp32 kernel);
+    returns (o, m, l)."""
     from . import op_builder
     code, q, k, v = _check(q, k, v, plan)
     b, s, h, d = q.shape
@@ -220,7 +223,8 @@ def launch_fwd(q, k, v, plan: DevicePlan, scale, dropout=None):
     m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     ptrs, width = _lists(plan, False)
-    check_launch(op_builder.load().block_sparse_attention_fwd(
+    fn = _entry(op_builder.load(), "block_sparse_attention_fwd", code)
+    check_launch(fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, o.data_ptr(),
         m.data_ptr(), l.data_ptr(), code, b, h, s, d, width, *_strides(q),
         *_strides(k), *_strides(v), float(scale), *_c_dropout_args(dropout),

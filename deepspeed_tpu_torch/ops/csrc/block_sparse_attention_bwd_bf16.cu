@@ -63,48 +63,13 @@
 //      the first wave instead of trailing the last.
 // Every output tile has one owner: no atomics, and two runs give the same
 // bits.
+#include "block_sparse.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int TILE = 64;  // the plan's tile: q rows and keys of one step
 constexpr float kLog2e = 1.4426950408889634f;
-
-struct SparseArgs {
-  int H, S, nt, width, batch;  // heads, seq, tiles a row, list width, b
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  float scale;
-};
-
-// One family of the plan's lists. `table` is the plan's count table
-// (DevicePlan in ops/sparse_attention/block_sparse_kernel.py): int32
-// [H * nt] counts, then the H * nt rows in launch order (count descending,
-// ties by row), then one flag per fine mask, 1 when the mask is all live.
-struct Lists {
-  const int* idx;
-  const int* pid;
-  const int* table;
-  const signed char* masks;
-};
-
-// This CTA's list row (head, tile) and batch: the grid walks the rows in
-// the table's order, every batch of a row in turn.
-__device__ __forceinline__ void cta_row(const Lists& l, const SparseArgs& a,
-                                        int& h, int& tile, int& b) {
-  const int i = blockIdx.x;
-  const int row = l.table[a.H * a.nt + i / a.batch];
-  b = i % a.batch;
-  h = row / a.nt;
-  tile = row % a.nt;
-}
-
-// true when fine mask `pid` is live everywhere
-__device__ __forceinline__ bool mask_full(const Lists& l, const SparseArgs& a,
-                                          int pid) {
-  return l.table[2 * a.H * a.nt + pid] != 0;
-}
 
 // m, l and delta (each fp32 [b, h, S]) of rows [q0, q0 + TILE) into
 // shared memory as three rows of TILE floats, with cp.async by NT threads

@@ -42,6 +42,9 @@ _BWD = [_i] * 6 + [_ll] * 15 + [_f, _i] + _DROPOUT + [_p]
 # scale, causal, dropout, stream
 _FWD = [_p] * 6 + [_i] * 6 + [_ll] * 12 + [_f, _i] + _DROPOUT + [_p]
 _LAMB = [_p, _p, _i, _i, _p, _p] + [_f] * 10 + [_p]
+# q, k, v, list idx/pid/cnt, masks, o, m, l, dtype, b, h, S, d, list
+# width, q/k/v strides (batch, seq, head), scale, dropout, stream
+_SPARSE_FWD = [_p] * 10 + [_i] * 6 + [_ll] * 9 + [_f, *_DROPOUT, _p]
 # the block-sparse dQ and dK/dV arguments after their pointers
 _SPARSE_BWD = [_i] * 6 + [_ll] * 12 + [_f, *_DROPOUT, _p]
 
@@ -70,10 +73,9 @@ SIGNATURES = {
     # x, q, scale, y, partials, dtype, out dtype, m, k, n, x row stride,
     # small, splits, stream
     "wo_int8_matmul": [_p] * 5 + [_i] * 5 + [_ll, _i, _i, _p],
-    # q, k, v, list idx/pid/cnt, masks, o, m, l, dtype, b, h, S, d, list
-    # width, q/k/v strides (batch, seq, head), scale, dropout, stream
-    "block_sparse_attention_fwd": [_p] * 10 + [_i] * 6 + [_ll] * 9
-    + [_f, *_DROPOUT, _p],
+    "block_sparse_attention_fwd": _SPARSE_FWD,
+    # the bf16 tensor-core forward: the same arguments as the fp32 one
+    "block_sparse_attention_fwd_bf16": _SPARSE_FWD,
     # q, k, v, dO, delta, m, l, list idx/pid/cnt, masks, then dq (dk, dv),
     # dtype, b, h, S, d, width, q/k/v/dO strides, scale, dropout, stream
     "block_sparse_attention_dq": [_p] * 12 + _SPARSE_BWD,

@@ -6,9 +6,9 @@ does not check them against the C declaration, so a wrong count passes
 silently and the kernel reads garbage. Here each entry point's parameters
 are counted from its source (parameter macros such as
 ``DS_DROPOUT_PARAMS`` expanded from their ``#define``) and held equal to
-its entry. The block-sparse wrappers must pick the tensor-core entry
-points for bf16 and the FMA ones for fp32, with exactly the bound
-arguments; and the plan's count tables (``count_table``) must give the
+its entry. The block-sparse wrappers must pick the bf16 entry points for
+bf16 and the fp32 ones (the 3xTF32 forward, the FMA dQ and dK/dV) for
+fp32, with exactly the bound arguments; and the plan's count tables (``count_table``) must give the
 kernels a deterministic heaviest-first launch order and the all-live
 flag of every fine mask.
 """
@@ -138,6 +138,28 @@ def test_block_sparse_backward_picks_the_entry_for_the_dtype(fake_lib, dtype,
     assert (mod.block_sparse_attention.dq_launches,
             mod.block_sparse_attention.dkv_launches) == (before[0] + 1,
                                                          before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "_bf16"),
+                                          (torch.float32, "")],
+                         ids=["bf16", "fp32"])
+def test_block_sparse_forward_picks_the_entry_for_the_dtype(fake_lib, dtype,
+                                                            suffix):
+    mod = sys.modules["deepspeed_tpu_torch.ops.block_sparse_attention"]
+    plan = device_plan(psc.BigBirdSparsityConfig(2, block=64), 256, "cpu")
+    q, k, v = (torch.zeros(1, 256, 2, 64, dtype=dtype) for _ in range(3))
+    before = mod.block_sparse_attention.fwd_launches
+    o, m, l = mod.launch_fwd(q, k, v, plan, 0.125, Dropout(0.1, 1, 2, 2))
+    assert [c[0] for c in fake_lib] == ["block_sparse_attention_fwd" + suffix]
+    args = fake_lib[0][1]
+    # q, k, v, the kv lists with the count table in the counts' place,
+    # masks, then o, m, l and the dtype code
+    assert args[5] == plan.kv_table.data_ptr() == plan.kv_cnt.data_ptr()
+    assert args[7:10] == (o.data_ptr(), m.data_ptr(), l.data_ptr())
+    assert args[10] == (1 if dtype == torch.bfloat16 else 0)
+    assert (o.dtype, m.dtype, l.dtype) == (dtype, torch.float32,
+                                           torch.float32)
+    assert mod.block_sparse_attention.fwd_launches == before + 1
 
 
 # --------------------------------------------------------------------------

@@ -285,6 +285,8 @@ def _dispatched_dims(name):
     ("decode_attention", ("decode_attention.cu",)),
     ("paged_attention", ("paged_attention.cu",)),
     ("block_sparse_attention", ("block_sparse_attention.cu",
+                                "block_sparse_attention_fwd.cu",
+                                "block_sparse_attention_fwd_bf16.cu",
                                 "block_sparse_attention_bwd_bf16.cu")),
 ])
 def test_head_dims_match_the_cuda_dispatch(module, sources):
