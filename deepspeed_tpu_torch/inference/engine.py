@@ -3,6 +3,7 @@
 compute dtype, and fronts ``forward``, ``generate`` and ``serve``."""
 
 import dataclasses
+from collections.abc import Mapping
 
 import torch
 
@@ -26,18 +27,33 @@ class InferenceEngine:
         ``quantize_min_size`` elements; JAX engine.py:77-97); the caller's
         model is not changed.
     device: None means CUDA (raises without a card); "cpu" runs the
-        kernels' plain versions.
+        kernels' plain versions. Keyword only: the port's own argument.
+
+    The positional parameters are the JAX engine's, in its order
+    (``deepspeed_tpu/inference/engine.py`` ``InferenceEngine.__init__``).
+    ``checkpoint``, ``injection_policy`` and ``mesh`` do nothing at their
+    default (None), and a ``mesh`` whose model axis is 1 does nothing
+    either; other values raise ``NotImplementedError`` naming the slice of
+    the port that brings them. Other keyword arguments are accepted and
+    ignored, as the JAX engine ignores them.
     """
 
     def __init__(self, model, mp_size: int = 1, dtype=None, params=None,
-                 replace_with_kernel_inject: bool = False,
-                 max_tokens: int = 1024, quantize_weights: bool = False,
+                 checkpoint=None, replace_with_kernel_inject: bool = False,
+                 injection_policy=None, max_tokens: int = 1024, mesh=None,
+                 quantize_weights: bool = False,
                  quantize_min_size: int = 4096,
-                 offload_params: bool = False, device=None):
+                 offload_params: bool = False, *, device=None, **kwargs):
         later = {
             "mp_size > 1": (mp_size > 1, "the multi-GPU slice"),
+            "checkpoint": (checkpoint is not None,
+                           "the checkpoint-injection slice"),
             "replace_with_kernel_inject": (replace_with_kernel_inject,
                                            "the checkpoint-injection slice"),
+            "injection_policy": (injection_policy is not None,
+                                 "the checkpoint-injection slice"),
+            "a mesh with a model axis > 1": (_model_axis(mesh) > 1,
+                                             "the multi-GPU slice"),
             "offload_params": (offload_params,
                                "the offload and tiering slice"),
         }
@@ -99,3 +115,15 @@ class InferenceEngine:
         ``serving.ServingConfig`` or dict; extra kwargs override knobs."""
         from ..serving.engine import ServingEngine
         return ServingEngine(self.module, config, **kwargs)
+
+
+def _model_axis(mesh) -> int:
+    """The width of ``mesh``'s model axis: a mesh's ``shape`` mapping
+    (``jax.sharding.Mesh``), a mapping of axis sizes, or a ``MeshSpec``'s
+    ``model``; 1 for None."""
+    if mesh is None:
+        return 1
+    shape = getattr(mesh, "shape", mesh)
+    if isinstance(shape, Mapping):
+        return int(shape.get("model", 1))
+    return int(getattr(mesh, "model", 1))

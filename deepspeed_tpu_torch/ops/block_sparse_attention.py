@@ -8,8 +8,8 @@ the ``custom_vjp`` around them (:428-467), here a
 tensor cores (``csrc/block_sparse_attention_fwd_bf16.cu``, the forward;
 ``csrc/block_sparse_attention_bwd_bf16.cu``, dQ and dK/dV), fp32, the
 parity mode, on 3xTF32 tensor-core products (the forward,
-``csrc/block_sparse_attention_fwd.cu``) and FMAs (dQ and dK/dV,
-``csrc/block_sparse_attention.cu``); they walk a ``DevicePlan``
+``csrc/block_sparse_attention_fwd.cu``; dQ and dK/dV,
+``csrc/block_sparse_attention_bwd.cu``); they walk a ``DevicePlan``
 (``sparse_attention/block_sparse_kernel.py``) of 64-token tiles. A CUDA
 tensor launches them, a CPU tensor runs the plain versions, which walk
 the same lists in the same order: per (head, q-tile) the k-tiles of
@@ -247,8 +247,8 @@ def _bwd_args(q, k, v, do, delta, m, l, plan):
 
 def launch_dq(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
               dropout=None):
-    """Launch the dQ kernel (the tensor-core kernel for bf16, the FMA
-    kernel for fp32); returns dq [b, S, h, d]."""
+    """Launch the dQ kernel (bf16 or 3xTF32 fp32, both on the tensor
+    cores); returns dq [b, S, h, d]."""
     from . import op_builder
     keep, ins, shape, strides = _bwd_args(q, k, v, do, delta, m, l, plan)
     dq = torch.empty(keep[0].shape, dtype=q.dtype, device=q.device)
@@ -265,8 +265,8 @@ def launch_dq(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
 
 def launch_dkv(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
                dropout=None):
-    """Launch the dK/dV kernel (the tensor-core kernel for bf16, the FMA
-    kernel for fp32); returns (dk, dv) [b, S, h, d]."""
+    """Launch the dK/dV kernel (bf16 or 3xTF32 fp32, both on the tensor
+    cores); returns (dk, dv) [b, S, h, d]."""
     from . import op_builder
     keep, ins, shape, strides = _bwd_args(q, k, v, do, delta, m, l, plan)
     dk = torch.empty(keep[0].shape, dtype=k.dtype, device=k.device)

@@ -1,9 +1,9 @@
 // The block-sparse kernels' shared pieces: the plan's tile, the argument
 // pack, one family of the plan's lists with its count table, and each
-// CTA's list row in the table's launch order. Included by
-// block_sparse_attention.cu (fp32 dQ and dK/dV on FMAs),
-// block_sparse_attention_bwd_bf16.cu (bf16 dQ and dK/dV) and the forward
-// kernels block_sparse_attention_fwd.cu (fp32) and
+// CTA's list row in the table's launch order. Included by the backward
+// kernels block_sparse_attention_bwd.cu (fp32 dQ and dK/dV) and
+// block_sparse_attention_bwd_bf16.cu (bf16) and the forward kernels
+// block_sparse_attention_fwd.cu (fp32) and
 // block_sparse_attention_fwd_bf16.cu (bf16).
 #pragma once
 

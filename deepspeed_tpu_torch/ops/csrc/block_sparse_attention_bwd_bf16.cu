@@ -4,10 +4,10 @@
 // Replaces, for bf16 inputs, the TPU kernels _dq_kernel
 // (deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:254, launched
 // by _sparse_dq :379) and _dkv_kernel (:286, _sparse_dkv :402); fp32 inputs
-// keep the FMA kernels of block_sparse_attention.cu, the port's parity
-// mode. Same function and rounding points as those kernels and the plain
-// versions (ops/block_sparse_attention.py block_sparse_dq_reference and
-// block_sparse_dkv_reference), over the active tiles of a layout plan,
+// go to the 3xTF32 kernels of block_sparse_attention_bwd.cu, the port's
+// parity mode. Same function and rounding points as those kernels and the
+// plain versions (ops/block_sparse_attention.py block_sparse_dq_reference
+// and block_sparse_dkv_reference), over the active tiles of a layout plan,
 // from the forward's row statistics m and l and delta = rowsum(dO o O)
 // (the wrapper's):
 //   P  = live ? exp(Q K^T * scale - m) / l : 0   (live: the fine mask)
@@ -591,7 +591,7 @@ int run(LaunchFn fn, int dtype, const Ptrs& p, const void* idx,
 
 // bf16 only (dtype 1); d in {64, 80, 96, 128}; S a multiple of 64 (the
 // wrapper checks). The arguments are block_sparse_attention_dq's and
-// block_sparse_attention_dkv's (block_sparse_attention.cu); `cnt` is the
+// block_sparse_attention_dkv's (block_sparse_attention_bwd.cu); `cnt` is the
 // plan's count table (the counts, the launch order, the all-live flags);
 // q/k/v/dout additionally need 16-byte aligned bases and (batch, sequence,
 // head) strides.

@@ -1,6 +1,6 @@
 // Shared helpers of the kernels: the masked-logit constant, element
-// conversions, the dropout keep hash and the backward kernels' tile
-// products. Included by every .cu in this directory.
+// conversions and the dropout keep hash. Included by every .cu in this
+// directory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -107,41 +107,3 @@ __device__ __forceinline__ bool dropout_keep(const DropoutParams& dp,
     s0, s1, threshold, inv_keep, total_heads, head_offset, batch_offset,   \
         q_offset, k_offset                                                 \
   }
-
-// The 4x4 blocks of S = Q K^T and dP = dO V^T owned by thread (ty, tx) of
-// a 256-thread CTA on 64-row tiles: q rows ty + 16i of Qs/dOs, keys
-// tx + 16j of Ks/Vs, all fp32 in shared memory with rows of D + 1 floats.
-// The block-sparse fp32 backward kernels' products.
-template <int D>
-__device__ __forceinline__ void tile_scores(const float* Qs,
-                                            const float* dOs,
-                                            const float* Ks, const float* Vs,
-                                            int ty, int tx, float (&s)[4][4],
-                                            float (&dp)[4][4]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < D; ++kk) {
-    float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * DP + kk];
-      ov[i] = dOs[(ty + 16 * i) * DP + kk];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * DP + kk];
-      vv[j] = Vs[(tx + 16 * j) * DP + kk];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
-  }
-}

@@ -12,7 +12,7 @@ nor is a multiple of the tile, and a fine row with no active block each
 give None (the caller takes the dense-mask route).
 
 The tile is the port's choice. The JAX package picks 128 or 256 for the
-TPU's matrix unit; the CUDA kernels (``ops/csrc/block_sparse_attention.cu``)
+TPU's matrix unit; the CUDA kernels (``ops/csrc/block_sparse_attention_*.cu``)
 work on ``KERNEL_TILE`` = 64 tiles, which hold BigBird's 64-token blocks
 exactly: at S = 4096 the BigBird-64 layout covers 14.6% of the score
 matrix, a 128-tile plan 34.9% of it. ``compile_layout(config, s,

@@ -284,7 +284,7 @@ def _dispatched_dims(name):
                          "flash_attention_bwd_bf16.cu")),
     ("decode_attention", ("decode_attention.cu",)),
     ("paged_attention", ("paged_attention.cu",)),
-    ("block_sparse_attention", ("block_sparse_attention.cu",
+    ("block_sparse_attention", ("block_sparse_attention_bwd.cu",
                                 "block_sparse_attention_fwd.cu",
                                 "block_sparse_attention_fwd_bf16.cu",
                                 "block_sparse_attention_bwd_bf16.cu")),
