@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--profile | --checks-only | --8c-only |
                            --7a-only | --serving-only |
-                           --serving-timing [dir] | --planted-faults [name]]
+                           --serving-timing [dir] | --decode-timing [dir] |
+                           --serving-ab dir | --chunk-sweep |
+                           --planted-faults [name]]
 
 Phases, each fatal on failure:
 
@@ -21,7 +23,9 @@ Phases, each fatal on failure:
    training shapes beside the plain version, one PyTorch library call
    computing the same function, and the least time the card could take
    (the flash kernels in bf16 on the tensor cores at dropout 0.1 and 0,
-   and in fp32 on 3xTF32 tensor-core products, also at head_dim 128);
+   and in fp32 on 3xTF32 tensor-core products, also at head_dim 128; the
+   split-KV decode and paged kernels also at the chunk boundaries, in 20
+   repeated launches bit for bit, and timed at long rows);
 4. the slice end to end: GPT-2 125M at full width and depth (random
    weights from a seed) served through ``init_inference(...).serve()``:
    (a) fp32, every request token-exact against the port's ``generate()``
@@ -122,11 +126,17 @@ Phases, each fatal on failure:
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result);
 ``--7a-only`` phase 7a likewise, ``--serving-only`` phases 4b and 6b.
+``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
+with this checkout's decode and paged ops and with those of the checkout
+``dir`` in turns (no result).
+``--decode-timing [dir]`` likewise times the decode and paged kernels
+at phase 3's shapes and at long rows (no result); ``--chunk-sweep`` runs
+it on copies built with each split-KV chunk width of ``SWEEP_CHUNKS``.
 ``--serving-timing [dir]`` builds and times 4b's and 6b's serving,
 prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (twenty-eight faults),
+``--planted-faults [name]`` runs ``--checks-only`` (thirty-one faults),
 ``--8c-only`` (two) or ``--7a-only`` (one) in copies of the checkout,
 each with one kernel fault planted (``PLANTED_FAULTS``; only those
 whose source file name contains ``name``, when given), and fails unless
@@ -272,13 +282,23 @@ def check_flash(dev, gen):
     gate.close()
 
 
+def boundary_lengths(capacity):
+    """Row lengths at the split-KV kernels' chunk boundaries: one short of
+    a chunk, a chunk, one past it, two chunks and one short of the
+    capacity."""
+    from deepspeed_tpu_torch.ops.decode_split import CHUNK
+    return [CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK, capacity - 1]
+
+
 def check_decode(dev, gen):
     from deepspeed_tpu_torch.models.layers import alibi_slopes
     from deepspeed_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
-    B, H, S = 8, 12, 1024
-    lengths = torch.tensor([0, 1, 77, 1024, 500, 333, 1000, 64],
+    S = 1024
+    lengths = torch.tensor([0, 1, 77, 1024, 500, 333, 1000, 64,
+                            *boundary_lengths(S)],
                            dtype=torch.int32, device=dev)
+    B, H = len(lengths), 12
     gate = Gate("decode")
     for dtype in (torch.float32, torch.bfloat16):
         for d in HEAD_DIMS:
@@ -345,21 +365,21 @@ def _paged_case(dev, gen, dtype, quant, page_len, d, lengths, B=8, H=12,
 def check_paged(dev, gen):
     """The paged kernel against its plain version over fp32, bf16 and int8
     pages, page_len 16 and 128, d 64, 80, 96 and 128, ALiBi on and off,
-    lengths 0, 1, ragged and a full table, with NaN in every unreadable
-    position; with fp32 and bf16 pages also bit-equal to the decode
-    kernel over the same tokens."""
+    lengths 0, 1, ragged, at the chunk boundaries and a full table, with
+    NaN in every unreadable position; with fp32 and bf16 pages also
+    bit-equal to the decode kernel over the same tokens."""
     from deepspeed_tpu_torch.models.layers import alibi_slopes
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
     gate = Gate("paged")
-    lengths = [0, 1, 77, 1024, 500, 333, 1000, 128]
+    lengths = [0, 1, 77, 1024, 500, 333, 1000, 128, *boundary_lengths(1024)]
     for dtype in (torch.float32, torch.bfloat16):
         for quant in (False, True):
             for page_len in (16, 128):
                 for d in HEAD_DIMS:
                     for alibi in (False, True):
                         args = _paged_case(dev, gen, dtype, quant, page_len,
-                                           d, lengths)
+                                           d, lengths, B=len(lengths))
                         q, kn, vn, k, v, ks, vs, table, lens = args
                         slopes = alibi_slopes(12).to(dev) if alibi else None
                         o = paged_attention(q, k, v, table, lens, kn, vn,
@@ -409,6 +429,40 @@ def _paged_is_decode(q, kn, vn, k, v, table, lens, lengths, page_len,
             f"paged_attention {q.dtype} d={d} page_len={page_len}: "
             f"{int((o != ref).sum())} of {o.numel()} outputs differ from "
             "the decode kernel over the same tokens")
+
+
+def check_repeat(dev, gen, launches=20):
+    """``launches`` launches each of the decode kernel and the paged kernel
+    (bf16 and int8 pages) at rows of 4 to 8 live chunks, every output
+    kept alive and bit-equal to the first: the merging chunk reads the
+    partials only after the row's counter says they are written, and
+    leaves the counter at 0 for the next launch."""
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.decode_split import CHUNK
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    B, H, S, d, dt = 8, 12, 1024, 64, torch.bfloat16
+    lengths = [3 * CHUNK + 1 + 80 * i for i in range(B)]
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dt)
+               for shape in ((B, 1, H, d), (B, H, S, d), (B, H, S, d)))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    runs = {"decode": lambda: decode_attention(q, k, v, lens)}
+    for quant in (False, True):
+        qp, kn, vn, kp, vp, ks, vs, table, plens = _paged_case(
+            dev, gen, dt, quant, 128, d, lengths, B=B)
+        runs[f"paged ({'int8' if quant else 'bf16'} pages)"] = (
+            lambda a=(qp, kp, vp, table, plens, kn, vn), kw=dict(
+                k_scale=ks, v_scale=vs): paged_attention(*a, **kw))
+    for name, fn in runs.items():
+        outs = [fn() for _ in range(launches)]
+        torch.cuda.synchronize()
+        same = sum(torch.equal(o, outs[0]) for o in outs[1:])
+        if same != launches - 1:
+            raise AssertionError(
+                f"{name}: {launches - 1 - same} of {launches - 1} repeated "
+                "launches differ from the first (the split-KV merge)")
+    log(f"  repeat: {launches} launches each of {', '.join(runs)} "
+        f"bit-equal (rows of {-(-min(lengths) // CHUNK)}-"
+        f"{-(-max(lengths) // CHUNK)} live chunks)")
 
 
 def check_int8(dev, gen):
@@ -1046,6 +1100,110 @@ def time_decode(dev, gen, d=64):
     return dict(shape=f"B={B} H={H} S={S} d={d} bf16 sum(lengths)={total}",
                 ms=kernel, plain_ms=plain, library_ms=library,
                 bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
+def time_long_rows(dev, gen, B=2, H=12, d=64, capacity=8192):
+    """Both kernels at long rows (logged, no gate): B rows of ~8000 keys,
+    bf16, a contiguous cache of ``capacity`` and a pool of 128-token
+    pages of the same capacity."""
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    dt = torch.bfloat16
+    lengths = [capacity - 192 - 61 * i for i in range(B)]
+    q = torch.randn(B, 1, H, d, generator=gen, device=dev, dtype=dt)
+    k, v = (torch.randn(B, H, capacity, d, generator=gen, device=dev,
+                        dtype=dt) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    qp, kn, vn, kp, vp, _, _, table, plens = _paged_case(
+        dev, gen, dt, False, 128, d, lengths, B=B, capacity=capacity,
+        poison=False)
+    total = sum(lengths)
+    decode_bound, _ = bound_ms(4 * total * H * d,
+                               (2 * total * H * d + 2 * B * H * d) * 2,
+                               PEAK_BF16_FLOPS)
+    paged_bound, _ = bound_ms(4 * (total + B) * H * d,
+                              (2 * (total + B) * H * d + 2 * B * H * d) * 2,
+                              PEAK_BF16_FLOPS)
+    return dict(
+        shape=f"B={B} H={H} d={d} bf16 lengths={lengths}",
+        decode_ms=gpu_ms(lambda: decode_attention(q, k, v, lens)),
+        decode_bound_ms=decode_bound,
+        paged_ms=gpu_ms(lambda: paged_attention(qp, kp, vp, table, plens,
+                                                kn, vn)),
+        paged_bound_ms=paged_bound)
+
+
+def decode_timing(card):
+    """The decode and paged kernels at phase 3's shapes and at long rows,
+    with no gate, on the package this process imported (``--decode-timing
+    DIR`` imports DIR's): run on two checkouts in turns, it compares a
+    change with its parent on one card. One JSON line holds the times."""
+    import deepspeed_tpu_torch
+    log(f"decode timing of {os.path.dirname(deepspeed_tpu_torch.__file__)}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {"decode": time_decode(dev, gen)["ms"],
+           "paged": time_paged(dev, gen, quant=False)["ms"],
+           "paged_int8": time_paged(dev, gen, quant=True)["ms"]}
+    longs = time_long_rows(dev, gen)
+    out["decode long rows"] = longs["decode_ms"]
+    out["paged long rows"] = longs["paged_ms"]
+    log("  " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+        + f" [{card}]")
+    print(json.dumps({"decode_timing": out}), flush=True)
+
+
+SWEEP_CHUNKS = (64, 128, 256)
+
+
+def time_variants(card, variants):
+    """``--decode-timing`` on copies of this checkout's package, one a
+    variant: ``variants`` maps a label to its edits ``(path under the
+    package, old, new)``, made as ``sed`` would (each ``old`` must occur).
+    One JSON line holds each variant's times (no gate)."""
+    import shutil
+    import tempfile
+    times = {}
+    for label, edits in variants.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            pkg = os.path.join(tmp, "deepspeed_tpu_torch")
+            shutil.copytree(os.path.join(REPO, "deepspeed_tpu_torch"), pkg,
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            for rel, old, new in edits:
+                path = os.path.join(pkg, rel)
+                with open(path) as f:
+                    text = f.read()
+                if old not in text:
+                    raise AssertionError(f"{label}: {old!r} not in {rel}")
+                with open(path, "w") as f:
+                    f.write(text.replace(old, new))
+            res = subprocess.run(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--decode-timing", tmp], capture_output=True, text=True,
+                timeout=600)
+            lines = [ln for ln in res.stdout.splitlines()
+                     if ln.startswith('{"decode_timing"')]
+            if res.returncode != 0 or not lines:
+                raise AssertionError(f"{label}: --decode-timing failed:\n"
+                                     f"{res.stdout[-2000:]}"
+                                     f"{res.stderr[-2000:]}")
+            times[label] = json.loads(lines[0])["decode_timing"]
+            log(f"  {label}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in times[label].items())
+                + f" [{card}]")
+    print(json.dumps({"variant_timing": times}), flush=True)
+    return times
+
+
+def chunk_sweep(card):
+    """``time_variants`` over the chunk widths of ``SWEEP_CHUNKS``
+    (``DS_SPLIT_CHUNK`` in ``decode_split.cuh``, ``CHUNK`` in
+    ``ops/decode_split.py``)."""
+    time_variants(card, {f"CHUNK {c}": (
+        ("ops/csrc/decode_split.cuh", "#define DS_SPLIT_CHUNK 128",
+         f"#define DS_SPLIT_CHUNK {c}"),
+        ("ops/decode_split.py", "CHUNK = 128", f"CHUNK = {c}"))
+        for c in SWEEP_CHUNKS})
 
 
 def bigbird_64(heads=12):
@@ -1860,6 +2018,96 @@ def serving_timing(card, blocks=10):
     log("  " + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
         + f" [{card}]")
     print(json.dumps({"serving_timing": out}), flush=True)
+
+
+def serving_ab(card, parent_dir, blocks=100):
+    """Phases 4b's and 6b's decode wall ms in one process: this
+    checkout's decode and paged attention (wrappers and CUDA kernels)
+    against those of the checkout ``parent_dir``, imported from a copy of
+    its package under another name, in turns (the first side alternating
+    by block). Everything else of the decode iteration is this
+    checkout's, so only the two ops' host and device time differs, and
+    no process-to-process spread enters; each block pairs the sides, and
+    the median of the blocks' change / parent ratios is the reading. Also
+    the host time of one call of each side's ops at 4b's and 6b's shapes
+    (200 calls queued on a busy stream, best of 5). One JSON line holds
+    the readings (no gate)."""
+    import importlib
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import GPT, GPT2_PRESETS, layers
+    tmp = tempfile.mkdtemp()
+    shutil.copytree(os.path.join(os.path.abspath(parent_dir),
+                                 "deepspeed_tpu_torch"),
+                    os.path.join(tmp, "parent_ops_pkg"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    sys.path.insert(0, tmp)
+    ops = {"parent": tuple(
+        getattr(importlib.import_module(f"parent_ops_pkg.ops.{name}"), name)
+        for name in ("decode_attention", "paged_attention")),
+        "change": (layers.decode_attention, layers.paged_attention)}
+    model = GPT(GPT2_PRESETS["gpt2-125m"], seed=SEED)
+    vocab = model.config.vocab_size
+    prompts, outs = traffic(vocab)
+    engine = init_inference(model)
+    _, srv, _, _ = serve_traffic(engine, prompts, outs, SERVING_CONFIG)
+    runs = {"4b decode ms": row_runners(srv, engine.module, SERVING_CONFIG,
+                                        prompts)[0]["decode"]}
+    engine = init_inference(model)
+    _, srv, _, _ = serve_paged(engine, *paged_traffic(vocab), PAGED_CONFIG)
+    runs["6b decode ms"] = _paged_decode_runner(
+        srv, engine.module, served_lengths(16, SEED + 7))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    H, d, dt = 12, 64, torch.bfloat16
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dt)
+               for shape in ((8, 1, H, d), (8, H, 1024, d), (8, H, 1024, d)))
+    lens = torch.tensor(served_lengths(8, SEED + 1), dtype=torch.int32,
+                        device=dev)
+    pq, kn, vn, kp, vp, _, _, table, plens = _paged_case(
+        dev, gen, dt, False, 128, d, [int(n) for n in
+                                      served_lengths(16, SEED + 6)], B=16)
+    calls = {"decode call us": lambda dec, pag: dec(q, k, v, lens),
+             "paged call us": lambda dec, pag: pag(pq, kp, vp, table, plens,
+                                                   kn, vn)}
+    out = {}
+    try:
+        times = {side: {name: [] for name in runs} for side in ops}
+        for block in range(blocks):
+            for side in (("parent", "change") if block % 2 == 0
+                         else ("change", "parent")):
+                layers.decode_attention, layers.paged_attention = ops[side]
+                for name, fn in runs.items():
+                    times[side][name].append(wall_ms(fn, 10))
+        for name in runs:
+            p, c = (np.array(times[side][name])
+                    for side in ("parent", "change"))
+            out[name] = {"parent": float(np.median(p)),
+                         "change": float(np.median(c)),
+                         "paired ratio": float(np.median(c / p)),
+                         "change faster": int((c < p).sum()),
+                         "blocks": blocks}
+        for name, call in calls.items():
+            out[name] = {}
+            for side in ("parent", "change"):
+                best = []
+                for _ in range(5):
+                    torch.cuda._sleep(50_000_000)   # keep the stream busy
+                    t0 = time.perf_counter()
+                    for _ in range(200):
+                        call(*ops[side])
+                    best.append((time.perf_counter() - t0) / 200 * 1e6)
+                    torch.cuda.synchronize()
+                out[name][side] = min(best)
+    finally:
+        layers.decode_attention, layers.paged_attention = ops["change"]
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, r in out.items():
+        log(f"  {name}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in r.items()) + f" [{card}]")
+    print(json.dumps({"serving_ab": out}), flush=True)
 
 
 def wall_ms(fn, iters):
@@ -3135,6 +3383,22 @@ PLANTED_FAULTS = (
     ("fp32 flash forward: hi(A) lo(B), one of the three terms, dropped",
      "flash_attention_fwd.cu",
      (("  mma_tf32(c, ah, bl0, bl1);\n", ""),), "--checks-only"),
+    # the split-KV decode and paged kernels (decode_split.cuh)
+    ("split-KV merge: the last live chunk of a row left out of the sums",
+     "decode_split.cuh",
+     (("      if (k < nb) {", "      if (k < nb - (i0 + 32 >= live)) {"),),
+     "--checks-only"),
+    ("split-KV merge: the row's counter not reset after the merge (no "
+     "later launch merges that row)", "decode_split.cuh",
+     (("    if (last_s) a.counters[row] = 0;  // ready for the next launch\n",
+       ""),),
+     "--checks-only"),
+    ("paged: the chunk boundaries one key short of the decode kernel's "
+     "(127 keys a chunk; only _paged_is_decode's bit-equality sees it)",
+     "paged_attention.cu",
+     (('#include "decode_split.cuh"',
+       '#define DS_SPLIT_CHUNK 127\n#include "decode_split.cuh"'),),
+     "--checks-only"),
     # phase 7a's loss gate against a run whose parameters never move
     ("7a: the LAMB apply launch skipped (parameters unchanged)",
      "fused_lamb.cu",
@@ -3186,7 +3450,8 @@ def run_planted_faults(only=None):
         lines = [ln for ln in (res.stdout + res.stderr).splitlines()
                  if "FAIL" in ln or "cases ok" in ln and (
                      "layernorm" in ln or "quantizer" in ln or "flash" in ln
-                     or "block_sparse" in ln or "wo_int8" in ln)
+                     or "block_sparse" in ln or "wo_int8" in ln
+                     or "decode" in ln or "paged" in ln)
                  or "Error" in ln or "after step" in ln or "losses" in ln]
         # the gates' failing summaries first, then the failing cases
         worst = [ln for ln in lines
@@ -3218,7 +3483,8 @@ def main():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(deepspeed_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
-    timing = "--serving-timing" in sys.argv[1:]
+    timing = bool({"--serving-timing", "--decode-timing"}
+                  & set(sys.argv[1:]))
     rest = [a for a in sys.argv[1:] if not a.startswith("--")]
     sys.path.insert(0, os.path.abspath(rest[0]) if timing and rest else REPO)
     from deepspeed_tpu_torch.models import GPT, GPT2_PRESETS
@@ -3243,6 +3509,9 @@ def main():
     if "--planted-faults" in sys.argv[1:]:
         run_planted_faults(rest[0] if rest else None)
         return 0
+    if "--chunk-sweep" in sys.argv[1:]:
+        chunk_sweep(card)
+        return 0
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -3261,6 +3530,12 @@ def main():
         set_gemm_flags(defaults)
         phase_sparse_bert_bf16(card)
         log("phase 7a passed (--7a-only: no other phase, no result)")
+        return 0
+    if "--decode-timing" in sys.argv[1:]:
+        decode_timing(card)
+        return 0
+    if "--serving-ab" in sys.argv[1:]:
+        serving_ab(card, rest[0])
         return 0
     if timing:
         serving_timing(card)
@@ -3284,6 +3559,7 @@ def main():
     check_flash_train_shapes(dev, gen)
     check_fused_adam(dev, gen)
     check_paged(dev, gen)
+    check_repeat(dev, gen)
     check_int8(dev, gen)
     check_block_sparse(dev, gen)
     check_fused_lamb(dev, gen)
@@ -3313,6 +3589,15 @@ def main():
     sparse_fp32_7a_t = time_block_sparse(dev, gen, dtype=torch.float32)
     sparse_t["fused_lamb"] = time_fused_lamb(dev, gen)
     ds_t = {**time_layernorm(dev, gen), **time_quantizer(dev, gen)}
+    # the decode and paged kernels at long rows (logged, and in the
+    # kernels line beside their phase 3 times)
+    long_t = time_long_rows(dev, gen)
+    log(f"  decode_attention and paged_attention at long rows "
+        f"[{long_t['shape']}]: decode {long_t['decode_ms']:.4f} ms (bound "
+        f"{long_t['decode_bound_ms']:.4f}), paged {long_t['paged_ms']:.4f} "
+        f"ms (bound {long_t['paged_bound_ms']:.4f}) [{card}]")
+    decode_t["ms_long_rows"] = long_t["decode_ms"]
+    paged_t["paged_attention"]["ms_long_rows"] = long_t["paged_ms"]
     # the fp32 kernels at head_dim 128, the widest (logged only: no main
     # path runs them)
     fp32_d128_t = time_flash_train(dev, gen, d=128, dtype=torch.float32)
@@ -3523,7 +3808,8 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **{key: t[key] for key in ("impl", "ms_rate0", "ms_natural_order",
-                                       "ms_heaviest_rows") if key in t},
+                                       "ms_heaviest_rows", "ms_long_rows")
+               if key in t},
             **({"apply_launches": t["apply_launches"]}
                if "apply_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}

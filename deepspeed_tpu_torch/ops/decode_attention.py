@@ -1,18 +1,24 @@
 """Single-token KV-cache attention: the CUDA kernel and its plain version.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/decode_attention.py``
-``decode_attention`` (:174). The kernel is ``csrc/decode_attention.cu``;
-its header says what bounds it on the H100 and how it is laid out. The
-cache layout is the port's ``[B, H, S, d]`` (the JAX package keeps K^T
-``[B, H, d, S]`` only for Mosaic's 128-lane rule), and any capacity S is
-taken. A CUDA tensor launches the kernel, a CPU tensor runs
-``decode_attention_reference``.
+``decode_attention`` (:174). The kernel is ``csrc/decode_attention.cu``,
+the split-KV kernel of ``csrc/decode_split.cuh``; their headers say what
+bounds it on the H100 and how it is laid out. The cache layout is the
+port's ``[B, H, S, d]`` (the JAX package keeps K^T ``[B, H, d, S]`` only
+for Mosaic's 128-lane rule), and any capacity S is taken. A CUDA tensor
+launches the kernel, a CPU tensor runs ``decode_attention_reference``.
+
+A launch runs ``B * H * ceil(S / 128)`` CTAs and uses the device's
+split-KV workspace (``decode_split.workspace``): no allocation beyond the
+output, no host sync. Calls on one stream are ordered, so the workspace is
+safe there; launches on two streams of one device at once are not.
 """
 
 import math
 
 import torch
 
+from . import decode_split
 from ._common import NEG_INF, check_launch, kernel_dtype_code, use_kernel
 
 HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernel is compiled for
@@ -48,10 +54,10 @@ def decode_attention_reference(q, k, v, lengths, *, softmax_scale=None,
 def _aligned(t: torch.Tensor) -> bool:
     """Unit stride along d, 16-byte aligned base and row strides: what the
     kernel's 16-byte vector loads need."""
-    size = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all((t.stride(i) * size) % 16 == 0
-                    for i in range(t.dim() - 1)))
+    *rows, unit = t.stride()
+    step = 16 // t.element_size()        # elements in 16 bytes
+    return (unit == 1 and t.data_ptr() % 16 == 0
+            and not any(s % step for s in rows))
 
 
 def _launch(q, k, v, lengths, slopes, scale):
@@ -71,7 +77,7 @@ def _launch(q, k, v, lengths, slopes, scale):
         raise ValueError(f"decode_attention: cache k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)} "
                          f"as [B, H, S, d] on {dev}")
-    if not _aligned(q):
+    if q.stride(-1) != 1:
         q = q.contiguous()
     if not (_aligned(k) and _aligned(v)):
         raise ValueError("decode_attention: the KV cache needs unit stride "
@@ -83,10 +89,12 @@ def _launch(q, k, v, lengths, slopes, scale):
     if B * H == 0:
         return o
     lib = op_builder.load()
+    ws = decode_split.workspace(
+        dev, B * H, decode_split.decode_chunks(k.shape[2]), d)
     status = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, o.data_ptr(),
-        code, B, H, k.shape[2], d, q.stride(0), q.stride(1),
+        *ws, code, B, H, k.shape[2], d, q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), float(scale),
         torch.cuda.current_stream(dev).cuda_stream)

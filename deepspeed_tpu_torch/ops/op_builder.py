@@ -62,14 +62,15 @@ SIGNATURES = {
     # table, block_start, n_entries, n_blocks, grad_norm, lr, b1, 1-b1,
     # b2, 1-b2, c1, c2, eps, wd, l2, max_norm, stream
     "fused_adam": [_p, _p, _i, _i, _p] + [_f] * 11 + [_p],
-    # q, k, v, lengths, slopes, o, dtype, B, H, S, d,
-    # q strides (batch, head), k/v strides (batch, head, seq), scale, stream
-    "decode_attention": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-                         _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _f, _p],
+    # q, k, v, lengths, slopes, o, split-KV partials and counters, their
+    # sizes, dtype, B, H, S, d, q strides (batch, head), k/v strides
+    # (batch, head, seq), scale, stream
+    "decode_attention": [_p] * 8 + [_ll] + [_i] * 6 + [_ll] * 8 + [_f, _p],
     # q, k_new, v_new, k pool, v pool, k scales, v scales, page table,
-    # lengths, slopes, o, dtype, page dtype, B, H, d, page_len, max_pages,
-    # q/k_new/v_new strides (slot, head), scale, stream
-    "paged_attention": [_p] * 11 + [_i] * 7 + [_ll] * 6 + [_f, _p],
+    # lengths, slopes, o, split-KV partials and counters, their sizes,
+    # dtype, page dtype, B, H, d, page_len, max_pages, q/k_new/v_new
+    # strides (slot, head), scale, stream
+    "paged_attention": [_p] * 13 + [_ll] + [_i] * 8 + [_ll] * 6 + [_f, _p],
     # x, q, scale, y, partials, dtype, out dtype, m, k, n, x row stride,
     # small, splits, stream
     "wo_int8_matmul": [_p] * 5 + [_i] * 5 + [_ll, _i, _i, _p],

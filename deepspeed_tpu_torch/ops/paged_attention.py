@@ -16,14 +16,22 @@ bounds it on the H100 and how it is laid out. The port's layout:
   excluded; it arrives as ``k_new``/``v_new [slots, H, d]``.
 
 Any ``page_len`` is taken. A CUDA tensor launches the kernel, a CPU tensor
-runs ``paged_attention_reference``.
+runs ``paged_attention_reference``. The kernel is the decode kernel's
+split-KV kernel (``csrc/decode_split.cuh``) with a page-table loader: a
+launch runs ``slots * H * ceil((max_pages * page_len + 1) / 128)`` CTAs on
+the device's split-KV workspace (``decode_split.workspace``), with no
+allocation beyond the output and no host sync. Calls on one stream are
+ordered, so the workspace is safe there; launches on two streams of one
+device at once are not.
 """
 
 import math
 
 import torch
 
+from . import decode_split
 from ._common import NEG_INF, check_launch, kernel_dtype_code, use_kernel
+from .decode_attention import _aligned
 
 HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernel is compiled for
 _INT8_PAGES = 2         # the C entry point's page-dtype code for int8
@@ -68,14 +76,23 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
     return out.to(q.dtype)
 
 
+def _with_aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh contiguous copy where its rows are not 16-byte
+    aligned: the kernel copies the current token's K and V rows like page
+    rows."""
+    return t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_pool(name, pool, shape_tail, dtype, dev):
     if pool.dim() != 4 or tuple(pool.shape[1:]) != shape_tail:
         raise ValueError(f"paged_attention: {name} pool {tuple(pool.shape)} "
                          f"is not [num_pages, H, page_len, d] with (H, "
                          f"page_len, d) = {shape_tail}")
-    if pool.dtype != dtype or pool.device != dev or not pool.is_contiguous():
+    if (pool.dtype != dtype or pool.device != dev
+            or not pool.is_contiguous() or pool.data_ptr() % 16):
         raise ValueError(f"paged_attention: {name} pool must be a "
-                         f"contiguous {dtype} tensor on {dev}")
+                         f"contiguous {dtype} tensor on {dev} with a "
+                         "16-byte aligned base")
 
 
 def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, slopes,
@@ -105,8 +122,9 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, slopes,
             raise ValueError(f"paged_attention: {name} {tuple(t.shape)} "
                              f"{t.dtype} does not match q {tuple(q.shape)} "
                              f"{q.dtype}")
-    q, k_new, v_new = (t if t.stride(-1) == 1 else t.contiguous()
-                       for t in (q, k_new, v_new))
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    k_new, v_new = _with_aligned_rows(k_new), _with_aligned_rows(v_new)
     ptab = page_table.to(dev, torch.int32).contiguous()
     if ptab.dim() != 2 or ptab.shape[0] != B:
         raise ValueError(f"paged_attention: page table {tuple(ptab.shape)} "
@@ -124,12 +142,15 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, slopes,
     if B * H == 0:
         return o
     lib = op_builder.load()
+    ws = decode_split.workspace(
+        dev, B * H, decode_split.paged_chunks(ptab.shape[1],
+                                              k_pages.shape[2]), d)
     status = lib.paged_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, ptab.data_ptr(),
         lengths.data_ptr(), slopes.data_ptr() if slopes is not None else None,
-        o.data_ptr(), code, page_code, B, H, d, k_pages.shape[2],
+        o.data_ptr(), *ws, code, page_code, B, H, d, k_pages.shape[2],
         ptab.shape[1], q.stride(0), q.stride(1), k_new.stride(0),
         k_new.stride(1), v_new.stride(0), v_new.stride(1), float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
