@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--profile | --checks-only | --8c-only |
-                           --7a-only | --serving-only |
+                           --7a-only | --loop-only | --serving-only |
                            --serving-timing [dir] | --decode-timing [dir] |
                            --serving-ab dir | --chunk-sweep |
                            --planted-faults [name]]
@@ -120,12 +120,31 @@ Phases, each fatal on failure:
    sym, asym, stochastic; bits 4/8/12; groups 1/16/1024; fp32 and bf16;
    an all-zero group; stochastic rounding reproducible and unbiased)
    against their plain versions first, and times them at phase 8's
-   shapes.
+   shapes;
+9. the engine's own loop end to end: GPT-2 125M (bf16 on fp32 masters,
+   FusedAdam, WarmupLR, clip 1.0, micro 4 x gas 2 x 1024 tokens) fed by
+   ``initialize(training_data=...)``'s dataloader and trained through
+   ``loss = engine(mb); engine.backward(loss); engine.step()``: (a) with
+   attention dropout 0.1, run A takes 6 steps (exact launch counts of
+   the flash forward, both backward kernels and fused Adam: 144, 144,
+   144 and 6); run B takes 3, saves asynchronously (``latest`` must stay
+   unpublished until ``wait_checkpoint``), trains on and waits; run C
+   loads through ``latest`` and takes steps 4-6: its losses, parameters
+   and Adam moments bit-equal to A's; the same resume without the
+   optimizer states must differ (the control); save, load and 16-bit
+   export seconds and bytes printed; (b) dropout off, ``train_batch``
+   against forward/backward/step on the same batches, bit-equal after 2
+   steps, and the step wall ms of each in turns; (c) Adagrad and SGD
+   (momentum 0.9, Nesterov), fp32 at 4 x 128 tokens, card against CPU
+   over 2 steps: losses within 1e-4, parameters within
+   ``ADAGRAD_SGD_TOL`` of the largest parameter move. Checkpoints go to
+   a ``tempfile`` directory deleted at the end of the phase.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result);
-``--7a-only`` phase 7a likewise, ``--serving-only`` phases 4b and 6b.
+``--7a-only`` phase 7a likewise, ``--loop-only`` phase 9,
+``--serving-only`` phases 4b and 6b.
 ``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
 with this checkout's decode and paged ops and with those of the checkout
 ``dir`` in turns (no result).
@@ -151,6 +170,7 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 
 import functools
+import itertools
 import json
 import os
 import re
@@ -3227,6 +3247,346 @@ def phase_ds_bert_parity(devices=("cuda", "cpu"), n_layers=4):
 
 
 # --------------------------------------------------------------------------
+# phase 9: the engine's own loop, checkpoints, the dataloader, Adagrad/SGD
+# --------------------------------------------------------------------------
+
+LOOP_CONFIG = {
+    "train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "FusedAdam",
+                  "params": {"lr": 6e-4, "betas": [0.9, 0.95],
+                             "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR",
+                  "params": {"warmup_num_steps": 3, "warmup_max_lr": 6e-4}},
+    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+}
+LOOP_STEPS, LOOP_SAVE_AT, LOOP_SEQ = 6, 3, 1024
+
+
+def loop_data(vocab, seed=SEED):
+    """One epoch of seeded token ids: LOOP_STEPS global batches."""
+    rs = np.random.RandomState(seed + 20)
+    rows = LOOP_STEPS * LOOP_CONFIG["train_batch_size"]
+    return {"input_ids": rs.randint(0, vocab, size=(rows, LOOP_SEQ))
+            .astype(np.int32)}
+
+
+def loop_model(rate=0.1, dtype=None):
+    """GPT-2 125M at full width and depth, random weights from SEED (the
+    same weights at every rate and dtype). Built once a configuration;
+    each engine takes a ``copy.deepcopy`` (the engine moves its module to
+    the card)."""
+    import dataclasses
+    from deepspeed_tpu_torch.models import GPT, GPT2_PRESETS
+    cfg = dataclasses.replace(GPT2_PRESETS["gpt2-125m"],
+                              attn_dropout_rate=rate,
+                              **({"dtype": dtype} if dtype else {}))
+    return GPT(cfg, seed=SEED)
+
+
+def loop_engine(template, data, config=LOOP_CONFIG, device=None):
+    """A copy of ``template`` through ``initialize(...,
+    training_data=data)``: (engine, dataloader)."""
+    import copy
+    from deepspeed_tpu_torch import initialize
+    engine, _, loader, _ = initialize(
+        model=copy.deepcopy(template), config=config,
+        loss_fn=gpt_train_loss, seed=SEED, training_data=data, device=device)
+    return engine, loader
+
+
+def split_steps(engine, batches):
+    """One optimizer step a global batch of ``batches`` through ``loss =
+    engine(mb); engine.backward(loss); engine.step()``; returns the
+    microbatch losses (device tensors)."""
+    micro = engine.train_micro_batch_size_per_gpu()
+    losses = []
+    for batch in batches:
+        for g in range(engine.gradient_accumulation_steps()):
+            loss = engine({n: v[g * micro:(g + 1) * micro]
+                           for n, v in batch.items()})
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.detach())
+    return losses
+
+
+def engine_state(engine):
+    """Copies of the parameters and the optimizer's slots, and the
+    counters."""
+    opt = engine.optimizer_state
+    return ([p.detach().clone() for p in engine.module.parameters()],
+            [t.clone() for slot in opt.SLOTS for t in getattr(opt, slot)],
+            (opt.count, engine.global_steps, engine.global_samples,
+             engine.micro_steps))
+
+
+def same_state(a, b):
+    return (a[2] == b[2]
+            and all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1])))
+
+
+def tag_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, n))
+               for root, _, names in os.walk(path) for n in names)
+
+
+def phase_loop_resume(card):
+    """9a: 6 steps of the split convention (run A); run B takes 3, saves
+    asynchronously, trains on and waits; run C loads through ``latest``
+    and takes steps 4-6: bit-equal to A. A load without the optimizer
+    states (D) is the control that must differ."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.models import GPT2_PRESETS
+    log("phase 9a: GPT-2 125M trained through initialize(training_data=...) "
+        "-> loss = engine(mb); engine.backward(loss); engine.step(), then "
+        f"saved at step {LOOP_SAVE_AT} and resumed (bf16, attention dropout "
+        f"0.1, micro 4 x gas 2 x {LOOP_SEQ} tokens, FusedAdam)")
+    data = loop_data(GPT2_PRESETS["gpt2-125m"].vocab_size)
+    counters = {k: v for k, v in _ds_counters().items()
+                if k.startswith("flash_attention") or k == "fused_adam"}
+    out = {}
+    template = loop_model()
+    tmp = tempfile.mkdtemp(prefix="ds_loop_")
+    try:
+        run_a, loader = loop_engine(template, data)
+        torch.cuda.synchronize()
+        reset_counters(counters)
+        full = split_steps(run_a, loader)           # one epoch: 6 steps
+        torch.cuda.synchronize()
+        counts = read_counters(counters)
+        per_attn = 12 * LOOP_CONFIG["gradient_accumulation_steps"]
+        want = {name: per_attn * LOOP_STEPS for name in counters}
+        want["fused_adam"] = LOOP_STEPS
+        log(f"  launches over run A's {LOOP_STEPS} steps: {counts} (want "
+            f"{want}: 12 layers x 2 microbatches x {LOOP_STEPS} steps; one "
+            "optimizer launch a step)")
+        if counts != want:
+            raise AssertionError("the forward/backward/step loop did not go "
+                                 "through every kernel of its path the "
+                                 "expected number of times")
+        ref = engine_state(run_a)
+        losses = [float(x) for x in full]
+        log("  run A microbatch losses: " + ", ".join(
+            f"{x:.4f}" for x in losses))
+        if not all(np.isfinite(losses)):
+            raise AssertionError("run A's losses are not finite")
+        del run_a
+
+        run_b, loader = loop_engine(template, data)
+        batches = iter(loader)
+        head = split_steps(run_b, itertools.islice(batches, LOOP_SAVE_AT))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = run_b.save_checkpoint(tmp, client_state={
+            "batches": LOOP_SAVE_AT}, async_save=True)
+        out["async_save_return_s"] = time.perf_counter() - t0
+        unpublished = not os.path.exists(os.path.join(tmp, "latest"))
+        tail = split_steps(run_b, batches)          # steps 4-6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_b.wait_checkpoint()
+        out["async_wait_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = tag_bytes(path)
+        b_equal = (all(torch.equal(x, y) for x, y in zip(full, head + tail))
+                   and same_state(ref, engine_state(run_b)))
+        t0 = time.perf_counter()
+        sync_path = run_b.save_checkpoint(tmp, tag="sync", save_latest=False)
+        out["sync_save_s"] = time.perf_counter() - t0
+        out["sync_bytes"] = tag_bytes(sync_path)
+        run_b.destroy()
+        del run_b
+        log(f"  run B: async save of {os.path.basename(path)} returned in "
+            f"{out['async_save_return_s']:.3f} s (latest unpublished until "
+            f"wait_checkpoint: {unpublished}), wait after 3 more steps "
+            f"{out['async_wait_s']:.3f} s, {out['checkpoint_bytes']} bytes; "
+            f"a sync save {out['sync_save_s']:.3f} s, {out['sync_bytes']} "
+            f"bytes; B's 6 steps bit-equal to A's: {b_equal} [{card}]")
+        if not unpublished:
+            raise AssertionError("latest was published before the async "
+                                 "save was waited for")
+
+        run_c, loader = loop_engine(template, data)
+        t0 = time.perf_counter()
+        loaded, client = run_c.load_checkpoint(tmp)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        # the batches the checkpoint's client state says were consumed
+        rest = split_steps(run_c, itertools.islice(
+            iter(loader), client["batches"], None))
+        n = LOOP_SAVE_AT * LOOP_CONFIG["gradient_accumulation_steps"]
+        resumed = (all(torch.equal(x, y) for x, y in zip(full[n:], rest))
+                   and same_state(ref, engine_state(run_c)))
+        t0 = time.perf_counter()
+        export = run_c.save_16bit_model(tmp)
+        out["export_s"] = time.perf_counter() - t0
+        out["export_bytes"] = os.path.getsize(export)
+        del run_c
+
+        run_d, loader = loop_engine(template, data)
+        run_d.load_checkpoint(tmp, load_optimizer_states=False)
+        control = split_steps(run_d, itertools.islice(
+            iter(loader), LOOP_SAVE_AT, None))
+        control_equal = (all(torch.equal(x, y)
+                             for x, y in zip(full[n:], control))
+                         and same_state(ref, engine_state(run_d)))
+        del run_d
+        log(f"  run C: loaded {os.path.basename(loaded)} through latest in "
+            f"{out['load_s']:.3f} s; steps {LOOP_SAVE_AT + 1}-{LOOP_STEPS} "
+            f"losses {[round(float(x), 4) for x in rest]}; losses, "
+            f"parameters and Adam moments bit-equal to run A's: {resumed} "
+            f"{'ok' if resumed else 'FAIL'}")
+        log(f"  control, loaded with load_optimizer_states=False: bit-equal "
+            f"to run A's: {control_equal} (must be False) "
+            f"{'ok' if not control_equal else 'FAIL'}; max loss gap "
+            f"{max(abs(float(x) - float(y)) for x, y in zip(full[n:], control)):.3e}")
+        log(f"  16-bit export (flax msgpack, bf16): {out['export_bytes']} "
+            f"bytes in {out['export_s']:.3f} s [{card}]")
+        if not resumed:
+            raise AssertionError("the resumed run did not continue the "
+                                 "uninterrupted one bit for bit")
+        if control_equal:
+            raise AssertionError("the control resume without the optimizer "
+                                 "states matched: the gate cannot fail")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_loop_conventions(card, blocks=2, steps=4):
+    """9b: dropout off, train_batch against forward/backward/step on the
+    same batches: bit-equal after 2 steps; then the step wall ms of each
+    in turns (train_batch, split, split, train_batch per block)."""
+    from deepspeed_tpu_torch.models import GPT2_PRESETS
+    log("phase 9b: train_batch against forward/backward/step (bf16, dropout "
+        f"off, micro 4 x gas 2 x {LOOP_SEQ} tokens)")
+    data = loop_data(GPT2_PRESETS["gpt2-125m"].vocab_size, seed=SEED + 1)
+    template = loop_model(rate=0.0)
+    fused, loader = loop_engine(template, data)
+    split, _ = loop_engine(template, data)
+    del template
+    batches = list(loader)
+    micro = LOOP_CONFIG["train_micro_batch_size_per_gpu"]
+
+    def split_step(batch):
+        total = torch.zeros((), device=split.device)
+        for g in range(LOOP_CONFIG["gradient_accumulation_steps"]):
+            loss = split({n: v[g * micro:(g + 1) * micro]
+                          for n, v in batch.items()})
+            split.backward(loss)
+            split.step()
+            total += loss.detach()
+        return total / LOOP_CONFIG["gradient_accumulation_steps"]
+
+    pairs = [(fused.train_batch(b), split_step(b)) for b in batches[:2]]
+    equal = (all(torch.equal(a, b) for a, b in pairs)
+             and same_state(engine_state(fused), engine_state(split)))
+    log(f"  losses train_batch {[float(a) for a, _ in pairs]}, "
+        f"forward/backward/step {[float(b) for _, b in pairs]}; after 2 "
+        f"steps losses, parameters and Adam moments bit-equal: {equal} "
+        f"{'ok' if equal else 'FAIL'}")
+    if not equal:
+        raise AssertionError("the two calling conventions disagree with "
+                             "dropout off")
+
+    def timed(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(steps):
+            step(batches[k % len(batches)])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    walls = {"train_batch": [], "split": []}
+    fused.train_batch(batches[2]), split_step(batches[2])       # warm
+    for _ in range(blocks):
+        walls["train_batch"].append(timed(fused.train_batch))
+        walls["split"].append(timed(split_step))
+        walls["split"].append(timed(split_step))
+        walls["train_batch"].append(timed(fused.train_batch))
+    ms = {k: float(np.median(v)) for k, v in walls.items()}
+    log(f"  step wall ms (median of {2 * blocks} runs of {steps} steps, each "
+        f"ending in a synchronize): train_batch {ms['train_batch']:.2f} "
+        f"{[round(x, 2) for x in walls['train_batch']]}, forward/backward/"
+        f"step {ms['split']:.2f} {[round(x, 2) for x in walls['split']]} "
+        f"({ms['split'] / ms['train_batch']:.3f}x) [{card}]")
+    del fused, split
+    torch.cuda.empty_cache()
+    return ms
+
+
+ADAGRAD_SGD_TOL = 1e-3   # of the largest parameter move (phase 9c)
+
+
+def phase_adagrad_sgd_parity(card):
+    """9c: Adagrad and SGD, card against CPU in fp32 (GPT-2 125M, 2 x 2
+    sequences of 128 tokens, 2 steps, clip 1.0): the loss of each step
+    within 1e-4; every parameter within ADAGRAD_SGD_TOL of the largest
+    move any parameter made. Both updates are Lipschitz in the gradient
+    (SGD linear, Adagrad within 1/sqrt(0.1) of it), so fp32 gradients
+    that agree to ~1e-5 of their scale move parameters alike to ~1e-5 of
+    the largest move; 1e-3 leaves a 100x margin."""
+    from deepspeed_tpu_torch.models import GPT2_PRESETS
+    log("phase 9c: Adagrad and SGD (momentum 0.9, Nesterov), card against "
+        "CPU (fp32, GPT-2 125M, 4 x 128 tokens, 2 steps)")
+    vocab = GPT2_PRESETS["gpt2-125m"].vocab_size
+    rs = np.random.RandomState(SEED + 21)
+    data = {"input_ids": rs.randint(0, vocab, size=(8, 128))
+            .astype(np.int32)}
+    template = loop_model(rate=0.0, dtype=torch.float32)
+    for opt, params in (("Adagrad", {"lr": 1e-2}),
+                        ("SGD", {"lr": 0.5, "momentum": 0.9,
+                                 "nesterov": True})):
+        config = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+                  "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+                  "optimizer": {"type": opt, "params": params}}
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            engine, loader = loop_engine(template, data, config=config,
+                                         device=dev)
+            p0 = [p.detach().cpu().clone() for p in engine.module.parameters()]
+            losses = [float(engine.train_batch(b)) for b in loader]
+            runs[dev] = (losses, [p.detach().cpu() for p in
+                                  engine.module.parameters()], p0)
+            del engine
+        loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0],
+                                                  runs["cpu"][0]))
+        gap = max((a - b).abs().max().item()
+                  for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
+        move = max((a - b).abs().max().item()
+                   for a, b in zip(runs["cpu"][1], runs["cpu"][2]))
+        ok = (len(runs["cpu"][0]) == 2 and loss_err <= 1e-4
+              and gap <= ADAGRAD_SGD_TOL * move)
+        log(f"  {opt}: losses card {runs['cuda'][0]} cpu {runs['cpu'][0]} "
+            f"(max diff {loss_err:.3e}, tol 1e-4); parameters max diff "
+            f"{gap:.3e} against the largest move {move:.3e} (tol "
+            f"{ADAGRAD_SGD_TOL:.0e} x move = {ADAGRAD_SGD_TOL * move:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{opt} on the card and on the CPU disagree")
+    torch.cuda.empty_cache()
+
+
+def phase_loop(card):
+    """Phase 9; returns 9a's launch counts and logs its figures (and each
+    part's wall seconds) as one JSON line."""
+    t0 = time.perf_counter()
+    counts, figures = phase_loop_resume(card)
+    t1 = time.perf_counter()
+    walls = phase_loop_conventions(card)
+    t2 = time.perf_counter()
+    phase_adagrad_sgd_parity(card)
+    t3 = time.perf_counter()
+    figures.update({f"{k}_step_ms": v for k, v in walls.items()})
+    figures.update({"9a_s": t1 - t0, "9b_s": t2 - t1, "9c_s": t3 - t2})
+    log("  phase 9 figures: " + json.dumps({**figures, "card": card}))
+    return counts
+
+
+# --------------------------------------------------------------------------
 # planted faults: each edits a copy of the kernel sources and must fail
 # ``--checks-only`` there
 # --------------------------------------------------------------------------
@@ -3526,6 +3886,10 @@ def main():
         phase_ds_bert_parity()
         log("phase 8c passed (--8c-only: no other phase, no result)")
         return 0
+    if "--loop-only" in sys.argv[1:]:
+        phase_loop(card)
+        log("phase 9 passed (--loop-only: no other phase, no result)")
+        return 0
     if "--7a-only" in sys.argv[1:]:
         set_gemm_flags(defaults)
         phase_sparse_bert_bf16(card)
@@ -3687,6 +4051,10 @@ def main():
     set_gemm_flags((False, False, False))
     phase_ds_bert_parity()
 
+    log("phase 9: GPT-2 125M through the engine's own loop, checkpoints, "
+        "the dataloader, Adagrad and SGD")
+    loop_counts = phase_loop(card)
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -3694,6 +4062,8 @@ def main():
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq", "fused_adam"):
         train_t[name]["launches"] = train_counts[name]
+        # and 9a's run A (forward/backward/step, micro 4 x gas 2)
+        train_t[name]["loop_launches"] = loop_counts[name]
     # the flash kernels at phase 8's shape: 8a's launches; the fp32
     # kernels at GPT-2's training shape: 5b's (the card's fp32 run)
     for name in ("flash_attention", "flash_attention_bwd_dkv",
@@ -3812,6 +4182,8 @@ def main():
                if key in t},
             **({"apply_launches": t["apply_launches"]}
                if "apply_launches" in t else {}),
+            **({"loop_launches": t["loop_launches"]}
+               if "loop_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}
                if "fake_quantize_ms" in t else {})})
     print(card)

@@ -18,9 +18,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                config_params=None, *, loss_fn=None, seed: int = 42,
                device=None):
     """Create a training engine (counterpart of
-    ``deepspeed_tpu.initialize``). Returns (engine, optimizer, None,
-    lr_schedule) like the JAX package; the dataloader slot is None until
-    the dataloader slice lands.
+    ``deepspeed_tpu.initialize``). Returns (engine, optimizer, dataloader,
+    lr_schedule) like the JAX package; the dataloader is None without
+    ``training_data``.
 
     model: a ``torch.nn.Module`` with fp32 parameters (``models.GPT``);
     model_parameters: optional state dict loaded into it first (e.g.
@@ -28,13 +28,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``runtime.config.DeepSpeedConfig`` (or ``config_params``, or
     ``args.deepspeed_config``); loss_fn(model, batch, rng, train) -> loss;
     seed: the dropout seed (``PRNGKey(seed)``'s words); device: None
-    means CUDA (raises without a card), "cpu" runs the plain versions.
+    means CUDA (raises without a card), "cpu" runs the plain versions;
+    training_data (a dict of arrays, a sequence of examples or a
+    ``__getitem__`` dataset) and collate_fn: the dataloader, global
+    batches of ``train_batch_size`` rows in the JAX package's order
+    (``runtime.dataloader``), prepared on a background thread.
     """
     from .runtime.engine import DeepSpeedEngine
-    if training_data is not None or collate_fn is not None:
-        raise NotImplementedError(
-            "initialize(training_data=...) comes with the dataloader slice "
-            "of the port; pass batches to engine.train_batch")
     if mpu is not None:
         raise NotImplementedError(
             "initialize(mpu=...) comes with the multi-GPU slice of the port")
@@ -51,7 +51,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              loss_fn=loss_fn, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, seed=seed,
                              device=device)
-    return engine, engine.optimizer, None, engine.lr_schedule
+    dataloader = None
+    if training_data is not None:
+        from .runtime.dataloader import DeepSpeedDataLoader, PrefetchingLoader
+        dataloader = PrefetchingLoader(DeepSpeedDataLoader(
+            training_data, batch_size=engine.config.train_batch_size,
+            collate_fn=collate_fn))
+    return engine, engine.optimizer, dataloader, engine.lr_schedule
 
 
 def init_inference(model=None, **kwargs):

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..inference.cache import PagedView
@@ -131,11 +132,14 @@ class GPT(nn.Module):
         forward, needed in training mode when attention dropout is on."""
         cfg = self.config
         s = input_ids.shape[1]
-        h = self.wte[input_ids].to(cfg.dtype)
+        # F.embedding, not wte[input_ids]: indexing's backward on the CPU
+        # accumulates repeated ids from several threads in no fixed order,
+        # and a resumed run must repeat the uninterrupted one bit for bit
+        h = F.embedding(input_ids, self.wte).to(cfg.dtype)
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)
         if self.wpe is not None:
-            h = h + self.wpe[positions].to(cfg.dtype)
+            h = h + F.embedding(positions, self.wpe).to(cfg.dtype)
         if self.emb_ln is not None:
             h = self.emb_ln(h)
         mask = (attention_mask[:, None, None, :].bool()

@@ -55,6 +55,8 @@ class FusedAdamState:
     accumulated into; they, like the parameters, must keep their storage
     for the life of the state (checked at every step)."""
 
+    SLOTS = ("exp_avg", "exp_avg_sq")     # the moments a checkpoint holds
+
     def __init__(self, params, grads):
         self.params, self.grads = list(params), list(grads)
         for p, g in zip(self.params, self.grads, strict=True):

@@ -59,6 +59,8 @@ class FusedLambState:
     parameters, must keep their storage for the life of the state
     (checked at every step)."""
 
+    SLOTS = ("exp_avg", "exp_avg_sq")     # the moments a checkpoint holds
+
     def __init__(self, params, grads):
         self.params, self.grads = list(params), list(grads)
         for p, g in zip(self.params, self.grads, strict=True):

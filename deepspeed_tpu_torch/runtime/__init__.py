@@ -1,2 +1,3 @@
 """Training runtime of the port (counterpart of ``deepspeed_tpu/runtime``):
-config, LR schedules, optimizers and the engine."""
+config, LR schedules, optimizers, the engine, its checkpoints and the
+dataloader."""

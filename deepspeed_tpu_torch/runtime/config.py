@@ -128,7 +128,6 @@ LATER_SLICES = {
                 "init_inference(...).serve(config), not initialize()"),
     "elasticity": (lambda b: bool(b), "the multi-GPU slice (elasticity)"),
     "autotuning": (lambda b: bool(b), "the autotuning slice"),
-    "checkpoint": (lambda b: bool(b), "the checkpointing slice"),
     "communication_data_type": (lambda b: b is not None,
                                 "the multi-GPU slice"),
     "validate_sharding": (bool, "the multi-GPU slice"),
@@ -147,6 +146,9 @@ NO_EFFECT = {
     "gradient_predivide_factor": "one card reduces no gradients",
     "zero_allow_untested_optimizer": "ZeRO stage 1 on one card "
                                      "partitions nothing",
+    "checkpoint": "the JAX config stores the block and nothing reads it; "
+                  "engine.save_checkpoint and load_checkpoint take their "
+                  "arguments",
 }
 
 

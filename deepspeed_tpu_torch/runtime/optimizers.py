@@ -19,14 +19,23 @@ kernels (``ops.fused_lamb``); what differs is host arithmetic:
   rate of step t is ``schedule(t - 1)`` and eps defaults to 1e-8
   (``_adam_args``). Weight decay covers every tensor.
 
+- ``Adagrad`` and ``SGD`` are optax's ``adagrad`` (accumulator starting
+  at 0.1, eps 1e-10 unless the config says otherwise) and ``sgd`` (a
+  momentum trace even at momentum 0, optionally Nesterov) there
+  (optimizers.py:91-97). optax computes them in jnp with no Pallas
+  kernel, so here they are plain ``torch._foreach_*`` updates in optax's
+  order of operations; the learning rate of step t is ``schedule(t - 1)``.
+
 Gradient clipping is optax's ``clip_by_global_norm``, folded into the
-same kernels: the engine hands the step the global grad norm on the
-device. Adagrad, SGD and the 1-bit optimizers come with later slices.
+same kernels (and into the plain updates of Adagrad and SGD): the engine
+hands the step the global grad norm on the device. The 1-bit optimizers
+come with the multi-GPU slice.
 """
 
 from typing import Callable, Optional, Union
 
 import numpy as np
+import torch
 
 from ..ops.fused_adam import AdamScalars, FusedAdamState, fused_adam
 from ..ops.fused_lamb import FusedLambState, LambScalars, fused_lamb
@@ -37,27 +46,23 @@ FUSED_ADAM = "fusedadam"
 CPU_ADAM = "cpuadam"
 LAMB_OPTIMIZER = "lamb"
 FUSED_LAMB = "fusedlamb"
+ADAGRAD_OPTIMIZER = "adagrad"
+SGD_OPTIMIZER = "sgd"
 LATER = {
     "onebitadam": "the multi-GPU slice (compressed communication)",
     "onebitlamb": "the multi-GPU slice (compressed communication)",
     "zerooneadam": "the multi-GPU slice (compressed communication)",
-    "adagrad": "a later optimizer slice",
-    "sgd": "a later optimizer slice",
 }
 
 
-class FusedOptimizer:
-    """What the fused optimizers share: the learning rate (a float or a
-    schedule step -> lr), the betas, eps, weight decay and the schedule
-    index of step t, t (``one_based``, the JAX package's fused kernels)
-    or t - 1 (optax)."""
+class Optimizer:
+    """What every optimizer of the registry shares: the learning rate (a
+    float or a schedule step -> lr) and the schedule index of step t, t
+    (``one_based``, the JAX package's fused kernels) or t - 1 (optax)."""
 
     def __init__(self, learning_rate: Union[float, Callable] = 1e-3,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, one_based: bool = True):
+                 one_based: bool = True):
         self.learning_rate = learning_rate
-        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
-        self.weight_decay = float(weight_decay)
         self.one_based = one_based
 
     def lr_at(self, count: int) -> float:
@@ -66,6 +71,17 @@ class FusedOptimizer:
             return float(self.learning_rate)
         return float(self.learning_rate(count if self.one_based
                                         else count - 1))
+
+
+class FusedOptimizer(Optimizer):
+    """The fused kernels' optimizers: betas, eps and weight decay too."""
+
+    def __init__(self, learning_rate: Union[float, Callable] = 1e-3,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0, one_based: bool = True):
+        super().__init__(learning_rate, one_based)
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.weight_decay = float(weight_decay)
 
     def bias_corrections(self, count: int):
         """c1 = 1/(1 - b1^t), c2 = 1/(1 - b2^t) in fp32, as the JAX
@@ -132,9 +148,84 @@ class Lamb(FusedOptimizer):
         fused_lamb(state, self.scalars(state.count), grad_norm, max_norm)
 
 
+class SlotState:
+    """Per-parameter slots of a plain optimizer (``SLOTS`` names them, each
+    a list of tensors like the parameters, filled with its initial value)
+    and the step count. ``grads`` are the engine's gradient buffers."""
+
+    def __init__(self, params, grads, slots: dict):
+        self.params, self.grads = list(params), list(grads)
+        self.SLOTS = tuple(slots)
+        for name, fill in slots.items():
+            setattr(self, name, [torch.full_like(p, fill)
+                                 for p in self.params])
+        self.count = 0          # optimizer steps taken
+
+
+def _clipped(grads, grad_norm, max_norm):
+    """optax's ``clip_by_global_norm``: g where norm < max_norm, else
+    g / norm * max_norm (the fused kernels' formula)."""
+    if grad_norm is None:
+        return grads
+    keep = grad_norm < max_norm
+    return [torch.where(keep, g, g / grad_norm * max_norm) for g in grads]
+
+
+class Adagrad(Optimizer):
+    """optax's ``adagrad``: s += g², p -= lr g / sqrt(s + eps) (0 where
+    s = 0), s starting at ``initial_accumulator_value``."""
+
+    def __init__(self, learning_rate: Union[float, Callable] = 1e-3,
+                 eps: float = 1e-10, initial_accumulator_value: float = 0.1):
+        super().__init__(learning_rate, one_based=False)
+        self.eps = float(eps)
+        self.initial_accumulator_value = float(initial_accumulator_value)
+
+    def init(self, params, grads) -> SlotState:
+        return SlotState(params, grads, {
+            "sum_of_squares": self.initial_accumulator_value})
+
+    @torch.no_grad()
+    def step(self, state: SlotState, grad_norm=None, max_norm: float = 0.0):
+        state.count += 1
+        g = _clipped(state.grads, grad_norm, max_norm)
+        torch._foreach_add_(state.sum_of_squares, torch._foreach_mul(g, g))
+        inv = [torch.where(s > 0, torch.rsqrt(s + self.eps), 0.0)
+               for s in state.sum_of_squares]
+        torch._foreach_add_(state.params, torch._foreach_mul(
+            torch._foreach_mul(inv, g), -self.lr_at(state.count)))
+
+
+class SGD(Optimizer):
+    """optax's ``sgd``: trace = g + momentum trace; the update is the
+    trace, or g + momentum trace with ``nesterov``; p -= lr update."""
+
+    def __init__(self, learning_rate: Union[float, Callable] = 1e-3,
+                 momentum: float = 0.0, nesterov: bool = False):
+        super().__init__(learning_rate, one_based=False)
+        self.momentum = float(momentum)
+        self.nesterov = bool(nesterov)
+
+    def init(self, params, grads) -> SlotState:
+        return SlotState(params, grads, {"trace": 0.0})
+
+    @torch.no_grad()
+    def step(self, state: SlotState, grad_norm=None, max_norm: float = 0.0):
+        state.count += 1
+        g = _clipped(state.grads, grad_norm, max_norm)
+        torch._foreach_mul_(state.trace, self.momentum)
+        torch._foreach_add_(state.trace, g)
+        update = state.trace
+        if self.nesterov:
+            update = torch._foreach_add(
+                g, torch._foreach_mul(state.trace, self.momentum))
+        torch._foreach_add_(state.params, torch._foreach_mul(
+            update, -self.lr_at(state.count)))
+
+
 def build_optimizer(opt_type: str, params: dict,
                     lr_schedule: Optional[Union[float, Callable]] = None
-                    ) -> FusedOptimizer:
+                    ) -> Optimizer:
     """The optimizer of a config ``optimizer`` block; ``lr_schedule``
     overrides params["lr"] when given (the engine wires the scheduler
     block here)."""
@@ -154,8 +245,13 @@ def build_optimizer(opt_type: str, params: dict,
         return Lamb(lr, b1, b2, params.get("eps", 1e-6), wd, one_based=True)
     if name == LAMB_OPTIMIZER:
         return Lamb(lr, one_based=False, **kw)
+    if name == ADAGRAD_OPTIMIZER:
+        return Adagrad(lr, eps=params.get("eps", 1e-10))
+    if name == SGD_OPTIMIZER:
+        return SGD(lr, momentum=params.get("momentum", 0.0),
+                   nesterov=params.get("nesterov", False))
     if name in LATER:
         raise NotImplementedError(
             f"optimizer {opt_type!r} comes with {LATER[name]} of the port")
     raise ValueError(f"Unknown optimizer type '{opt_type}' (valid: "
-                     f"{[ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM, CPU_ADAM, LAMB_OPTIMIZER, FUSED_LAMB, *LATER]})")
+                     f"{[ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM, CPU_ADAM, LAMB_OPTIMIZER, FUSED_LAMB, ADAGRAD_OPTIMIZER, SGD_OPTIMIZER, *LATER]})")

@@ -71,6 +71,18 @@ def test_importing_the_port_loads_no_jax():
     assert res.returncode == 0, res.stderr[-2000:]
 
 
+def test_the_checks_cover_the_checkpoint_and_dataloader_modules():
+    """The two checks above walk every file and module of the package:
+    the engine-loop slice's stdlib copies of JAX modules are among them."""
+    mods = {m.name for m in pkgutil.walk_packages(
+        deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")}
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("runtime/dataloader", "runtime/checkpointing",
+                 "runtime/resilience/manifest", "runtime/serialization"):
+        assert "deepspeed_tpu_torch." + name.replace("/", ".") in mods
+        assert name + ".py" in files
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")

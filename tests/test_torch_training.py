@@ -151,9 +151,12 @@ def test_clipping_is_optax_clip_by_global_norm(scale):
 
 
 def test_later_optimizers_raise():
-    for name in ("OneBitLamb", "OneBitAdam", "SGD", "Adagrad"):
+    for name in ("OneBitLamb", "OneBitAdam"):
         with pytest.raises(NotImplementedError, match="slice"):
             build_optimizer(name, {})
+    # Adagrad and SGD build since the engine-loop slice
+    for name in ("SGD", "Adagrad"):
+        assert type(build_optimizer(name, {})).__name__ == name
     with pytest.raises(ValueError, match="Unknown"):
         build_optimizer("Nope", {})
 
@@ -250,6 +253,7 @@ def test_config_later_slice_blocks_raise(block, match):
     ({"zero_optimization": {"stage": 1, "overlap_comm": True}},
      "zero_optimization.overlap_comm"),
     ({"fp16": {"enabled": False, "loss_scale": 128.0}}, "fp16.loss_scale"),
+    ({"checkpoint": {"tag_validation": "Warn"}}, "nothing reads it"),
 ])
 def test_config_keys_without_effect_warn(block, match, caplog):
     with caplog.at_level("WARNING", logger="deepspeed_tpu_torch"):
@@ -375,9 +379,11 @@ def test_initialize_runs_on_cuda_unless_asked():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ds.initialize(model=model, config=_engine_config(8),
                       loss_fn=_port_loss)
-    with pytest.raises(NotImplementedError, match="dataloader"):
-        ds.initialize(model=model, config=_engine_config(8),
-                      loss_fn=_port_loss, training_data=[1], device="cpu")
+    # training_data gives the dataloader since the engine-loop slice
+    _, _, loader, _ = ds.initialize(
+        model=model, config=_engine_config(8), loss_fn=_port_loss,
+        training_data=[np.zeros(SEQ, np.int32)] * 16, device="cpu")
+    assert len(loader) == 1 and next(iter(loader)).shape == (16, SEQ)
     with pytest.raises(ValueError, match="train_batch_size"):
         _port_engine(model.state_dict()).train_batch(
             {"input_ids": np.zeros((4, SEQ), np.int32)})
