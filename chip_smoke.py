@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--profile | --checks-only | --8c-only |
-                           --7a-only | --loop-only | --serving-only |
+                           --7a-only | --loop-only | --fp16-only |
+                           --serving-only |
                            --serving-timing [dir] | --decode-timing [dir] |
                            --serving-ab dir | --chunk-sweep |
                            --planted-faults [name]]
@@ -138,13 +139,38 @@ Phases, each fatal on failure:
    (momentum 0.9, Nesterov), fp32 at 4 x 128 tokens, card against CPU
    over 2 steps: losses within 1e-4, parameters within
    ``ADAGRAD_SGD_TOL`` of the largest parameter move. Checkpoints go to
-   a ``tempfile`` directory deleted at the end of the phase.
+   a ``tempfile`` directory deleted at the end of the phase;
+10. the one-card training modes: (a) GPT-2 125M in fp16 (fp32 masters,
+   FusedAdam, attention dropout 0.1, micro 8 x gas 2 x 1024 tokens,
+   ``gpt_chunked_loss_fn`` at chunk 256, dynamic loss scale from 2**26 so
+   the first steps overflow and are skipped), 8 steps three ways: no
+   remat, ``activation_checkpointing`` ``full`` and ``attn_out``. Gates:
+   finite losses; the (scale, growth, overflows, hysteresis) trajectory
+   equal to a host replay of ``update_scale`` fed the card's own finite
+   flags; the remat runs' losses, last gradients and parameters bit-equal
+   to the run without; exact launch counts (the flash forward twice a
+   layer and microbatch under ``full``, once otherwise; one Adam launch a
+   step taken); peak device memory lower under ``full`` than without, and
+   lower with the chunked loss than with ``gpt_loss_fn`` over full logits;
+   step ms and peak bytes printed, and the host read of the finite flag.
+   (b) an fp16 save at step 3 and a resume through ``latest``: losses,
+   loss scale, skips and parameters bit-equal to (a)'s uninterrupted run.
+   (c) BERT-base in bf16 with bf16 gradient accumulation, progressive
+   layer drop and FusedLamb (128 tokens, micro 32 x gas 4, 8 steps) and
+   GPT-2 125M in bf16 with bf16 accumulation and FusedAdam (4 steps):
+   finite losses, exact launch counts of the bf16-gradient kernels, the
+   gradient-buffer bytes saved; then GPT-2 fp32 with bf16 accumulation,
+   card against CPU (4 x 128 tokens, 2 steps): losses within 1e-4,
+   parameters within 4 lr. Phase 3 holds the fp16 flash kernels (the
+   training grid and GPT-2's shape; fp16 ``Gate``) and Adam and LAMB over
+   bf16 gradients against their plain versions first, and times them at
+   10a's and 10c's shapes.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result);
 ``--7a-only`` phase 7a likewise, ``--loop-only`` phase 9,
-``--serving-only`` phases 4b and 6b.
+``--fp16-only`` phase 10, ``--serving-only`` phases 4b and 6b.
 ``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
 with this checkout's decode and paged ops and with those of the checkout
 ``dir`` in turns (no result).
@@ -155,10 +181,12 @@ it on copies built with each split-KV chunk width of ``SWEEP_CHUNKS``.
 prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (thirty-one faults),
+``--planted-faults [name]`` runs ``--checks-only`` (thirty-five faults),
 ``--8c-only`` (two) or ``--7a-only`` (one) in copies of the checkout,
 each with one kernel fault planted (``PLANTED_FAULTS``; only those
-whose source file name contains ``name``, when given), and fails unless
+whose source file name or description contains ``name``, when given;
+``instance:`` picks the four of the fp16 and bf16-gradient instances),
+and fails unless
 every copy fails; it
 prints no result line either. 8c also reads the step-1 gradient of the
 1-D element that differs most between card and CPU.
@@ -183,18 +211,21 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16/fp16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12      # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 # max |out - ref| over max(1, max |ref|): fp32 at FMA order; bf16 at a few
 # output ulps, which catches a wrong tile or element but not a misplaced
 # rounding (that moves every element by under one ulp)
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# fp16: ~2 output ulps at 2^-10 (H100 readings of the fp16 flash kernels
+# over the training grid: max_rel <= 9.6e-4)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 # bf16 also: rms(out - ref) / rms(ref). The kernels round where their plain
 # versions do, so only sparse one-ulp flips differ; a rounding step that is
 # missing or misplaced moves every element, and reads far above this
-BF16_RMS_TOL = 5e-4
+# (5e-4); fp16 likewise, 8x finer ulps (H100 readings: rms_rel <= 8.4e-5)
+RMS_TOL = {torch.bfloat16: 5e-4, torch.float16: 2.5e-4}
 ADAM_TOL = 1e-5   # fused Adam, relative to max(1, max |ref|): FMA contraction
 # near tie: stop comparing a request at a step whose reference top-2 logit
 # gap is below this (in bf16, where a logit's ulp is ~0.03, only exact ties)
@@ -685,7 +716,8 @@ def _rms_err(out, ref):
 
 class Gate:
     """The agreement of one kernel with its plain version over a grid of
-    cases: max_rel against TOL and, in bf16, rms_rel against BF16_RMS_TOL.
+    cases: max_rel against TOL and, in bf16 and fp16, rms_rel against
+    RMS_TOL.
     Every case runs; a failing case is logged, and ``close`` raises after
     the grid with the worst reading of each metric per dtype."""
 
@@ -698,9 +730,10 @@ class Gate:
         max_rel reading (the LSE). Returns True when the case passes."""
         max_rel = max([_rel_err(o, r) for o, r in zip(outs, refs)] + [extra])
         rms_rel = (max(_rms_err(o, r) for o, r in zip(outs, refs))
-                   if dtype == torch.bfloat16 else 0.0)
+                   if dtype in RMS_TOL else 0.0)
         ok = (all(bool(torch.isfinite(o).all()) for o in outs)
-              and max_rel <= self.tol[dtype] and rms_rel <= BF16_RMS_TOL)
+              and max_rel <= self.tol[dtype]
+              and rms_rel <= RMS_TOL.get(dtype, 0.0))
         w = self.worst.setdefault(str(dtype)[6:], [0.0, 0.0])
         w[0], w[1] = max(w[0], max_rel), max(w[1], rms_rel)
         self.n += 1
@@ -716,8 +749,10 @@ class Gate:
                           for k, v in self.worst.items())
         log(f"  {self.what}: {self.n - self.failed}/{self.n} cases ok; worst "
             f"{worst} (tol max_rel fp32 {self.tol[torch.float32]:.0e}, bf16 "
-            f"{self.tol[torch.bfloat16]:.0e}; rms_rel bf16 "
-            f"{BF16_RMS_TOL:.0e})")
+            f"{self.tol[torch.bfloat16]:.0e}, fp16 "
+            f"{self.tol[torch.float16]:.0e}; rms_rel bf16 "
+            f"{RMS_TOL[torch.bfloat16]:.0e}, fp16 "
+            f"{RMS_TOL[torch.float16]:.1e})")
         if self.failed:
             raise AssertionError(f"{self.what}: {self.failed} of {self.n} "
                                  "cases disagree with the plain version")
@@ -732,7 +767,7 @@ def check_flash_dropout(dev, gen, sizes=(128, 1024)):
         _bias_operand, flash_attention_fwd, flash_attention_reference)
     gate = Gate("flash+dropout")
     worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d in HEAD_DIMS:
             for s in sizes:
                 for name, b, bias in _train_cases(dev, s):
@@ -769,7 +804,7 @@ def check_flash_bwd(dev, gen, sizes=(128, 1024)):
         _bias_operand, flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd)
     gate = Gate("flash bwd")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d in HEAD_DIMS:
             for s in sizes:
                 for name, b, bias in _train_cases(dev, s):
@@ -799,7 +834,8 @@ def check_flash_train_shapes(dev, gen):
     """The bf16 forward and both backward kernels at the shapes phases 5a
     and 8a give them, grids several waves deep: GPT-2's micro batch (b 8,
     h 12, s 1024, causal) and phase 8's (b 64, h 16, s 128, padding
-    bias), dropout 0.1 and 0; the fp32 forward at both shapes too."""
+    bias), dropout 0.1 and 0; the fp32 forward at both shapes too, and the
+    fp16 kernels at GPT-2's (phase 10a's)."""
     from deepspeed_tpu_torch.ops.flash_attention import (
         Dropout, _bias_operand, flash_attention_bwd,
         flash_attention_bwd_reference, flash_attention_fwd,
@@ -831,6 +867,20 @@ def check_flash_train_shapes(dev, gen):
             torch.cuda.synchronize()
             gate.case(torch.float32, [o], [ro], label + " fp32 (o)",
                       show=True, extra=(lse - rlse).abs().max().item())
+            if padded:
+                continue
+            q16, k16, v16, do16 = (t.half() for t in (q, k, v, do))
+            o, lse = flash_attention_fwd(q16, k16, v16, None, **kw)
+            ro, _ = flash_attention_reference(q16, k16, v16, None, **kw)
+            grads = flash_attention_bwd(q16, k16, v16, o, lse, do16, None,
+                                        **kw)
+            refs = flash_attention_bwd_reference(q16, k16, v16, o, lse, do16,
+                                                 None, **kw)
+            torch.cuda.synchronize()
+            gate.case(torch.float16, [o], [ro], label + " fp16 (o)",
+                      show=True)
+            gate.case(torch.float16, grads, refs,
+                      label + " fp16 (dq, dk, dv)", show=True)
     gate.close()
 
 
@@ -842,15 +892,17 @@ def gpt2_param_shapes():
             for p in GPT(GPT2_PRESETS["gpt2-125m"]).parameters()]
 
 
-def _opt_state(shapes, dev, gen, lamb=False, zero=()):
+def _opt_state(shapes, dev, gen, lamb=False, zero=(),
+               grad_dtype=torch.float32):
     """A fused Adam (or LAMB) state of random tensors; the tensors at
-    ``zero`` are 0."""
+    ``zero`` are 0; gradient buffers of ``grad_dtype``."""
     from deepspeed_tpu_torch.ops.fused_adam import FusedAdamState
     from deepspeed_tpu_torch.ops.fused_lamb import FusedLambState
     params = [torch.randn(s, generator=gen, device=dev) for s in shapes]
     for i in zero:
         params[i].zero_()
-    grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    grads = [torch.randn(s, generator=gen, device=dev).to(grad_dtype)
+             for s in shapes]
     return (FusedLambState if lamb else FusedAdamState)(params, grads)
 
 
@@ -861,15 +913,21 @@ def _clone_state(st):
 
 def check_fused_adam(dev, gen):
     """The multi-tensor kernel against the plain update, 3 steps, both
-    sides of the clip threshold."""
+    sides of the clip threshold; its fp32- and bf16-gradient instances."""
     from deepspeed_tpu_torch.ops.fused_adam import fused_adam
     from deepspeed_tpu_torch.runtime.optimizers import Adam
     opt = Adam(lambda t: 6e-4 * min(1.0, t / 3), 0.9, 0.95, 1e-8, 0.1)
     tol = ADAM_TOL
-    for label, shapes in (("sizes 1,127,128,4097,768x3072",
-                           [(1,), (127,), (128,), (4097,), (768, 3072)]),
-                          ("GPT-2 125M parameter list", gpt2_param_shapes())):
-        st = _opt_state(shapes, dev, gen)
+    for label, shapes, gdt in (
+            ("sizes 1,127,128,4097,768x3072",
+             [(1,), (127,), (128,), (4097,), (768, 3072)], torch.float32),
+            ("GPT-2 125M parameter list", gpt2_param_shapes(),
+             torch.float32),
+            ("sizes 1,127,128,4097,768x3072, bf16 gradients",
+             [(1,), (127,), (128,), (4097,), (768, 3072)], torch.bfloat16),
+            ("GPT-2 125M parameter list, bf16 gradients",
+             gpt2_param_shapes(), torch.bfloat16)):
+        st = _opt_state(shapes, dev, gen, grad_dtype=gdt)
         ref = _clone_state(st)
         errs = []
         for step, norm in zip((1, 2, 3), (0.5, 2.0, 5.0)):
@@ -897,6 +955,7 @@ def check_fused_adam(dev, gen):
 # the flash kernels' products; the fp32 forward's design also names where
 # K and V are split into their tf32 halves
 FLASH_IMPL = {torch.bfloat16: "tensor-core bf16 (mma.sync)",
+              torch.float16: "tensor-core fp16 (mma.sync)",
               torch.float32: "3xTF32 tensor cores (mma.sync)"}
 FLASH_FWD_FP32_IMPL = ("3xTF32 tensor cores (mma.sync), K and V split once "
                        "a CTA, exp as ex2 of (x - m) log2 e")
@@ -984,7 +1043,7 @@ def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
     nbias = 0 if bias is None else bias.numel() * 4
     # fp32: 3xTF32 products, three TF32 products for each fp32 one (the
     # FMA bound beside it)
-    peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+    peak = (PEAK_BF16_FLOPS if dtype in (torch.bfloat16, torch.float16)
             else PEAK_TF32_FLOPS / 3)
     out = {}
     for name, products, nbytes, pl, lb in (
@@ -1015,37 +1074,45 @@ def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
     return out
 
 
-def time_fused_adam(dev, gen):
+def time_fused_adam(dev, gen, grad_dtype=torch.float32):
     """One step over the 124M GPT-2 parameters: the kernel, the plain
-    per-tensor update and torch.optim.AdamW(fused=True)."""
+    per-tensor update and torch.optim.AdamW(fused=True). With bf16
+    gradients the library call steps over the gradients widened to fp32
+    (it takes no bf16 gradient of an fp32 parameter)."""
     from deepspeed_tpu_torch.ops.fused_adam import fused_adam
     from deepspeed_tpu_torch.runtime.optimizers import Adam
     shapes = gpt2_param_shapes()
-    st = _opt_state(shapes, dev, gen)
+    st = _opt_state(shapes, dev, gen, grad_dtype=grad_dtype)
     opt = Adam(6e-4, 0.9, 0.95, 1e-8, 0.1)
     sc = opt.scalars(1)
     gnorm = torch.tensor(2.0, device=dev)
     kernel = gpu_ms(lambda: fused_adam(st, sc, gnorm, 1.0), iters=20)
-    plain_state = _opt_state(shapes, dev, gen)
+    plain_state = _opt_state(shapes, dev, gen, grad_dtype=grad_dtype)
     plain = gpu_ms(lambda: _plain_step(plain_state, sc, gnorm),
                    iters=5)
     del plain_state
     lib_params = [torch.nn.Parameter(p.clone()) for p in st.params]
     for p, g in zip(lib_params, st.grads):
-        p.grad = g.clone()
+        p.grad = g.float()
     lib_opt = torch.optim.AdamW(lib_params, lr=6e-4, betas=(0.9, 0.95),
                                 eps=1e-8, weight_decay=0.1, fused=True)
     library = gpu_ms(lib_opt.step, iters=20)
+    del lib_opt, lib_params
     n = sum(p.numel() for p in st.params)
-    bound, by = bound_ms(0, 28 * n, PEAK_BF16_FLOPS)
-    check = _opt_state(shapes[-3:], dev, gen)
+    # p, m, v read and written, g read once
+    gbytes = torch.empty((), dtype=grad_dtype).element_size()
+    bound, by = bound_ms(0, (24 + gbytes) * n, PEAK_BF16_FLOPS)
+    check = _opt_state(shapes[-3:], dev, gen, grad_dtype=grad_dtype)
     ref = _clone_state(check)
     fused_adam(check, sc, gnorm, 1.0)
     _plain_step(ref, sc, gnorm)
     err = max((a - b).abs().max().item()
               for a, b in zip(check.params, ref.params))
-    return dict(shape=f"{len(shapes)} tensors, {n} fp32 params",
-                ms=kernel, plain_ms=plain, library_ms=library,
+    shape = f"{len(shapes)} tensors, {n} fp32 params"
+    if grad_dtype == torch.bfloat16:
+        shape += (", bf16 gradients; library: AdamW(fused) over the "
+                  "gradients widened to fp32")
+    return dict(shape=shape, ms=kernel, plain_ms=plain, library_ms=library,
                 bound_ms=bound, bound_by=by, max_abs_err=err)
 
 
@@ -1393,8 +1460,10 @@ def check_fused_lamb(dev, gen):
              [(1,), (127,), (128,), (16385,), (768, 3072), (768,)], (5,)),
             ("BERT-base parameter list (+ a zero tensor)",
              bert_param_shapes() + [(768,)], (len(bert_param_shapes()),))):
-        for clip in (True, False):
-            st = _opt_state(shapes, dev, gen, lamb=True, zero=zero)
+        for clip, gdt in ((True, torch.float32), (False, torch.float32),
+                          (True, torch.bfloat16)):
+            st = _opt_state(shapes, dev, gen, lamb=True, zero=zero,
+                            grad_dtype=gdt)
             ref, again = _clone_state(st), _clone_state(st)
             for step, norm in zip((1, 2, 3), (0.5, 2.0, 5.0)):
                 gnorm = torch.tensor(norm, device=dev) if clip else None
@@ -1412,8 +1481,9 @@ def check_fused_lamb(dev, gen):
             ok = (max(errs) <= ADAM_TOL and same
                   and all(bool(torch.isfinite(p).all()) for p in st.params))
             n = sum(p.numel() for p in st.params)
-            log(f"fused_lamb {label} ({len(shapes)} tensors, {n} params, 3 "
-                f"steps, {'clip 1.0 at norms 0.5/2/5' if clip else 'no clip'}"
+            log(f"fused_lamb {label} ({len(shapes)} tensors, {n} params, "
+                f"{str(gdt)[6:]} gradients, 3 steps, "
+                f"{'clip 1.0 at norms 0.5/2/5' if clip else 'no clip'}"
                 f"): rel_err p={errs[0]:.2e} m={errs[1]:.2e} v={errs[2]:.2e} "
                 f"tol={ADAM_TOL:.0e}; two runs bit-equal {same} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -1566,32 +1636,36 @@ def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1,
     return out
 
 
-def time_fused_lamb(dev, gen):
+def time_fused_lamb(dev, gen, grad_dtype=torch.float32):
     """One step over the sparse slice's BERT-base parameters: both kernels
     (one launch each), and the plain per-tensor update. No PyTorch call
     computes LAMB: no library time."""
     from deepspeed_tpu_torch.ops import fused_lamb
     from deepspeed_tpu_torch.runtime.optimizers import Lamb
     shapes = bert_param_shapes()
-    st = _opt_state(shapes, dev, gen, lamb=True)
+    st = _opt_state(shapes, dev, gen, lamb=True, grad_dtype=grad_dtype)
     sc = Lamb(2e-3, 0.9, 0.999, 1e-6, 0.01).scalars(1)
     gnorm = torch.tensor(2.0, device=dev)
     kernel = gpu_ms(lambda: fused_lamb(st, sc, gnorm, 1.0), iters=20)
-    plain_state = _opt_state(shapes, dev, gen, lamb=True)
+    plain_state = _opt_state(shapes, dev, gen, lamb=True,
+                             grad_dtype=grad_dtype)
     plain = gpu_ms(lambda: _plain_step(plain_state, sc, gnorm), iters=5)
     del plain_state
     n = sum(p.numel() for p in st.params)
     # p, g, m, v read once, p, m, v written once
-    bound, by = bound_ms(0, 28 * n, PEAK_BF16_FLOPS)
-    check = _opt_state(shapes[:5], dev, gen, lamb=True)
+    gbytes = torch.empty((), dtype=grad_dtype).element_size()
+    bound, by = bound_ms(0, (24 + gbytes) * n, PEAK_BF16_FLOPS)
+    check = _opt_state(shapes[:5], dev, gen, lamb=True,
+                       grad_dtype=grad_dtype)
     ref = _clone_state(check)
     fused_lamb(check, sc, gnorm, 1.0)
     _plain_step(ref, sc, gnorm)
     err = max((a - b).abs().max().item()
               for a, b in zip(check.params, ref.params))
-    return dict(shape=f"{len(shapes)} tensors, {n} fp32 params, two launches "
-                "(phase 1 + apply); library: none, no PyTorch call computes "
-                "LAMB", ms=kernel, plain_ms=plain, library_ms=None,
+    return dict(shape=f"{len(shapes)} tensors, {n} fp32 params, "
+                f"{str(grad_dtype)[6:]} gradients, two launches (phase 1 + "
+                "apply); library: none, no PyTorch call computes LAMB",
+                ms=kernel, plain_ms=plain, library_ms=None,
                 bound_ms=bound, bound_by=by, max_abs_err=err)
 
 
@@ -3587,6 +3661,494 @@ def phase_loop(card):
 
 
 # --------------------------------------------------------------------------
+# phase 10: fp16 with dynamic loss scaling, activation checkpointing, the
+# chunked loss, bf16 gradient accumulation and progressive layer drop
+# --------------------------------------------------------------------------
+
+FP16_CONFIG = {
+    "train_batch_size": 16, "train_micro_batch_size_per_gpu": 8,
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "FusedAdam",
+                  "params": {"lr": 6e-4, "betas": [0.9, 0.95],
+                             "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR",
+                  "params": {"warmup_num_steps": 3, "warmup_max_lr": 6e-4}},
+    "gradient_clipping": 1.0,
+    # 2**26: the fp16 gradients of the first steps overflow (on the H100
+    # some of these batches' gradients overflow from 2**24 on; at 2**20
+    # three steps grew the scale cleanly); a window of 3 grows it back
+    # within the 8 steps, so the run spends and refills hysteresis
+    "fp16": {"enabled": True, "initial_scale_power": 26,
+             "loss_scale_window": 3, "hysteresis": 2,
+             "min_loss_scale": 1.0},
+}
+FP16_STEPS, FP16_SAVE_AT, FP16_CHUNK = 8, 3, 256
+FP16_REMAT = {"none": None, "full": {"remat_policy": "full"},
+              "attn_out": {"remat_policy": "attn_out"}}
+
+
+def fp16_data(vocab, seed=SEED):
+    """One seeded [16, 1025] batch a step: 1024 positions and their next
+    tokens, so the chunked loss takes 4 chunks of 256."""
+    rs = np.random.RandomState(seed + 30)
+    return [{"input_ids": rs.randint(0, vocab, size=(16, 1025))
+             .astype(np.int32)} for _ in range(FP16_STEPS)]
+
+
+def gpt_chunked_train_loss(model, batch, rng, train):
+    """loss_fn: next-token cross entropy through ``gpt_chunked_loss_fn``
+    (no [b, s, vocab] logits)."""
+    from deepspeed_tpu_torch.models import gpt_chunked_loss_fn
+    ids = batch["input_ids"].long()
+    hidden, wte = model(ids[:, :-1], dropout_seed=rng, return_hidden=True)
+    return gpt_chunked_loss_fn(hidden, wte, ids[:, 1:], FP16_CHUNK)
+
+
+def gpt_full_logits_loss(model, batch, rng, train):
+    """The same loss over the full [b, s, vocab] logits (``gpt_loss_fn``),
+    the chunked loss's memory yardstick."""
+    from deepspeed_tpu_torch.models import gpt_loss_fn
+    ids = batch["input_ids"].long()
+    return gpt_loss_fn(model(ids[:, :-1], dropout_seed=rng), ids[:, 1:])
+
+
+def _fp16_counters():
+    from deepspeed_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                                         fused_adam)
+    return {"flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd_dkv": (flash_attention_bwd, "dkv_launches"),
+            "flash_attention_bwd_dq": (flash_attention_bwd, "dq_launches"),
+            "fused_adam": (fused_adam, "launches"),
+            "fused_adam_bf16": (fused_adam, "bf16_launches")}
+
+
+def _scale_fields(engine):
+    s = engine.loss_scale_state
+    return (float(s.scale), int(s.growth_tracker), int(s.overflows),
+            int(s.hysteresis_left))
+
+
+def _bits(t):
+    """A tensor's bits (NaN and inf compare as the bits they are)."""
+    return t.detach().contiguous().view(
+        {1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _same_bits(a, b):
+    return len(a) == len(b) and all(torch.equal(_bits(x), _bits(y))
+                                    for x, y in zip(a, b))
+
+
+def fp16_run(template, data, config, steps, loss_fn=gpt_chunked_train_loss,
+             engine=None):
+    """Steps of ``train_batch`` on a copy of ``template`` (or on
+    ``engine``): per step the loss tensor, the loss-scale fields, the
+    skip count and the wall ms; the launch counts, the peak device memory
+    and the engine."""
+    import copy
+    from deepspeed_tpu_torch import initialize
+    if engine is None:
+        engine, _, _, _ = initialize(model=copy.deepcopy(template),
+                                     config=config, loss_fn=loss_fn,
+                                     seed=SEED)
+    counters = _fp16_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    rows = []
+    for batch in data[:steps]:
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        rows.append((loss, _scale_fields(engine), engine.skipped_steps,
+                     (time.perf_counter() - t0) * 1e3))
+    return (rows, read_counters(counters),
+            torch.cuda.max_memory_allocated(), engine)
+
+
+def replay_scale(rows, fp16):
+    """The loss-scale trajectory of ``update_scale`` on the host, fed the
+    card's own finite flags (a step is finite when it skipped nothing)."""
+    from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
+        init_loss_scale, update_scale)
+    state = init_loss_scale(0.0, fp16["initial_scale_power"],
+                            hysteresis=fp16["hysteresis"])
+    out, skipped = [], 0
+    for _, _, skips, _ in rows:
+        finite = skips == skipped
+        skipped = skips
+        state = update_scale(state, torch.tensor(finite),
+                             scale_window=fp16["loss_scale_window"],
+                             hysteresis=fp16["hysteresis"],
+                             min_scale=fp16["min_loss_scale"])
+        out.append((float(state.scale), int(state.growth_tracker),
+                    int(state.overflows), int(state.hysteresis_left)))
+    return out
+
+
+def phase_fp16(card):
+    """10a and 10b: GPT-2 125M in fp16 through the chunked loss, three
+    ways (no remat, ``full``, ``attn_out``), then a save at step 3 and a
+    resume through ``latest``. Returns the no-remat run's launch counts."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.models import GPT, GPT2_PRESETS
+    f16 = FP16_CONFIG["fp16"]
+    log(f"phase 10a: GPT-2 125M in fp16 (dynamic loss scale from "
+        f"2**{f16['initial_scale_power']}, hysteresis {f16['hysteresis']}, "
+        f"window {f16['loss_scale_window']}), attention dropout 0.1, "
+        f"FusedAdam, micro "
+        f"8 x gas 2 x 1024 tokens, gpt_chunked_loss_fn at chunk "
+        f"{FP16_CHUNK}, {FP16_STEPS} steps; no remat, remat 'full', remat "
+        f"'attn_out' (GEMM flags {list(gemm_flags())})")
+    cfg = dataclasses.replace(GPT2_PRESETS["gpt2-125m"], dtype=torch.float16,
+                              attn_dropout_rate=0.1)
+    template = GPT(cfg, seed=SEED)
+    data = fp16_data(cfg.vocab_size)
+    fp16 = FP16_CONFIG["fp16"]
+    per_attn = cfg.n_layers * FP16_CONFIG["gradient_accumulation_steps"]
+    runs = {}
+    for name, block in FP16_REMAT.items():
+        config = dict(FP16_CONFIG)
+        if block is not None:
+            config["activation_checkpointing"] = block
+        rows, counts, peak, engine = fp16_run(template, data, config,
+                                              FP16_STEPS)
+        runs[name] = dict(
+            rows=rows, counts=counts, peak=peak,
+            losses=[r[0] for r in rows],
+            params=[p.detach().clone() for p in engine._params],
+            grads=[g.clone() for g in engine._grads])
+        skipped = rows[-1][2]
+        want = {"flash_attention": per_attn * FP16_STEPS
+                * (2 if name == "full" else 1),
+                "flash_attention_bwd_dkv": per_attn * FP16_STEPS,
+                "flash_attention_bwd_dq": per_attn * FP16_STEPS,
+                "fused_adam": FP16_STEPS - skipped, "fused_adam_bf16": 0}
+        replay = replay_scale(rows, fp16)
+        losses = [float(r[0]) for r in rows]
+        ms = [r[3] for r in rows]
+        log(f"  {name}: losses " + ", ".join(f"{x:.4f}" for x in losses))
+        log(f"  {name}: (scale, growth, overflows, hysteresis) per step "
+            f"{[r[1] for r in rows]}; skipped {skipped}")
+        log(f"  {name}: launches {counts} (want {want}: the flash forward "
+            f"{'twice' if name == 'full' else 'once'} a layer and "
+            f"microbatch, one optimizer launch a step taken); step wall "
+            f"ms {[round(x, 2) for x in ms]}, mean of steps 2-"
+            f"{FP16_STEPS} {np.mean(ms[1:]):.2f} ms; peak "
+            f"{peak} bytes ({peak / 2 ** 30:.2f} GiB) [{card}]")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"10a {name}: a loss is not finite")
+        if [r[1] for r in rows] != replay:
+            raise AssertionError(f"10a {name}: the loss-scale trajectory "
+                                 f"differs from the host replay {replay}")
+        if counts != want:
+            raise AssertionError(f"10a {name}: the launch counts differ")
+        if not (rows[0][2] == 1 and 0 < skipped < FP16_STEPS):
+            raise AssertionError("10a: the first step did not overflow, or "
+                                 "no step (or every step) was taken")
+        del engine
+        torch.cuda.empty_cache()
+    base = runs["none"]
+    for name in ("full", "attn_out"):
+        same = (_same_bits(runs[name]["losses"], base["losses"])
+                and _same_bits(runs[name]["params"], base["params"])
+                and _same_bits(runs[name]["grads"], base["grads"]))
+        log(f"  remat '{name}': losses, last gradients and parameters "
+            f"bit-equal to no remat: {same}")
+        if not same:
+            raise AssertionError(f"10a: remat '{name}' changed the bits")
+    # the same steps with the loss over full [8, 1024, 50257] logits
+    _, _, full_peak, engine = fp16_run(template, data, FP16_CONFIG, 2,
+                                       loss_fn=gpt_full_logits_loss)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"  peak device memory: no remat {base['peak']} bytes, remat full "
+        f"{runs['full']['peak']}, remat attn_out {runs['attn_out']['peak']}"
+        f"; the loss over full logits (2 steps, no remat) {full_peak} "
+        f"[{card}]")
+    if not (runs["full"]["peak"] < base["peak"] < full_peak):
+        raise AssertionError("10a: remat 'full' does not lower the peak, or "
+                             "the chunked loss does not")
+    # the host read of the finite flag: a 0-dim device bool to the host
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        bool(flag)
+    read_us = (time.perf_counter() - t0) / 100 * 1e6
+    log(f"  the fp16 step's host read of its finite flag: {read_us:.1f} us "
+        f"on an idle card (it also drains the queue: the next step's "
+        f"launches start from an empty card) [{card}]")
+
+    log("phase 10b: an fp16 save at step 3 and a resume through 'latest' "
+        "repeat the uninterrupted run (losses, loss scale) bit for bit")
+    tmp = tempfile.mkdtemp(prefix="fp16_ckpt_")
+    try:
+        rows_b, _, _, engine = fp16_run(template, data, FP16_CONFIG,
+                                        FP16_SAVE_AT)
+        engine.save_checkpoint(tmp)
+        del engine
+        import copy
+        from deepspeed_tpu_torch import initialize
+        engine, _, _, _ = initialize(model=copy.deepcopy(template),
+                                     config=FP16_CONFIG,
+                                     loss_fn=gpt_chunked_train_loss,
+                                     seed=SEED)
+        path, _ = engine.load_checkpoint(tmp)
+        rows_c, _, _, engine = fp16_run(template, data[FP16_SAVE_AT:],
+                                        FP16_CONFIG,
+                                        FP16_STEPS - FP16_SAVE_AT,
+                                        engine=engine)
+        params_c = [p.detach().clone() for p in engine._params]
+        del engine
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    want = base["rows"]
+    ok = (path is not None
+          and _same_bits([r[0] for r in rows_b],
+                         [r[0] for r in want[:FP16_SAVE_AT]])
+          and _same_bits([r[0] for r in rows_c],
+                         [r[0] for r in want[FP16_SAVE_AT:]])
+          and [r[1:3] for r in rows_c] == [r[1:3]
+                                          for r in want[FP16_SAVE_AT:]]
+          and _same_bits(params_c, base["params"]))
+    log(f"  resumed from {os.path.basename(str(path))}: steps "
+        f"{FP16_SAVE_AT + 1}-{FP16_STEPS} losses "
+        + ", ".join(f"{float(r[0]):.4f}" for r in rows_c)
+        + f", scale {[r[1][0] for r in rows_c]}: losses, loss scale, skips "
+        f"and final parameters bit-equal to the uninterrupted run: {ok}")
+    if not ok:
+        raise AssertionError("10b: the resumed fp16 run differs from the "
+                             "uninterrupted one")
+    return base["counts"]
+
+
+BERT_PLD_CONFIG = {
+    "train_batch_size": 128, "train_micro_batch_size_per_gpu": 32,
+    "gradient_accumulation_steps": 4,
+    "optimizer": {"type": "FusedLamb",
+                  "params": {"lr": 2e-3, "betas": [0.9, 0.999], "eps": 1e-6,
+                             "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR",
+                  "params": {"warmup_num_steps": 3, "warmup_max_lr": 2e-3}},
+    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+    "data_types": {"grad_accum_dtype": "bf16"},
+    "progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                               "gamma": 0.001},
+}
+BF16_ACCUM_CONFIG = {**TRAIN_CONFIG,
+                     "data_types": {"grad_accum_dtype": "bf16"}}
+# 10c's card-vs-CPU parameter gates (GPT-2 fp32, bf16 buffers, 2 Adam
+# steps at lr 1e-4): the mean |diff| and the share of elements more than
+# lr / 100 apart. Readings on an H100: sound 7.65e-9 and 7.4e-5; fp32
+# buffers on the card (the planted fault) 1.167e-7 and 5.86e-3
+BF16_ACCUM_MEAN_TOL = 3e-8
+BF16_ACCUM_SHARE_TOL = 1e-3
+
+
+def bert_pld_loss(model, batch, rng, train, layer_keep_prob=None):
+    """loss_fn of BertForPreTraining taking PLD's keep probability."""
+    from deepspeed_tpu_torch.models import bert_pretrain_loss
+    mlm, nsp = model(batch["input_ids"].long(),
+                     token_type_ids=batch["token_type_ids"].long(),
+                     dropout_seed=rng, layer_keep_prob=layer_keep_prob)
+    return bert_pretrain_loss(mlm, nsp, batch["mlm_labels"],
+                              batch["nsp_labels"])
+
+
+def phase_bf16_accum(card):
+    """10c: BERT-base bf16 with bf16 gradient accumulation, PLD and
+    FusedLamb; GPT-2 125M bf16 with bf16 accumulation and FusedAdam; an
+    fp32 GPT-2 with bf16 accumulation, card against CPU. Returns the
+    launch counts of the bf16-gradient kernels."""
+    import copy
+    import dataclasses
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import (BERT_PRESETS, GPT, GPT2_PRESETS,
+                                            BertForPreTraining)
+    from deepspeed_tpu_torch.ops import fused_lamb
+    log("phase 10c: BERT-base (bf16, attention dropout 0.1, 128 tokens, "
+        "micro 32 x gas 4) with bf16 gradient accumulation, progressive "
+        "layer drop (theta 0.5, gamma 0.001) and FusedLamb, 8 steps "
+        f"(GEMM flags {list(gemm_flags())})")
+    bcfg = dataclasses.replace(BERT_PRESETS["bert-base"], max_seq_len=128,
+                               attn_dropout_rate=0.1)
+    engine, _, _, _ = initialize(model=BertForPreTraining(bcfg, seed=SEED),
+                                 config=BERT_PLD_CONFIG, loss_fn=bert_pld_loss,
+                                 seed=SEED)
+    counters = {**_fp16_counters(),
+                "fused_lamb": (fused_lamb, "phase1_launches"),
+                "fused_lamb_bf16": (fused_lamb, "bf16_phase1_launches"),
+                "fused_lamb_apply": (fused_lamb, "apply_launches")}
+    batches = [bert_batch(128, 128, bcfg.vocab_size, SEED + 40 + i)
+               for i in range(8)]
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    losses, thetas, marks = [], [], [time.perf_counter()]
+    for batch in batches:
+        losses.append(float(engine.train_batch(batch)))
+        thetas.append(engine.progressive_layer_drop.get_theta())
+        marks.append(time.perf_counter())
+    bert_counts = read_counters(counters)
+    per_attn = bcfg.n_layers * 4 * 8
+    want = {"flash_attention": per_attn, "flash_attention_bwd_dkv": per_attn,
+            "flash_attention_bwd_dq": per_attn, "fused_adam": 0,
+            "fused_adam_bf16": 0, "fused_lamb": 0, "fused_lamb_bf16": 8,
+            "fused_lamb_apply": 8}
+    buf = sum(g.numel() * g.element_size() for g in engine._grads)
+    log(f"  losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; theta per step {[round(float(t), 6) for t in thetas]}; step "
+        f"wall {(marks[-1] - marks[1]) / 7 * 1e3:.2f} ms (mean of steps 2-8); "
+        f"gradient buffers {buf} bytes (bf16) [{card}]")
+    log(f"  launches {bert_counts} (want {want})")
+    if not all(np.isfinite(losses)) or bert_counts != want:
+        raise AssertionError("10c BERT: a loss is not finite or the "
+                             "bf16-gradient LAMB did not run once a step")
+    del engine
+    torch.cuda.empty_cache()
+
+    log("phase 10c: GPT-2 125M (bf16, attention dropout 0.1) with bf16 "
+        "gradient accumulation and FusedAdam, 4 steps")
+    gcfg = dataclasses.replace(GPT2_PRESETS["gpt2-125m"],
+                               attn_dropout_rate=0.1)
+    rs = np.random.RandomState(SEED + 4)
+    batch = {"input_ids": rs.randint(0, gcfg.vocab_size, size=(16, 1024))
+             .astype(np.int32)}
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = initialize(model=GPT(gcfg, seed=SEED),
+                                 config=BF16_ACCUM_CONFIG,
+                                 loss_fn=gpt_train_loss, seed=SEED)
+    reset_counters(counters)
+    losses, marks = [], [time.perf_counter()]
+    for _ in range(4):
+        losses.append(float(engine.train_batch(batch)))
+        marks.append(time.perf_counter())
+    gpt_counts = read_counters(counters)
+    peak_bf16 = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in engine._params)
+    saved = sum(p.numel() * 4 - g.numel() * g.element_size()
+                for p, g in zip(engine._params, engine._grads))
+    del engine
+    torch.cuda.empty_cache()
+    # the same model and batch with fp32 gradient buffers: the peak that
+    # bf16 accumulation has to beat (2 steps: the peak is a step's)
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = initialize(model=GPT(gcfg, seed=SEED),
+                                 config=TRAIN_CONFIG,
+                                 loss_fn=gpt_train_loss, seed=SEED)
+    for _ in range(2):
+        float(engine.train_batch(batch))
+    peak_fp32 = torch.cuda.max_memory_allocated()
+    del engine
+    torch.cuda.empty_cache()
+    log(f"  losses " + ", ".join(f"{x:.4f}" for x in losses) + f"; step "
+        f"wall {(marks[-1] - marks[1]) / 3 * 1e3:.2f} ms (mean of steps "
+        f"2-4; 5a's batch, GEMM flags off) [{card}]; "
+        f"fused_adam_bf16 launches {gpt_counts['fused_adam_bf16']}, "
+        f"fused_adam (fp32 gradients) {gpt_counts['fused_adam']}; gradient "
+        f"buffers {n} x 2 bytes: {saved} bytes saved against fp32 "
+        f"({n} x 2 = {n * 2}); peak device memory {peak_bf16} bytes with "
+        f"bf16 buffers, {peak_fp32} with fp32 ones (max_memory_allocated; "
+        f"{peak_fp32 - peak_bf16} lower)")
+    if (not all(np.isfinite(losses)) or gpt_counts["fused_adam_bf16"] != 4
+            or gpt_counts["fused_adam"] != 0 or saved != n * 2):
+        raise AssertionError("10c GPT: a loss is not finite or the "
+                             "bf16-gradient Adam did not run once a step")
+    if peak_bf16 >= peak_fp32:
+        raise AssertionError("10c GPT: bf16 gradient accumulation does not "
+                             "lower the peak device memory")
+
+    log("phase 10c: card against CPU, GPT-2 125M fp32 with bf16 gradient "
+        "accumulation (FusedAdam, attention dropout 0.1, 4 x 128 tokens, 2 "
+        "steps)")
+    cfg = dataclasses.replace(GPT2_PRESETS["gpt2-125m"], dtype=torch.float32,
+                              attn_dropout_rate=0.1)
+    lr = 1e-4
+    config = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+              "data_types": {"grad_accum_dtype": "bf16"},
+              "optimizer": {"type": "FusedAdam",
+                            "params": {"lr": lr, "weight_decay": 0.1}}}
+    rs = np.random.RandomState(SEED + 5)
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size, size=(4, 128))
+             .astype(np.int32)}
+    template = GPT(cfg, seed=SEED)
+    runs = {}
+    # "planted": the card with fp32 buffers, a bf16-accumulation path that
+    # never rounds; the parameter gates must tell it from the sound one
+    fp32_config = {k: v for k, v in config.items() if k != "data_types"}
+    for run, dev, cfg_run in (("cuda", "cuda", config), ("cpu", "cpu", config),
+                              ("planted", "cuda", fp32_config)):
+        engine, _, _, _ = initialize(model=copy.deepcopy(template),
+                                     config=cfg_run, loss_fn=gpt_train_loss,
+                                     seed=SEED, device=dev)
+        reset_counters(counters)
+        losses = [float(engine.train_batch(batch)) for _ in range(2)]
+        if run == "cuda":
+            parity_counts = read_counters(counters)
+        runs[run] = (losses, [p.detach().cpu() for p in engine._params],
+                     engine.get_global_grad_norm())
+        del engine
+    loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0],
+                                              runs["cpu"][0]))
+
+    def gaps(run):
+        """max and mean |diff| to the CPU run, and the share of elements
+        more than lr / 100 apart."""
+        d = torch.cat([(a - b).abs().flatten()
+                       for a, b in zip(runs[run][1], runs["cpu"][1])])
+        return (d.max().item(), d.mean().item(),
+                (d > lr / 100).double().mean().item())
+    (p_max, p_mean, p_share), planted = gaps("cuda"), gaps("planted")
+    # Adam's step bound (phase 5b): 2 lr a step, which any two Adam runs
+    # meet; the mean and the share of elements apart are what a wrong
+    # rounding moves (a bf16 buffer rounding a gradient to the
+    # neighbouring bf16 value on one device moves only that element)
+    p_tol = 4 * lr
+    ok = (loss_err <= 1e-4 and p_max <= p_tol
+          and p_mean <= BF16_ACCUM_MEAN_TOL
+          and p_share <= BF16_ACCUM_SHARE_TOL
+          and parity_counts["fused_adam_bf16"] == 2)
+    blind = (planted[1] <= BF16_ACCUM_MEAN_TOL
+             or planted[2] <= BF16_ACCUM_SHARE_TOL)
+    log(f"  losses card {runs['cuda'][0]} cpu {runs['cpu'][0]}: max diff "
+        f"{loss_err:.3e} (tol 1e-4); grad norm card {runs['cuda'][2]:.6f} "
+        f"cpu {runs['cpu'][2]:.6f}; parameters after 2 steps: max diff "
+        f"{p_max:.3e} (tol 4 lr = {p_tol:.0e}), mean diff {p_mean:.3e} "
+        f"(tol {BF16_ACCUM_MEAN_TOL:.1e}), share of elements > lr/100 apart "
+        f"{p_share:.3e} (tol {BF16_ACCUM_SHARE_TOL:.1e}); card launches of "
+        f"fused_adam_bf16 {parity_counts['fused_adam_bf16']} "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"  planted fault (card with fp32 buffers against the CPU's bf16): "
+        f"losses {runs['planted'][0]}, parameters max diff {planted[0]:.3e}, "
+        f"mean diff {planted[1]:.3e}, share > lr/100 {planted[2]:.3e}: "
+        f"{'caught by both gates' if not blind else 'NOT CAUGHT'}")
+    if not ok:
+        raise AssertionError("10c: bf16 accumulation on the card and on "
+                             "the CPU disagree")
+    if blind:
+        raise AssertionError("10c: the parameter gates do not tell fp32 "
+                             "buffers from bf16 ones")
+    return {"fused_adam_bf16": gpt_counts["fused_adam_bf16"],
+            "fused_lamb_bf16": bert_counts["fused_lamb_bf16"],
+            "fused_lamb_apply": bert_counts["fused_lamb_apply"]}
+
+
+def phase_training_modes(card):
+    """Phase 10; returns the launch counts of its kernel instances."""
+    t0 = time.perf_counter()
+    counts = phase_fp16(card)
+    t1 = time.perf_counter()
+    counts.update(phase_bf16_accum(card))
+    log(f"  phase 10 wall: 10a+10b {t1 - t0:.1f} s, 10c "
+        f"{time.perf_counter() - t1:.1f} s")
+    return counts
+
+
+# --------------------------------------------------------------------------
 # planted faults: each edits a copy of the kernel sources and must fail
 # ``--checks-only`` there
 # --------------------------------------------------------------------------
@@ -3634,7 +4196,7 @@ PLANTED_FAULTS = (
     # the bf16 tensor-core flash kernels
     ("bf16 flash forward: p' truncated to bf16 (round toward zero), not "
      "rounded to nearest, before PV", "flash_attention_fwd_bf16.cu",
-     (("c_to_a(pa, s[2 * kc], s[2 * kc + 1]);  // p' rounded to bf16",
+     (("c_to_a16<T>(pa, s[2 * kc], s[2 * kc + 1]);  // p' rounded to T",
        "for (int e2 = 0; e2 < 4; ++e2) pa[e2] = __byte_perm("
        "__float_as_uint(s[2 * kc + (e2 >> 1)][(e2 & 1) * 2]), "
        "__float_as_uint(s[2 * kc + (e2 >> 1)][(e2 & 1) * 2 + 1]), "
@@ -3654,6 +4216,29 @@ PLANTED_FAULTS = (
      (("dpT[j][e] = p * (dfac * dpT[j][e] - dlq) * a.scale;  // dS",
        "dpT[j][e] = p * (dfac * round_to<bf16>(dpT[j][e]) - dlq) * "
        "a.scale;  // dS"),), "--checks-only"),
+    # the fp16 instances of the flash kernels and the bf16-gradient
+    # optimizer instances
+    ("fp16/bf16-gradient instance: fp16 flash forward and backward: p', "
+     "O, dS, P o D and the outputs rounded toward zero, not to nearest",
+     "mma.cuh",
+     (('asm("cvt.rn.f16x2.f32 %0, %1, %2;\\n"',
+       'asm("cvt.rz.f16x2.f32 %0, %1, %2;\\n"'),), "--checks-only"),
+    ("fp16/bf16-gradient instance: fp16 flash dK/dV: dP rounded to fp16 "
+     "before delta is subtracted (dS rounded twice)",
+     "flash_attention_bwd_bf16.cu",
+     (("dpT[j][e] = p * (dfac * dpT[j][e] - dlq) * a.scale;  // dS",
+       "dpT[j][e] = p * (dfac * round_to<T>(dpT[j][e]) - dlq) * "
+       "a.scale;  // dS"),), "--checks-only"),
+    ("fp16/bf16-gradient instance: fused Adam, bf16 gradients: g scaled "
+     "by 1.0039 after widening", "fused_adam.cu",
+     (("float g = to_float(e.g[i]);  // exact for bf16",
+       "float g = to_float(e.g[i]) * (sizeof(G) == 2 ? 1.0039f : 1.f);"),),
+     "--checks-only"),
+    ("fp16/bf16-gradient instance: fused LAMB phase 1, bf16 gradients: g "
+     "scaled by 1.0039 after widening", "fused_lamb.cu",
+     (("float g = to_float(e.g[i]);  // exact for bf16",
+       "float g = to_float(e.g[i]) * (sizeof(G) == 2 ? 1.0039f : 1.f);"),),
+     "--checks-only"),
     # the bf16 tensor-core block-sparse backward
     ("bf16 block-sparse dK/dV: the keep bit taken at the transposed "
      "fragment coordinate (key, q row)", "block_sparse_attention_bwd_bf16.cu",
@@ -3798,12 +4383,13 @@ def run_in_copy(name, src, edits, flag):
 
 
 def run_planted_faults(only=None):
-    """Each fault of ``PLANTED_FAULTS`` (those whose source file name
-    contains ``only``, when given) made in a copy of the checkout
+    """Each fault of ``PLANTED_FAULTS`` (those whose source file name or
+    description contains ``only``, when given) made in a copy of the checkout
     (``run_in_copy``) with the fault's flag (``--checks-only`` or
     ``--8c-only`` or ``--7a-only``); each copy must fail. Logs each run's
     failing gate lines (and 8c's and 7a's readings)."""
-    faults = [f for f in PLANTED_FAULTS if only is None or only in f[1]]
+    faults = [f for f in PLANTED_FAULTS
+              if only is None or only in f[1] or only in f[0]]
     caught = 0
     for name, src, edits, flag in faults:
         res, secs = run_in_copy(f"planted fault {name}", src, edits, flag)
@@ -3890,6 +4476,10 @@ def main():
         phase_loop(card)
         log("phase 9 passed (--loop-only: no other phase, no result)")
         return 0
+    if "--fp16-only" in sys.argv[1:]:
+        phase_training_modes(card)
+        log("phase 10 passed (--fp16-only: no other phase, no result)")
+        return 0
     if "--7a-only" in sys.argv[1:]:
         set_gemm_flags(defaults)
         phase_sparse_bert_bf16(card)
@@ -3937,6 +4527,12 @@ def main():
     decode_t = time_decode(dev, gen)
     train_t = time_flash_train(dev, gen)
     train_t["fused_adam"] = time_fused_adam(dev, gen)
+    # phase 10's instances: the fp16 flash kernels at 10a's shape (GPT-2's
+    # micro batch), Adam and LAMB over bf16 gradient buffers at 10c's
+    # models
+    fp16_flash_t = time_flash_train(dev, gen, dtype=torch.float16)
+    bf16g_t = {"fused_adam_bf16": time_fused_adam(dev, gen, torch.bfloat16),
+               "fused_lamb_bf16": time_fused_lamb(dev, gen, torch.bfloat16)}
     # phase 8's shape (bf16) and the fp32 kernels at GPT-2's
     ds_flash_t = time_flash_train(dev, gen, b=DS_MICRO, h=16, s=DS_SEQ,
                                   padded=True)
@@ -3967,6 +4563,8 @@ def main():
     fp32_d128_t = time_flash_train(dev, gen, d=128, dtype=torch.float32)
     for name, t in (("flash_attention (serving prefill)", flash_t),
                     ("decode_attention", decode_t), *train_t.items(),
+                    *((f"{k} (fp16)", t) for k, t in fp16_flash_t.items()),
+                    *bf16g_t.items(),
                     *ds_flash_t.items(), *fp32_flash_t.items(),
                     *((f"{k} (head_dim 128)", t)
                       for k, t in fp32_d128_t.items()),
@@ -4055,6 +4653,11 @@ def main():
         "the dataloader, Adagrad and SGD")
     loop_counts = phase_loop(card)
 
+    log("phase 10: the one-card training modes (fp16 with dynamic loss "
+        "scaling, activation checkpointing, the chunked loss, bf16 gradient "
+        "accumulation, progressive layer drop)")
+    mode_counts = phase_training_modes(card)
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -4088,6 +4691,14 @@ def main():
     # shapes; launches of 8a
     for name, t in ds_t.items():
         t["launches"] = ds_counts[name]
+    # phase 10's instances: 10a's launches (the run without remat) and
+    # 10c's (GPT-2 for Adam, BERT for LAMB)
+    for name, t in fp16_flash_t.items():
+        t["launches"] = mode_counts[name]
+    for name, t in bf16g_t.items():
+        t["launches"] = mode_counts[name]
+    bf16g_t["fused_lamb_bf16"]["apply_launches"] = mode_counts[
+        "fused_lamb_apply"]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
@@ -4130,6 +4741,21 @@ def main():
              pallas + "flash_attention.py:773"),
             ("fused_adam", train_t["fused_adam"], csrc + "fused_adam.cu",
              pallas + "fused_adam.py:46"),
+            ("flash_attention_fp16", fp16_flash_t["flash_attention"],
+             csrc + "flash_attention_fwd_bf16.cu",
+             pallas + "flash_attention.py:662"),
+            ("flash_attention_bwd_dkv_fp16",
+             fp16_flash_t["flash_attention_bwd_dkv"],
+             csrc + "flash_attention_bwd_bf16.cu",
+             pallas + "flash_attention.py:773"),
+            ("flash_attention_bwd_dq_fp16",
+             fp16_flash_t["flash_attention_bwd_dq"],
+             csrc + "flash_attention_bwd_bf16.cu",
+             pallas + "flash_attention.py:773"),
+            ("fused_adam_bf16", bf16g_t["fused_adam_bf16"],
+             csrc + "fused_adam.cu", pallas + "fused_adam.py:46"),
+            ("fused_lamb_bf16", bf16g_t["fused_lamb_bf16"],
+             csrc + "fused_lamb.cu", pallas + "fused_lamb.py:49"),
             ("paged_attention", paged_t["paged_attention"],
              csrc + "paged_attention.cu", pallas + "paged_attention.py:169"),
             ("paged_attention_int8", paged_t["paged_attention_int8"],
@@ -4169,9 +4795,10 @@ def main():
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": t["launches"],
             "max_abs_err": t["max_abs_err"], "max_err": t["max_abs_err"],
-            "tol": (ADAM_TOL if name in ("fused_adam", "fused_lamb")
+            "tol": (ADAM_TOL if name.startswith(("fused_adam", "fused_lamb"))
                     else 0.0 if name in ("quantize", "dequantize")
                     else TOL[torch.float32] if name.endswith("_fp32")
+                    else TOL[torch.float16] if name.endswith("_fp16")
                     else TOL[torch.bfloat16]),
             "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -10,9 +10,14 @@ flax ones, so ``models.convert.params_from_jax`` maps a JAX BERT tree
 
 Attention dropout (``attn_dropout_rate``) is live in training mode with
 the forward's seed words, layer ``i`` taking
-``ops.dropout.fold_seed(dropout_seed, i)`` as GPT does. Residual and
-embedding dropout (``dropout_rate``), remat and progressive layer drop
-(``layer_keep_prob``) come with later slices and raise.
+``ops.dropout.fold_seed(dropout_seed, i)`` as GPT does. ``remat``
+checkpoints every layer under a ``models.layers.REMAT_POLICIES`` policy and
+``layer_keep_prob`` is progressive layer drop's gate, as in the JAX
+encoder (bert.py:63-119); ``BertForPreTraining.forward`` also takes
+``layer_keep_prob`` and hands it to the encoder (the JAX pretraining
+module does not take it, so PLD there reaches only a loss that calls the
+encoder itself). Residual and embedding dropout (``dropout_rate``) come
+with a later slice and raise.
 """
 
 from dataclasses import dataclass
@@ -23,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import fold_seed
-from .layers import Block, LayerNorm, QDense
+from .layers import Block, LayerNorm, QDense, remat_policy
 
 
 @dataclass(frozen=True)
@@ -40,7 +45,7 @@ class BertConfig:
     dtype: torch.dtype = torch.bfloat16  # compute dtype (params are fp32)
     ln_epsilon: float = 1e-12
     pre_ln: bool = False                 # reference default: post-LN BERT
-    remat: str = "none"                  # the remat slice
+    remat: str = "none"                  # key into REMAT_POLICIES
     activation: str = "gelu_exact"       # HF BERT uses exact GELU
     # block-sparse attention pattern (set via SparseAttentionUtils.
     # replace_model_self_attention_with_sparse_self_attention)
@@ -68,6 +73,7 @@ class BertEncoder(nn.Module):
 
     def __init__(self, config: BertConfig):
         super().__init__()
+        remat_policy(config.remat)
         self.config = cfg = config
         d = cfg.d_model
         self.word_embeddings = nn.Parameter(torch.empty(cfg.vocab_size, d))
@@ -88,10 +94,6 @@ class BertEncoder(nn.Module):
 
     def forward(self, input_ids, *, token_type_ids=None, attention_mask=None,
                 dropout_seed=None, layer_keep_prob=None):
-        if layer_keep_prob is not None:
-            raise NotImplementedError(
-                "layer_keep_prob (progressive layer drop) comes with the "
-                "data-efficiency slice of the port")
         cfg = self.config
         s = input_ids.shape[1]
         if token_type_ids is None:
@@ -106,7 +108,8 @@ class BertEncoder(nn.Module):
         for i, block in enumerate(self.layer):
             h = block(h, mask=mask,
                       dropout_seed=(None if dropout_seed is None
-                                    else fold_seed(dropout_seed, i)))
+                                    else fold_seed(dropout_seed, i)),
+                      layer_keep_prob=layer_keep_prob, remat=cfg.remat)
         return h, torch.tanh(self.pooler(h[:, 0]))
 
 
@@ -123,10 +126,6 @@ class BertForPreTraining(nn.Module):
                 "BertConfig.dropout_rate > 0 (residual and embedding "
                 "dropout) comes with the residual-dropout slice of the "
                 "port; attn_dropout_rate is supported")
-        if config.remat != "none":
-            raise NotImplementedError(
-                f"BertConfig.remat={config.remat!r} comes with the remat "
-                "slice of the port")
         self.config = cfg = config
         self.bert = BertEncoder(cfg)
         self.mlm_transform = QDense(cfg.d_model, cfg.d_model, True, cfg.dtype)
@@ -152,11 +151,12 @@ class BertForPreTraining(nn.Module):
             p.copy_(val)
 
     def forward(self, input_ids, *, token_type_ids=None, attention_mask=None,
-                dropout_seed=None):
+                dropout_seed=None, layer_keep_prob=None):
         cfg = self.config
         seq_out, pooled = self.bert(input_ids, token_type_ids=token_type_ids,
                                     attention_mask=attention_mask,
-                                    dropout_seed=dropout_seed)
+                                    dropout_seed=dropout_seed,
+                                    layer_keep_prob=layer_keep_prob)
         # MLM head: transform, tanh-GELU (bert.py:148), LN, and the decoder
         # tied to the word embeddings in the compute dtype, no bias
         h = F.gelu(self.mlm_transform(seq_out), approximate="tanh")

@@ -1,7 +1,13 @@
 """GPT-family decoder (counterpart of ``deepspeed_tpu/models/gpt.py``).
 
 The layers are an unrolled ``nn.ModuleList`` (the JAX package's
-``scan_layers``, remat and parameter offload have no counterpart here).
+``scan_layers`` and parameter offload have no counterpart here). ``remat``
+checkpoints every layer under a ``REMAT_POLICIES`` policy
+(``models.layers``: ``full``, ``dots``, ``dots_no_batch``, ``attn_out``),
+``layer_keep_prob`` is progressive layer drop's gate, and
+``forward(..., return_hidden=True)`` hands the final hidden states and
+``wte`` to ``gpt_chunked_loss_fn``, which never holds the [b, s, vocab]
+logits at once.
 With a ``cache`` (``inference.cache.KVCache``) the forward writes each
 layer's new K/V into it in place and advances its write index. With a
 paged view (``inference.cache.PagedView``, one token per slot) each layer
@@ -26,7 +32,7 @@ from torch import nn
 
 from ..inference.cache import PagedView
 from ..ops.dropout import fold_seed
-from .layers import Block, LayerNorm, QDense
+from .layers import REMAT_POLICIES, Block, LayerNorm, QDense, remat_policy
 
 
 @dataclass(frozen=True)
@@ -50,6 +56,7 @@ class GPTConfig:
     alibi: bool = False                  # BLOOM positioning
     embed_ln: bool = False               # BLOOM word_embeddings_layernorm
     lm_head_bias: bool = False           # an untied head with a bias
+    remat: str = "none"                  # key into REMAT_POLICIES
 
     @property
     def ffn_dim(self):
@@ -86,6 +93,7 @@ class GPT(nn.Module):
                 "GPTConfig.dropout_rate > 0 (residual, MLP and embedding "
                 "dropout) comes with the residual-dropout slice of the "
                 "port; attn_dropout_rate is supported")
+        remat_policy(config.remat)
         self.config = cfg = config
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
         self.wpe = (nn.Parameter(torch.empty(cfg.max_seq_len, cfg.d_model))
@@ -124,12 +132,17 @@ class GPT(nn.Module):
             p.copy_(val)
 
     def forward(self, input_ids, *, attention_mask=None, positions=None,
-                cache=None, dropout_seed=None):
+                cache=None, dropout_seed=None, layer_keep_prob=None,
+                return_hidden=False):
         """input_ids [b, s] (in range: callers validate, as the reference's
         clipping gather never fails). ``positions``: [s] or [b, s]
         (default arange(s)). ``attention_mask`` [b, s] (1 = attend) for the
         cache-free forward. ``dropout_seed``: the (s0, s1) words of this
-        forward, needed in training mode when attention dropout is on."""
+        forward, needed in training mode when attention dropout is on.
+        ``layer_keep_prob``: progressive layer drop's keep probability (a
+        0-dim fp32 tensor from the engine, or a float). ``return_hidden``:
+        (final hidden states, wte) instead of logits, for
+        ``gpt_chunked_loss_fn`` (tied embeddings only, gpt.py:287-290)."""
         cfg = self.config
         s = input_ids.shape[1]
         # F.embedding, not wte[input_ids]: indexing's backward on the CPU
@@ -155,12 +168,20 @@ class GPT(nn.Module):
             h = block(h, mask=mask, positions=positions, kv_cache=kv,
                       cache_index=idx,
                       dropout_seed=(None if dropout_seed is None
-                                    else fold_seed(dropout_seed, i)))
+                                    else fold_seed(dropout_seed, i)),
+                      layer_keep_prob=layer_keep_prob, remat=cfg.remat)
         if cache is not None and not paged:
             cache.index = cache.index + s
         h = self.ln_f(h)
+        if return_hidden:
+            if self.lm_head is not None:
+                raise ValueError("return_hidden requires tie_embeddings "
+                                 "(chunked loss reuses wte as the lm head)")
+            return h, self.wte
         if self.lm_head is None:
-            w = self.wte.to(cfg.dtype)
+            # JAX's einsum promotes: an fp32 stream (PLD's fp32 gate)
+            # meets the head in fp32
+            w = self.wte.to(torch.promote_types(h.dtype, cfg.dtype))
             return h @ w.t() if cache is None else tied_head_rows(h, w)
         return self.lm_head(h)
 
@@ -180,6 +201,77 @@ def tied_head_rows(h, w):
     x = torch.cat([x, x.new_zeros(-n % HEAD_ROWS, x.shape[1])])
     out = torch.cat([blk @ w.t() for blk in x.split(HEAD_ROWS)])
     return out[:n].reshape(*h.shape[:-1], w.shape[0])
+
+
+def _chunk_nll(hc, lc, w, z_loss):
+    """One chunk's logits (in the compute dtype, then fp32), logsumexp and
+    summed nll (with the z-loss term)."""
+    logits = (hc @ w.t()).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    nll = logz - logits.gather(-1, lc[..., None])[..., 0]
+    if z_loss > 0.0:
+        nll = nll + z_loss * logz.square()
+    return logits, logz, nll.sum()
+
+
+class _ChunkedLoss(torch.autograd.Function):
+    """gpt.py:297's scan over sequence chunks. The forward keeps no
+    chunk's logits; the backward recomputes each chunk's and adds its dW
+    (in fp32) and writes its dh, so at most one [b, chunk, vocab] block of
+    logits exists at a time."""
+
+    @staticmethod
+    def forward(ctx, hidden, wte, labels, chunk, z_loss):
+        b, s, _ = hidden.shape
+        w = wte.to(hidden.dtype)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, s, chunk):
+            total = total + _chunk_nll(hidden[:, c0:c0 + chunk],
+                                       labels[:, c0:c0 + chunk], w,
+                                       z_loss)[2]
+        ctx.save_for_backward(hidden, wte, labels)
+        ctx.chunk, ctx.z_loss = chunk, z_loss
+        return total / (b * s)
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, wte, labels = ctx.saved_tensors
+        b, s, _ = hidden.shape
+        w = wte.to(hidden.dtype)
+        dh = torch.empty_like(hidden)
+        dw = torch.zeros(wte.shape, dtype=torch.float32, device=wte.device)
+        scale = g / (b * s)
+        for c0 in range(0, s, ctx.chunk):
+            hc, lc = hidden[:, c0:c0 + ctx.chunk], labels[:, c0:c0 + ctx.chunk]
+            logits, logz, _ = _chunk_nll(hc, lc, w, ctx.z_loss)
+            # d nll / d logits = softmax - onehot (+ 2 z logz softmax),
+            # formed in place in the chunk's logits
+            dl = logits.sub_(logz[..., None]).exp_()
+            if ctx.z_loss > 0.0:
+                dl.mul_(1.0 + 2.0 * ctx.z_loss * logz[..., None])
+            dl.scatter_add_(-1, lc[..., None],
+                            torch.full(lc[..., None].shape, -1.0,
+                                       dtype=dl.dtype, device=dl.device))
+            dl = dl.mul_(scale).to(hidden.dtype)
+            dh[:, c0:c0 + ctx.chunk] = dl @ w
+            dw += (dl.flatten(0, 1).t() @ hc.flatten(0, 1)).float()
+        return dh, dw.to(wte.dtype), None, None, None
+
+
+def gpt_chunked_loss_fn(hidden, wte, labels, chunk: int = 256,
+                        z_loss: float = 0.0):
+    """Next-token cross entropy without the [b, s, vocab] logits
+    (gpt.py:297): chunks of ``chunk`` positions, each chunk's logits in the
+    compute dtype then fp32, the mean nll over all b * s positions (and
+    ``z_loss * logz**2``). ``hidden`` [b, s, d] final hidden states and
+    ``wte`` from ``forward(..., return_hidden=True)``, ``labels`` [b, s]
+    already shifted. ``s % chunk != 0`` falls back to one chunk, as in
+    JAX."""
+    s = hidden.shape[1]
+    if s % chunk != 0:
+        chunk = s
+    return _ChunkedLoss.apply(hidden, wte, labels.long(), chunk,
+                              float(z_loss))
 
 
 def gpt_loss_fn(logits, labels, loss_mask=None, z_loss=0.0):

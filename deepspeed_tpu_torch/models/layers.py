@@ -28,13 +28,33 @@ the layer hands the token's K/V back to the caller, who scatters it).
 Attention dropout (``attn_dropout_rate``) is live only in training mode
 (``module.train()``), only without a cache, and draws its keep bits from
 the counter hash with the layer's seed words (layers.py:517-565).
+
+Activation checkpointing (``Block(..., remat=name)``, the JAX models'
+``remat``; ``REMAT_POLICIES``) runs on ``torch.utils.checkpoint`` without
+reentrance. ``full`` recomputes the whole block in the backward, the flash
+forward included. ``attn_out``, ``dots`` and ``dots_no_batch`` put the
+checkpointed regions around attention (the layer norm and QKV projection
+before it, the output projection, residuals and MLP after it), so the
+flash forward, which selective checkpointing cannot see into, runs once
+and its output is kept; ``dots`` also keeps every matmul output of the
+regions (aten ``mm``/``addmm``/``bmm``/``baddbmm``), ``dots_no_batch``
+those without a batch dimension (``mm``/``addmm``), ``attn_out`` none.
+The keep mask of attention dropout is a counter hash, so a recompute drops
+the same elements with no RNG state kept (``preserve_rng_state=False``).
+
+Progressive layer drop (``layer_keep_prob``) is JAX's gate
+``y = x + p (y - x)`` (layers.py:705-708) with JAX's ``x``: the residual
+after attention in the pre-LN and post-LN layouts (so only the MLP branch
+is scaled there), the block input in the parallel layout.
 """
 
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..inference.cache import PagedLayer
@@ -148,25 +168,10 @@ class SelfAttention(nn.Module):
         this layer's (s0, s1) words, needed when attention dropout is
         live."""
         b, s, _ = x.shape
-        # thirds of 3*d_model, then heads (layers.py:293-297)
-        q, k, v = (t.unflatten(-1, (self.n_heads, -1))
-                   for t in self.qkv(x).split(self.d_model, dim=-1))
+        q, k, v = self.project(x)
         drop = self.dropout_rate > 0.0 and self.training
         if kv_cache is None:
-            bias = None
-            if self.alibi:
-                q_pos = (positions if positions is not None
-                         else torch.arange(s, device=x.device))
-                bias = self._alibi_bias(q_pos.expand(s), s)
-            if self.sparsity_config is not None:
-                out = self._attend_sparse(q, k, v, bias, mask, dropout_seed,
-                                          drop)
-            else:
-                out = attention(q, k, v, bias=bias, mask=mask,
-                                causal=self.causal,
-                                dropout_rate=self.dropout_rate,
-                                dropout_seed=dropout_seed,
-                                deterministic=not drop)
+            out = self.attend(q, k, v, mask, positions, dropout_seed)
         elif self.sparsity_config is not None or not self.causal:
             raise NotImplementedError(
                 "the KV cache serves causal dense attention; serving a "
@@ -188,6 +193,30 @@ class SelfAttention(nn.Module):
         else:
             out = self._attend_token(q, k, v, kv_cache, cache_index)
         return self.out(out.reshape(b, s, self.d_model))
+
+    def project(self, x):
+        """q, k, v [b, s, heads, head_dim]: thirds of the fused QKV
+        projection, then heads (layers.py:293-297)."""
+        return tuple(t.unflatten(-1, (self.n_heads, -1))
+                     for t in self.qkv(x).split(self.d_model, dim=-1))
+
+    def attend(self, q, k, v, mask=None, positions=None, dropout_seed=None):
+        """Cache-free attention of projected q, k, v (dense through the
+        flash kernels, or the block-sparse pattern); returns [b, s, heads,
+        head_dim] before the output projection."""
+        s = q.shape[1]
+        drop = self.dropout_rate > 0.0 and self.training
+        bias = None
+        if self.alibi:
+            q_pos = (positions if positions is not None
+                     else torch.arange(s, device=q.device))
+            bias = self._alibi_bias(q_pos.expand(s), s)
+        if self.sparsity_config is not None:
+            return self._attend_sparse(q, k, v, bias, mask, dropout_seed,
+                                       drop)
+        return attention(q, k, v, bias=bias, mask=mask, causal=self.causal,
+                         dropout_rate=self.dropout_rate,
+                         dropout_seed=dropout_seed, deterministic=not drop)
 
     def _attend_sparse(self, q, k, v, bias, mask, dropout_seed, drop):
         """The block-sparse pattern path (layers.py:521-560)."""
@@ -311,11 +340,74 @@ class MLP(nn.Module):
         return self.fc_out(self.act(self.fc_in(x)))
 
 
+class RematPolicy(NamedTuple):
+    """How a block is checkpointed: the whole block as one region, or the
+    regions around attention; ``saved_ops`` names the aten ops whose
+    outputs a region keeps (the rest is recomputed)."""
+    whole_block: bool
+    saved_ops: tuple = ()
+
+
+# the JAX models' remat policies (gpt.py REMAT_POLICIES) but "offload",
+# which comes with the offload and tiering slice
+REMAT_POLICIES = {
+    "none": None,
+    "full": RematPolicy(True),
+    "dots": RematPolicy(False, ("mm", "addmm", "bmm", "baddbmm")),
+    "dots_no_batch": RematPolicy(False, ("mm", "addmm")),
+    "attn_out": RematPolicy(False),
+}
+
+
+def remat_policy(name: str) -> Optional[RematPolicy]:
+    """The policy of a remat name; refuses the ones the port lacks."""
+    if name == "offload":
+        raise NotImplementedError(
+            "remat policy 'offload' (saved activations in host memory) "
+            "comes with the offload and tiering slice of the port")
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r} (known: "
+                         f"{sorted(REMAT_POLICIES)})")
+    return REMAT_POLICIES[name]
+
+
+def checkpointed(policy: RematPolicy, fn, *args):
+    """``fn(*args)`` as one checkpointed region under ``policy``: its
+    inside is recomputed in the backward, but for the outputs of
+    ``policy.saved_ops``."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy.saved_ops:
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        ops = [getattr(torch.ops.aten, name).default
+               for name in policy.saved_ops]
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, ops)
+    return torch.utils.checkpoint.checkpoint(fn, *args, **kw)
+
+
+def keep_gate(x, y, layer_keep_prob):
+    """Progressive layer drop's residual gate y = x + p (y - x) with JAX's
+    type promotion: a tensor ``p`` (the engine's fp32 theta) is a typed
+    array, so a bf16 or fp16 block output comes out fp32; a Python float
+    is weakly typed and taken in the dtype of y - x."""
+    if layer_keep_prob is None:
+        return y
+    diff = y - x
+    p = layer_keep_prob
+    if isinstance(p, torch.Tensor):
+        dt = torch.promote_types(p.dtype, diff.dtype)
+        return x.to(dt) + p.to(dt) * diff.to(dt)
+    return x + torch.tensor(p, dtype=diff.dtype, device=diff.device) * diff
+
+
 class Block(nn.Module):
     """One transformer layer: pre-LN (GPT), post-LN with ``pre_ln=False``
-    (BERT), or the GPT-J/NeoX ``parallel_residual`` form y = x +
-    attn(ln_1(x)) + mlp(ln_2(x)) (one shared LN with
-    ``shared_parallel_ln``)."""
+    (BERT: x = ln_1(x + attn(x)); y = ln_2(x + mlp(x))), or the
+    GPT-J/NeoX ``parallel_residual`` form y = x + attn(ln_1(x)) +
+    mlp(ln_2(x)) (one shared LN with ``shared_parallel_ln``). The forward
+    takes progressive layer drop's ``layer_keep_prob`` and a ``remat``
+    policy name (training without a cache)."""
 
     def __init__(self, n_heads: int, d_model: int, d_ff: int,
                  dtype=torch.bfloat16, use_bias: bool = True,
@@ -338,21 +430,70 @@ class Block(nn.Module):
         self.mlp = MLP(d_model, d_ff, dtype, use_bias, activation)
 
     def forward(self, x, mask=None, positions=None, kv_cache=None,
-                cache_index=None, dropout_seed=None):
-        if not (self.pre_ln or self.parallel_residual):
-            a = self.attn(x, mask=mask, positions=positions,
-                          kv_cache=kv_cache, cache_index=cache_index,
-                          dropout_seed=dropout_seed)
-            x = self.ln_1(x + a)
-            return self.ln_2(x + self.mlp(x))
-        h1 = self.ln_1(x)
+                cache_index=None, dropout_seed=None, layer_keep_prob=None,
+                remat: str = "none"):
+        policy = remat_policy(remat)
+        if (policy is not None and kv_cache is None
+                and torch.is_grad_enabled()):
+            if policy.whole_block:
+                return checkpointed(policy, self._block, x, mask, positions,
+                                    dropout_seed, layer_keep_prob)
+            q, k, v, h1 = checkpointed(policy, self._pre_attention, x)
+            o = self.attn.attend(q, k, v, mask, positions, dropout_seed)
+            # the shared LN's output crosses into the second region, so
+            # ln_1 runs once, as in the layer without remat
+            return checkpointed(policy, self._post_attention, x, o,
+                                layer_keep_prob,
+                                h1 if self.ln_2 is None else None)
+        if kv_cache is None:
+            return self._block(x, mask, positions, dropout_seed,
+                               layer_keep_prob)
+        h1 = self._attn_input(x)
         a = self.attn(h1, mask=mask, positions=positions, kv_cache=kv_cache,
                       cache_index=cache_index, dropout_seed=dropout_seed)
-        if self.parallel_residual:
-            h2 = h1 if self.ln_2 is None else self.ln_2(x)
-            return x + a + self.mlp(h2)
-        x = x + a
-        return x + self.mlp(self.ln_2(x))
+        return self._residual(x, a, layer_keep_prob, h1)
+
+    def _block(self, x, mask, positions, dropout_seed, layer_keep_prob):
+        """The cache-free layer; ln_1(x) is computed once."""
+        q, k, v, h1 = self._pre_attention(x)
+        o = self.attn.attend(q, k, v, mask, positions, dropout_seed)
+        return self._post_attention(x, o, layer_keep_prob, h1)
+
+    def _attn_input(self, x):
+        """The attention's input: ln_1(x), but x itself in post-LN."""
+        if not (self.pre_ln or self.parallel_residual):
+            return x
+        return self.ln_1(x)
+
+    def _pre_attention(self, x):
+        """q, k, v of the block input, and the attention's input h1."""
+        h1 = self._attn_input(x)
+        return (*self.attn.project(h1), h1)
+
+    def _post_attention(self, x, o, layer_keep_prob, h1=None):
+        """The output projection of the attention ``o`` and the rest of
+        the layer (``h1`` as in ``_residual``)."""
+        b, s, _ = x.shape
+        return self._residual(x, self.attn.out(o.reshape(b, s, -1)),
+                              layer_keep_prob, h1)
+
+    def _residual(self, x, a, layer_keep_prob, h1=None):
+        """The layer after its attention output ``a``, and the PLD gate
+        on JAX's ``x`` (layers.py:682-708). ``h1``: ln_1(x) when known
+        (the parallel layout's shared LN)."""
+        if not (self.pre_ln or self.parallel_residual):
+            x = self.ln_1(x + a)
+            y = self.ln_2(x + self.mlp(x))
+        elif self.parallel_residual:
+            if self.ln_2 is not None:
+                h2 = self.ln_2(x)
+            else:
+                h2 = self.ln_1(x) if h1 is None else h1
+            y = x + a + self.mlp(h2)
+        else:
+            x = x + a
+            y = x + self.mlp(self.ln_2(x))
+        return keep_gate(x, y, layer_keep_prob)
 
 
 def alibi_slopes(n_heads: int) -> torch.Tensor:

@@ -42,15 +42,22 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def kernel_dtype_code(dtype: torch.dtype) -> int:
-    """The element-type code the C entry points take (0 fp32, 1 bf16)."""
+def kernel_dtype_code(dtype: torch.dtype, fp16: bool = False) -> int:
+    """The element-type code the C entry points take (0 fp32, 1 bf16, 2
+    fp16). ``fp16``: the caller's kernel has an fp16 instance (the flash
+    forward and backward); every other kernel refuses fp16 by name."""
     code = _KERNEL_DTYPES.get(dtype)
     if code is None:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, got "
                         f"{dtype}")
+    if code == 2 and not fp16:
+        raise TypeError(
+            "float16: only the flash attention kernels have fp16 instances "
+            "(fp16 training); this kernel's fp16 instance comes with the "
+            "fp16-serving slice of the port")
     return code
 
 

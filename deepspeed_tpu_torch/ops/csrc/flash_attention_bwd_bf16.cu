@@ -1,10 +1,14 @@
-// Flash-attention backward on the H100's tensor cores, bf16 (sm_90a):
-// dK/dV, then dQ.
+// Flash-attention backward on the H100's tensor cores, bf16 and fp16
+// (sm_90a): dK/dV, then dQ. Both kernels are templated on the 16-bit
+// element type T, with the bf16 or the fp16 mma.sync product and packing
+// (mma.cuh's mma16<T>, pack_rn<T>); below, "bf16" stands for T.
 //
-// Replaces, for bf16 inputs, the TPU backward kernels reached through
-// _flash_bwd (deepspeed_tpu/ops/pallas/flash_attention.py:773); fp32 inputs
-// go to the 3xTF32 kernels of flash_attention_bwd.cu, the port's parity
-// mode.
+// Replaces, for bf16 and fp16 inputs, the TPU backward kernels reached
+// through _flash_bwd (deepspeed_tpu/ops/pallas/flash_attention.py:773);
+// fp32 inputs go to the 3xTF32 kernels of flash_attention_bwd.cu, the
+// port's parity mode. dS and P o D are cast to T where JAX's _bwd_tile
+// casts them (:232-244); in fp16 dS can overflow to inf where bf16 would
+// not, as in the reference, and the loss scaler's finite check sees it.
 // Same function and rounding points as those kernels and the plain version
 // (ops/flash_attention.py flash_attention_bwd_reference), from the
 // forward's saved LSE and delta = rowsum(dO o O) (the wrapper's):
@@ -72,13 +76,13 @@ __host__ __device__ constexpr int dkv_q_groups() {
 template <int D>
 constexpr size_t dkv_smem_bytes() {
   // K, V; 2 stages of Q and dO; 2 stages of lse and delta
-  return sizeof(bf16) * 6 * BK * (D + 8) + sizeof(float) * 4 * BQ;
+  return sizeof(uint16_t) * 6 * BK * (D + 8) + sizeof(float) * 4 * BQ;
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
   // Q, dO; 2 stages of K and V
-  return sizeof(bf16) * 6 * BQ * (D + 8);
+  return sizeof(uint16_t) * 6 * BQ * (D + 8);
 }
 
 // lse and delta of rows [q0, q0 + BQ) of one (b, h) into shared memory with
@@ -96,17 +100,17 @@ __device__ __forceinline__ void load_row_stats_async(float* ls, float* dl,
   }
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(128 * dkv_q_groups<D>())
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          const float* __restrict__ bias,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          BwdArgs a, DropoutParams dr) {
+flash_bwd_dkv_kernel(const T* __restrict__ q,
+                     const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ bias,
+                     T* __restrict__ dk, T* __restrict__ dv,
+                     BwdArgs a, DropoutParams dr) {
   constexpr int QG = dkv_q_groups<D>();
   constexpr int NT = 128 * QG;
   constexpr int QC = BQ / QG;  // q columns of a warp in each step
@@ -115,10 +119,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   constexpr int KS = D / 16;
   constexpr int NB = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BK * P;
-  bf16* Qs = Vs + BK * P;      // two stages
-  bf16* dOs = Qs + 2 * BQ * P;  // two stages
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + BK * P;
+  T* Qs = Vs + BK * P;      // two stages
+  T* dOs = Qs + 2 * BQ * P;  // two stages
   float* ls = reinterpret_cast<float*>(dOs + 2 * BQ * P);  // two stages
   float* dl = ls + 2 * BQ;                                 // two stages
 
@@ -133,8 +137,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   const int shift = a.sk - a.sq;
   const int key0 = k0 + kw * 16 + g;  // this thread's keys: key0, key0 + 8
 
-  const bf16* qb = q + b * a.q_sb + h * a.q_sh;
-  const bf16* ob = dout + b * a.o_sb + h * a.o_sh;
+  const T* qb = q + b * a.q_sb + h * a.q_sh;
+  const T* ob = dout + b * a.o_sb + h * a.o_sh;
   const float* lb = lse + (static_cast<long long>(b) * a.H + h) * a.sq;
   const float* db = delta + (static_cast<long long>(b) * a.H + h) * a.sq;
   const float* bb = bias ? bias + b * a.b_sb + h * a.b_sh : nullptr;
@@ -185,8 +189,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Qt = Qs + st * BQ * P + qh * QC * P;   // this warp's q rows
-    const bf16* dOt = dOs + st * BQ * P + qh * QC * P;
+    const T* Qt = Qs + st * BQ * P + qh * QC * P;   // this warp's q rows
+    const T* dOt = dOs + st * BQ * P + qh * QC * P;
     const float* lst = ls + st * BQ + qh * QC;
     const float* dlt = dl + st * BQ + qh * QC;
 
@@ -209,10 +213,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         uint32_t bq[4], bo[4];
         ldsm_x4(bq, Qt + brow);
         ldsm_x4(bo, dOt + brow);
-        mma_bf16(sT[j], ak, bq[0], bq[1]);
-        mma_bf16(sT[j + 1], ak, bq[2], bq[3]);
-        mma_bf16(dpT[j], av, bo[0], bo[1]);
-        mma_bf16(dpT[j + 1], av, bo[2], bo[3]);
+        mma16<T>(sT[j], ak, bq[0], bq[1]);
+        mma16<T>(sT[j + 1], ak, bq[2], bq[3]);
+        mma16<T>(dpT[j], av, bo[0], bo[1]);
+        mma16<T>(dpT[j + 1], av, bo[2], bo[3]);
       }
     }
 
@@ -256,8 +260,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int kc = 0; kc < QC / 16; ++kc) {
       uint32_t pa[4], sa[4];
-      c_to_a(pa, sT[2 * kc], sT[2 * kc + 1]);    // P o D rounded to bf16
-      c_to_a(sa, dpT[2 * kc], dpT[2 * kc + 1]);  // dS rounded to bf16
+      c_to_a16<T>(pa, sT[2 * kc], sT[2 * kc + 1]);    // P o D rounded to T
+      c_to_a16<T>(sa, dpT[2 * kc], dpT[2 * kc + 1]);  // dS rounded to T
 #pragma unroll
       for (int n = 0; n < NB; n += 2) {
         const int brow = (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
@@ -265,10 +269,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         uint32_t bo[4], bq[4];
         ldsm_x4_t(bo, dOt + brow);
         ldsm_x4_t(bq, Qt + brow);
-        mma_bf16(dv_acc[n], pa, bo[0], bo[1]);
-        mma_bf16(dv_acc[n + 1], pa, bo[2], bo[3]);
-        mma_bf16(dk_acc[n], sa, bq[0], bq[1]);
-        mma_bf16(dk_acc[n + 1], sa, bq[2], bq[3]);
+        mma16<T>(dv_acc[n], pa, bo[0], bo[1]);
+        mma16<T>(dv_acc[n + 1], pa, bo[2], bo[3]);
+        mma16<T>(dk_acc[n], sa, bq[0], bq[1]);
+        mma16<T>(dk_acc[n + 1], sa, bq[2], bq[3]);
       }
     }
     __syncthreads();  // this stage's reads are done before its refill
@@ -312,33 +316,33 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
       *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t) =
-          pack_bf16_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+          pack_rn<T>(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t) =
-          pack_bf16_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+          pack_rn<T>(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(128)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const float* __restrict__ bias,
-                         bf16* __restrict__ dq, BwdArgs a,
-                         DropoutParams dr) {
+flash_bwd_dq_kernel(const T* __restrict__ q,
+                    const T* __restrict__ k,
+                    const T* __restrict__ v,
+                    const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ bias,
+                    T* __restrict__ dq, BwdArgs a,
+                    DropoutParams dr) {
   constexpr int NT = 128;
   constexpr int P = D + 8;
   constexpr int KS = D / 16;
   constexpr int NB = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BQ * P;
-  bf16* Ks = dOs + BQ * P;     // two stages
-  bf16* Vs = Ks + 2 * BK * P;  // two stages
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + BQ * P;
+  T* Ks = dOs + BQ * P;     // two stages
+  T* Vs = Ks + 2 * BK * P;  // two stages
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -349,8 +353,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   const int shift = a.sk - a.sq;
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
 
-  const bf16* kb = k + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = v + b * a.v_sb + h * a.v_sh;
+  const T* kb = k + b * a.k_sb + h * a.k_sh;
+  const T* vb = v + b * a.v_sb + h * a.v_sh;
   const float* bb = bias ? bias + b * a.b_sb + h * a.b_sh : nullptr;
 
   int nkb = (a.sk + BK - 1) / BK;
@@ -404,8 +408,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + st * BK * P;
-    const bf16* Vt = Vs + st * BK * P;
+    const T* Kt = Ks + st * BK * P;
+    const T* Vt = Vs + st * BK * P;
 
     // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
     float s[8][4], dp[8][4];
@@ -427,10 +431,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         uint32_t bk[4], bv[4];
         ldsm_x4(bk, Kt + brow);
         ldsm_x4(bv, Vt + brow);
-        mma_bf16(s[j], aq, bk[0], bk[1]);
-        mma_bf16(s[j + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[j], ao, bv[0], bv[1]);
-        mma_bf16(dp[j + 1], ao, bv[2], bv[3]);
+        mma16<T>(s[j], aq, bk[0], bk[1]);
+        mma16<T>(s[j + 1], aq, bk[2], bk[3]);
+        mma16<T>(dp[j], ao, bv[0], bv[1]);
+        mma16<T>(dp[j + 1], ao, bv[2], bv[3]);
       }
     }
 
@@ -464,18 +468,18 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
       }
     }
 
-    // dQ += dS K: dS rounded to bf16 in registers is the A operand
+    // dQ += dS K: dS rounded to T in registers is the A operand
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       uint32_t sa[4];
-      c_to_a(sa, s[2 * kc], s[2 * kc + 1]);
+      c_to_a16<T>(sa, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
       for (int n = 0; n < NB; n += 2) {
         uint32_t bk[4];
         ldsm_x4_t(bk, Kt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
                           n * 8 + (lane >> 4) * 8);
-        mma_bf16(dq_acc[n], sa, bk[0], bk[1]);
-        mma_bf16(dq_acc[n + 1], sa, bk[2], bk[3]);
+        mma16<T>(dq_acc[n], sa, bk[0], bk[1]);
+        mma16<T>(dq_acc[n + 1], sa, bk[2], bk[3]);
       }
     }
     __syncthreads();  // this stage's K/V reads are done before its refill
@@ -491,52 +495,53 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < NB; ++n)
       *reinterpret_cast<uint32_t*>(dq + off + n * 8 + 2 * t) =
-          pack_bf16_rn(dq_acc[n][2 * i], dq_acc[n][2 * i + 1]);
+          pack_rn<T>(dq_acc[n][2 * i], dq_acc[n][2 * i + 1]);
   }
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const float* bias,
                void* dk, void* dv, int b, const BwdArgs& a,
                const DropoutParams& dr, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D, DROP>,
+  cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, DROP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   dim3 grid((a.sk + BK - 1) / BK, a.H, b);
-  flash_bwd_dkv_bf16_kernel<D, DROP>
+  flash_bwd_dkv_kernel<T, D, DROP>
       <<<grid, 128 * dkv_q_groups<D>(), smem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-          delta, bias, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a,
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+          delta, bias, static_cast<T*>(dk), static_cast<T*>(dv), a,
           dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const float* bias,
               void* dq, void*, int b, const BwdArgs& a,
               const DropoutParams& dr, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D, DROP>,
+  cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, DROP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   dim3 grid((a.sq + BQ - 1) / BQ, a.H, b);
-  flash_bwd_dq_bf16_kernel<D, DROP><<<grid, 128, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, bias, static_cast<bf16*>(dq), a, dr);
+  flash_bwd_dq_kernel<T, D, DROP><<<grid, 128, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+      delta, bias, static_cast<T*>(dq), a, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 only (dtype 1); d in {64, 80, 96, 128} (the wrapper checks). The
-// arguments are flash_attention_bwd_dkv's and flash_attention_bwd_dq's;
-// q/k/v/dout additionally need 16-byte aligned bases and (batch,
-// sequence, head) strides.
+// The _bf16 entry points take bf16 (dtype 1), the _fp16 ones fp16 (dtype
+// 2); d in {64, 80, 96, 128} (the wrapper checks). The arguments are
+// flash_attention_bwd_dkv's and flash_attention_bwd_dq's; q/k/v/dout
+// additionally need 16-byte aligned bases and (batch, sequence, head)
+// strides.
 #define DS_BWD_PARAMS                                                        \
   int dtype, int b, int h, int sq, int sk, int d, long long q_sb,            \
       long long q_ss, long long q_sh, long long k_sb, long long k_ss,        \
@@ -544,14 +549,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       long long o_sb, long long o_ss, long long o_sh, long long b_sb,        \
       long long b_sh, long long b_sq, float scale, int causal,               \
       DS_DROPOUT_PARAMS, void* stream
-#define DS_BWD_CALL(FN, D, DROP, OUT0, OUT1)                                 \
-  return FN<D, DROP>(q, k, v, dout, ls, dl, bi, OUT0, OUT1, b, a, dr, st);
-#define DS_BWD_DIMS(FN, DROP, OUT0, OUT1)                                    \
-  if (d == 64) DS_BWD_CALL(FN, 64, DROP, OUT0, OUT1)                         \
-  if (d == 80) DS_BWD_CALL(FN, 80, DROP, OUT0, OUT1)                         \
-  if (d == 96) DS_BWD_CALL(FN, 96, DROP, OUT0, OUT1)                         \
-  if (d == 128) DS_BWD_CALL(FN, 128, DROP, OUT0, OUT1)
-#define DS_BWD_DISPATCH(FN, OUT0, OUT1)                                      \
+#define DS_BWD_CALL(FN, T, D, DROP, OUT0, OUT1)                              \
+  return FN<T, D, DROP>(q, k, v, dout, ls, dl, bi, OUT0, OUT1, b, a, dr, st);
+#define DS_BWD_DIMS(FN, T, DROP, OUT0, OUT1)                                 \
+  if (d == 64) DS_BWD_CALL(FN, T, 64, DROP, OUT0, OUT1)                      \
+  if (d == 80) DS_BWD_CALL(FN, T, 80, DROP, OUT0, OUT1)                      \
+  if (d == 96) DS_BWD_CALL(FN, T, 96, DROP, OUT0, OUT1)                      \
+  if (d == 128) DS_BWD_CALL(FN, T, 128, DROP, OUT0, OUT1)
+#define DS_BWD_DISPATCH(FN, T, CODE, OUT0, OUT1)                             \
   const BwdArgs a{h,    sq,   sk,   q_sb, q_ss, q_sh, k_sb,  k_ss,          \
                   k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,  b_sb,          \
                   b_sh, b_sq, scale, causal};                               \
@@ -560,27 +565,35 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const float* ls = static_cast<const float*>(lse);                         \
   const float* dl = static_cast<const float*>(delta);                       \
   const float* bi = static_cast<const float*>(bias);                        \
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);           \
+  if (dtype != CODE) return static_cast<int>(cudaErrorInvalidValue);        \
   if (dropout) {                                                            \
-    DS_BWD_DIMS(FN, true, OUT0, OUT1)                                       \
+    DS_BWD_DIMS(FN, T, true, OUT0, OUT1)                                    \
   } else {                                                                  \
-    DS_BWD_DIMS(FN, false, OUT0, OUT1)                                      \
+    DS_BWD_DIMS(FN, T, false, OUT0, OUT1)                                   \
   }                                                                         \
   return static_cast<int>(cudaErrorInvalidValue);
 
-extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
-                                            const void* v, const void* dout,
-                                            const void* lse,
-                                            const void* delta,
-                                            const void* bias, void* dk,
-                                            void* dv, DS_BWD_PARAMS) {
-  DS_BWD_DISPATCH(launch_dkv, dk, dv)
+#define DS_BWD_DKV_PARAMS                                                   \
+  const void *q, const void *k, const void *v, const void *dout,           \
+      const void *lse, const void *delta, const void *bias, void *dk,      \
+      void *dv, DS_BWD_PARAMS
+#define DS_BWD_DQ_PARAMS                                                    \
+  const void *q, const void *k, const void *v, const void *dout,           \
+      const void *lse, const void *delta, const void *bias, void *dq,      \
+      DS_BWD_PARAMS
+
+extern "C" int flash_attention_bwd_dkv_bf16(DS_BWD_DKV_PARAMS) {
+  DS_BWD_DISPATCH(launch_dkv, bf16, 1, dk, dv)
 }
 
-extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
-                                           const void* v, const void* dout,
-                                           const void* lse, const void* delta,
-                                           const void* bias, void* dq,
-                                           DS_BWD_PARAMS) {
-  DS_BWD_DISPATCH(launch_dq, dq, nullptr)
+extern "C" int flash_attention_bwd_dq_bf16(DS_BWD_DQ_PARAMS) {
+  DS_BWD_DISPATCH(launch_dq, bf16, 1, dq, nullptr)
+}
+
+extern "C" int flash_attention_bwd_dkv_fp16(DS_BWD_DKV_PARAMS) {
+  DS_BWD_DISPATCH(launch_dkv, f16, 2, dk, dv)
+}
+
+extern "C" int flash_attention_bwd_dq_fp16(DS_BWD_DQ_PARAMS) {
+  DS_BWD_DISPATCH(launch_dq, f16, 2, dq, nullptr)
 }

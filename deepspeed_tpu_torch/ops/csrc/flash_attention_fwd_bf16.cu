@@ -1,9 +1,13 @@
-// Flash-attention forward on the H100's tensor cores, bf16 (sm_90a).
+// Flash-attention forward on the H100's tensor cores, bf16 and fp16
+// (sm_90a): one kernel templated on the 16-bit element type T, with the
+// bf16 or the fp16 mma.sync product and packing (mma.cuh's mma16<T>,
+// pack_rn<T>); below, "bf16" stands for T.
 //
-// Replaces, for bf16 inputs, the TPU kernels _fwd_kernel_resident and
-// _fwd_kernel_streamed (deepspeed_tpu/ops/pallas/flash_attention.py:277,
-// :453), reached through _flash_fwd (:662); fp32 inputs go to the 3xTF32
-// kernel of flash_attention_fwd.cu, the port's parity mode. Same function
+// Replaces, for bf16 and fp16 inputs, the TPU kernels _fwd_kernel_resident
+// and _fwd_kernel_streamed (deepspeed_tpu/ops/pallas/flash_attention.py
+// :277, :453), reached through _flash_fwd (:662); fp32 inputs go to the
+// 3xTF32 kernel of flash_attention_fwd.cu, the port's parity mode. In fp16
+// p' is cast to the value dtype before PV as in JAX (:225-227). Same function
 // and the same rounding points as that kernel and the plain version
 // (ops/flash_attention.py flash_attention_reference): O and the natural-log
 // LSE of softmax(Q K^T * scale + bias, causal) V over online-softmax steps
@@ -54,27 +58,27 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(bf16) * (BQ + 4 * BK) * (D + 8);  // Q, 2 x K, 2 x V
+  return sizeof(uint16_t) * (BQ + 4 * BK) * (D + 8);  // Q, 2 x K, 2 x V
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const float* __restrict__ bias, bf16* __restrict__ o,
-                      float* __restrict__ lse, int H, int sq, int sk,
-                      long long q_sb, long long q_ss, long long q_sh,
-                      long long k_sb, long long k_ss, long long k_sh,
-                      long long v_sb, long long v_ss, long long v_sh,
-                      long long b_sb, long long b_sh, long long b_sq,
-                      float scale, int causal, DropoutParams dp) {
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v,
+                 const float* __restrict__ bias, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int sq, int sk,
+                 long long q_sb, long long q_ss, long long q_sh,
+                 long long k_sb, long long k_ss, long long k_sh,
+                 long long v_sb, long long v_ss, long long v_sh,
+                 long long b_sb, long long b_sh, long long b_sq,
+                 float scale, int causal, DropoutParams dp) {
   constexpr int P = D + 8;    // shared row pitch (elements)
   constexpr int KS = D / 16;  // 16-deep steps of Q K^T
   constexpr int NB = D / 8;   // 8-column blocks of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * P;      // two stages
-  bf16* Vs = Ks + 2 * BK * P;  // two stages
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + BQ * P;      // two stages
+  T* Vs = Ks + 2 * BK * P;  // two stages
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -85,9 +89,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int shift = sk - sq;
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
 
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const T* vb = v + b * v_sb + h * v_sh;
   const float* bb = bias ? bias + b * b_sb + h * b_sh : nullptr;
 
   int nkb = (sk + BK - 1) / BK;
@@ -136,8 +140,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + st * BK * P;
-    const bf16* Vt = Vs + st * BK * P;
+    const T* Kt = Ks + st * BK * P;
+    const T* Vt = Vs + st * BK * P;
 
     // S = Q K^T: 16 rows x 64 keys a warp, n-block j = keys 8j..8j+7
     if (kt == 0) {
@@ -158,8 +162,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bk[4];
         ldsm_x4(bk, Kt + (j * 8 + (lane & 7) + (lane >> 4) * 8) * P +
                         kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[j], qa[kk], bk[0], bk[1]);
-        mma_bf16(s[j + 1], qa[kk], bk[2], bk[3]);
+        mma16<T>(s[j], qa[kk], bk[0], bk[1]);
+        mma16<T>(s[j + 1], qa[kk], bk[2], bk[3]);
       }
     }
 
@@ -217,18 +221,18 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 
-    // O += p' V: p' rounded to bf16 in registers is the A operand
+    // O += p' V: p' rounded to T in registers is the A operand
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       uint32_t pa[4];
-      c_to_a(pa, s[2 * kc], s[2 * kc + 1]);  // p' rounded to bf16
+      c_to_a16<T>(pa, s[2 * kc], s[2 * kc + 1]);  // p' rounded to T
 #pragma unroll
       for (int n = 0; n < NB; n += 2) {
         uint32_t bv[4];
         ldsm_x4_t(bv, Vt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
                           n * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[n], pa, bv[0], bv[1]);
-        mma_bf16(acc[n + 1], pa, bv[2], bv[3]);
+        mma16<T>(acc[n], pa, bv[0], bv[1]);
+        mma16<T>(acc[n + 1], pa, bv[2], bv[3]);
       }
     }
     __syncthreads();  // this stage's K/V reads are done before its refill
@@ -242,10 +246,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + 8 * i;
     if (row >= sq) continue;
     const float safe_l = l[i] > 0.f ? l[i] : 1.f;  // fully masked -> zeros
-    bf16* orow = o + ((static_cast<long long>(b) * sq + row) * H + h) * D;
+    T* orow = o + ((static_cast<long long>(b) * sq + row) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < NB; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_bf16_rn(
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_rn<T>(
           acc[n][2 * i] / safe_l, acc[n][2 * i + 1] / safe_l);
     if (t == 0)
       lse[(static_cast<long long>(b) * H + h) * sq + row] =
@@ -253,7 +257,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            void* o, float* lse, int b, int h, int sq, int sk,
            long long q_sb, long long q_ss, long long q_sh, long long k_sb,
@@ -261,13 +265,13 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
            long long v_sh, long long b_sb, long long b_sh, long long b_sq,
            float scale, int causal, DropoutParams dp, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<D>();
-  cudaFuncSetAttribute(flash_fwd_bf16_kernel<D, DROP>,
+  cudaFuncSetAttribute(flash_fwd_kernel<T, D, DROP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_fwd_bf16_kernel<D, DROP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), lse, h, sq,
+  flash_fwd_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), bias, static_cast<T*>(o), lse, h, sq,
       sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, b_sb, b_sh,
       b_sq, scale, causal, dp);
   return static_cast<int>(cudaGetLastError());
@@ -275,35 +279,45 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
 
 }  // namespace
 
-// bf16 only (dtype 1); d in {64, 80, 96, 128} (the wrapper checks). The
+// flash_attention_fwd_bf16 takes bf16 (dtype 1), flash_attention_fwd_fp16
+// fp16 (dtype 2); d in {64, 80, 96, 128} (the wrapper checks). The
 // arguments are flash_attention_fwd's; q/k/v additionally need 16-byte
 // aligned bases and (batch, sequence, head) strides.
-extern "C" int flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* bias, void* o,
-    void* lse, int dtype, int b, int h, int sq, int sk, int d,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long b_sb, long long b_sh, long long b_sq,
-    float scale, int causal, DS_DROPOUT_PARAMS, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* bi = static_cast<const float*>(bias);
-  float* ls = static_cast<float*>(lse);
-  const DropoutParams dp = DS_DROPOUT_STRUCT;
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+#define DS_FLASH_FWD_BODY(T, CODE)                                          \
+  cudaStream_t st = static_cast<cudaStream_t>(stream);                      \
+  const float* bi = static_cast<const float*>(bias);                        \
+  float* ls = static_cast<float*>(lse);                                     \
+  const DropoutParams dp = DS_DROPOUT_STRUCT;                               \
+  if (dtype != CODE) return static_cast<int>(cudaErrorInvalidValue);        \
+  if (dropout) {                                                            \
+    DS_FLASH_DISPATCH(T, true)                                              \
+  } else {                                                                  \
+    DS_FLASH_DISPATCH(T, false)                                             \
+  }                                                                         \
+  return static_cast<int>(cudaErrorInvalidValue);
 #define DS_FLASH_ARGS                                                      \
   q, k, v, bi, o, ls, b, h, sq, sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,    \
       v_sb, v_ss, v_sh, b_sb, b_sh, b_sq, scale, causal, dp, st
-#define DS_FLASH_DISPATCH(DROP)                                    \
-  if (d == 64) return launch<64, DROP>(DS_FLASH_ARGS);             \
-  if (d == 80) return launch<80, DROP>(DS_FLASH_ARGS);             \
-  if (d == 96) return launch<96, DROP>(DS_FLASH_ARGS);             \
-  if (d == 128) return launch<128, DROP>(DS_FLASH_ARGS);
-  if (dropout) {
-    DS_FLASH_DISPATCH(true)
-  } else {
-    DS_FLASH_DISPATCH(false)
-  }
+#define DS_FLASH_DISPATCH(T, DROP)                                 \
+  if (d == 64) return launch<T, 64, DROP>(DS_FLASH_ARGS);          \
+  if (d == 80) return launch<T, 80, DROP>(DS_FLASH_ARGS);          \
+  if (d == 96) return launch<T, 96, DROP>(DS_FLASH_ARGS);          \
+  if (d == 128) return launch<T, 128, DROP>(DS_FLASH_ARGS);
+#define DS_FLASH_FWD_PARAMS                                                 \
+  const void *q, const void *k, const void *v, const void *bias, void *o,  \
+      void *lse, int dtype, int b, int h, int sq, int sk, int d,           \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,      \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,      \
+      long long v_sh, long long b_sb, long long b_sh, long long b_sq,      \
+      float scale, int causal, DS_DROPOUT_PARAMS, void *stream
+
+extern "C" int flash_attention_fwd_bf16(DS_FLASH_FWD_PARAMS) {
+  DS_FLASH_FWD_BODY(bf16, 1)
+}
+
+extern "C" int flash_attention_fwd_fp16(DS_FLASH_FWD_PARAMS) {
+  DS_FLASH_FWD_BODY(f16, 2)
+}
 #undef DS_FLASH_DISPATCH
 #undef DS_FLASH_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+#undef DS_FLASH_FWD_BODY

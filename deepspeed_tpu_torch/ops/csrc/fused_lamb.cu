@@ -18,6 +18,11 @@
 //     forms the trust ratio and applies the update to its chunk, re-forming
 //     u from the new m and v and the unchanged p with the same code as (1).
 // No floating-point atomics: two runs of a step give the same bits.
+// Phase 1 reads the gradient buffers as fp32 (fused_lamb_phase1) or bf16
+// (fused_lamb_phase1_bf16, for data_types.grad_accum_dtype = bf16),
+// widening g to fp32 in registers: exact, so the same function as JAX's
+// cast of bf16 gradients to fp32 before its kernel (fused_lamb.py:119).
+// The apply does not read g and serves both.
 //
 // What bounds it on the H100: phase 1 moves 20 bytes per parameter (p and g
 // read, m and v read and written), the apply 16 (p read and written, m and
@@ -35,9 +40,12 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int CHUNK = 16384;  // elements per CTA: 64 a thread
 
+// G: the gradient buffers' element type (float or bf16); the record's
+// layout is the same for both
+template <typename G>
 struct LambEntry {
   float* p;
-  const float* g;
+  const G* g;
   float* m;
   float* v;
   long long n;
@@ -89,13 +97,14 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   b = sb[0];
 }
 
+template <typename G>
 __global__ void __launch_bounds__(THREADS)
-lamb_phase1_kernel(const LambEntry* __restrict__ table,
+lamb_phase1_kernel(const LambEntry<G>* __restrict__ table,
                    const int* __restrict__ block_start, int n_entries,
                    const float* __restrict__ grad_norm,
                    float* __restrict__ partials, LambScalars sc) {
   const int entry = find_entry(block_start, n_entries);
-  const LambEntry e = table[entry];
+  const LambEntry<G> e = table[entry];
   const long long base =
       static_cast<long long>(blockIdx.x - block_start[entry]) * CHUNK;
   const long long end = min(base + CHUNK, e.n);
@@ -107,7 +116,7 @@ lamb_phase1_kernel(const LambEntry* __restrict__ table,
   }
   float pp = 0.f, uu = 0.f;
   for (long long i = base + threadIdx.x; i < end; i += THREADS) {
-    float g = e.g[i];
+    float g = to_float(e.g[i]);  // exact for bf16
     if (clip) g = g / norm * sc.max_norm;
     const float p = e.p[i];
     const float m = sc.b1 * e.m[i] + sc.one_minus_b1 * g;
@@ -126,12 +135,12 @@ lamb_phase1_kernel(const LambEntry* __restrict__ table,
 }
 
 __global__ void __launch_bounds__(THREADS)
-lamb_apply_kernel(const LambEntry* __restrict__ table,
+lamb_apply_kernel(const LambEntry<float>* __restrict__ table,
                   const int* __restrict__ block_start, int n_entries,
                   int n_blocks, const float* __restrict__ partials,
                   LambScalars sc) {
   const int entry = find_entry(block_start, n_entries);
-  const LambEntry e = table[entry];
+  const LambEntry<float> e = table[entry];  // g unread: any G's record
   const int first = block_start[entry];
   const int last = entry + 1 < n_entries ? block_start[entry + 1] : n_blocks;
   float pp = 0.f, uu = 0.f;
@@ -161,8 +170,9 @@ lamb_apply_kernel(const LambEntry* __restrict__ table,
 // int32 [n_entries], entry t's first block (a prefix sum of
 // ceil(n / 16384)); n_blocks: the total; partials: device fp32
 // [2 * n_blocks] scratch. grad_norm: device fp32 scalar, or nullptr for no
-// clipping (phase 1 only). All tensors are contiguous fp32. Both entry
-// points take the same arguments.
+// clipping (phase 1 only). p, m and v are contiguous fp32; g is contiguous
+// fp32 (fused_lamb_phase1) or bf16 (fused_lamb_phase1_bf16). The three
+// entry points take the same arguments.
 #define DS_LAMB_PARAMS                                                       \
   const void *table, const void *block_start, int n_entries, int n_blocks,   \
       const void *grad_norm, void *partials, float b1, float one_minus_b1,   \
@@ -173,22 +183,36 @@ lamb_apply_kernel(const LambEntry* __restrict__ table,
     b1, one_minus_b1, b2, one_minus_b2, c1, c2, eps, wd, max_norm, neg_lr   \
   }
 
-extern "C" int fused_lamb_phase1(DS_LAMB_PARAMS) {
+template <typename G>
+int launch_phase1(const void* table, const void* block_start, int n_entries,
+                  int n_blocks, const void* grad_norm, void* partials,
+                  const LambScalars& sc, void* stream) {
   if (n_blocks <= 0) return 0;
-  lamb_phase1_kernel<<<n_blocks, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const LambEntry*>(table),
+  lamb_phase1_kernel<G><<<n_blocks, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const LambEntry<G>*>(table),
       static_cast<const int*>(block_start), n_entries,
       static_cast<const float*>(grad_norm), static_cast<float*>(partials),
-      DS_LAMB_SCALARS);
+      sc);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fused_lamb_phase1(DS_LAMB_PARAMS) {
+  return launch_phase1<float>(table, block_start, n_entries, n_blocks,
+                              grad_norm, partials, DS_LAMB_SCALARS, stream);
+}
+
+extern "C" int fused_lamb_phase1_bf16(DS_LAMB_PARAMS) {
+  return launch_phase1<__nv_bfloat16>(table, block_start, n_entries,
+                                      n_blocks, grad_norm, partials,
+                                      DS_LAMB_SCALARS, stream);
 }
 
 extern "C" int fused_lamb_apply(DS_LAMB_PARAMS) {
   if (n_blocks <= 0) return 0;
   lamb_apply_kernel<<<n_blocks, THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const LambEntry*>(table),
+      static_cast<const LambEntry<float>*>(table),
       static_cast<const int*>(block_start), n_entries, n_blocks,
       static_cast<const float*>(partials), DS_LAMB_SCALARS);
   return static_cast<int>(cudaGetLastError());

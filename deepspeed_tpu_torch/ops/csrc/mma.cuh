@@ -3,7 +3,11 @@
 // memory, ldmatrix fragment loads, the mma.sync.m16n8k16 bf16 product and
 // the mma.sync.m16n8k8 tf32 product with fp32 accumulators, the split of
 // an fp32 value into two tf32 halves for 3xTF32 products, and the fp32
-// tile and fragment helpers that the 3xTF32 flash kernels share.
+// tile and fragment helpers that the 3xTF32 flash kernels share. The
+// m16n8k16 product also comes in fp16 (mma_f16, pack_f16_rn); the flash
+// kernels are templated on their 16-bit element type T and take the
+// product, the packing and the A fragments of P through mma16<T>,
+// pack_rn<T> and c_to_a16<T>, which pick the bf16 or the fp16 instruction.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major) a[0]: (g, 2t..2t+1)   a[1]: (g + 8, 2t..2t+1)
@@ -28,9 +32,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -71,7 +77,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
 }
 
 // the same, each matrix transposed on the way
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -85,6 +91,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A B on the tensor cores (fp16 inputs, fp32 accumulators)
+__device__ __forceinline__ void mma_f16(float (&c)[4],
+                                        const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -144,6 +161,14 @@ __device__ __forceinline__ uint32_t pack_bf16_rn(float lo, float hi) {
   return r;
 }
 
+// two floats rounded to nearest-even fp16 (as torch's .to(); past 65504
+// they become inf), lo in the low half
+__device__ __forceinline__ uint32_t pack_f16_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // The A fragments of one 16-deep step from the C fragments of n-blocks
 // 2kc and 2kc + 1, rounded to bf16.
 __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
@@ -154,20 +179,62 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16_rn(c1[2], c1[3]);
 }
 
-// Rows [r0, r0 + ROWS) of a [s, D] bf16 head slice (row stride ss
-// elements, 16-byte aligned) into shared rows of D + 8 elements, with
-// cp.async by NT threads; rows at or past `limit` are zero-filled. The
-// 16-byte row pad puts the 8 rows of an ldmatrix on distinct banks.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+// The 16-bit element type T (bf16 or f16) of a templated kernel: its
+// m16n8k16 product, its round-to-nearest packing of two floats, and the A
+// fragments of one 16-deep step from two C fragments, rounded to T.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16<bf16>(float (&c)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  mma_bf16(c, a, b0, b1);
+}
+template <>
+__device__ __forceinline__ void mma16<f16>(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  mma_f16(c, a, b0, b1);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack_rn<bf16>(float lo, float hi) {
+  return pack_bf16_rn(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack_rn<f16>(float lo, float hi) {
+  return pack_f16_rn(lo, hi);
+}
+
+template <typename T>
+__device__ __forceinline__ void c_to_a16(uint32_t (&a)[4],
+                                         const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack_rn<T>(c0[0], c0[1]);
+  a[1] = pack_rn<T>(c0[2], c0[3]);
+  a[2] = pack_rn<T>(c1[0], c1[1]);
+  a[3] = pack_rn<T>(c1[2], c1[3]);
+}
+
+// Rows [r0, r0 + ROWS) of a [s, D] head slice of 16-bit elements T (bf16
+// or f16; row stride ss elements, 16-byte aligned) into shared rows of
+// D + 8 elements, with cp.async by NT threads; rows at or past `limit` are
+// zero-filled. The 16-byte row pad puts the 8 rows of an ldmatrix on
+// distinct banks.
+template <int D, int ROWS, int NT, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
                                                 long long ss, int r0,
                                                 int limit) {
+  static_assert(sizeof(T) == 2, "16-bit elements");
   constexpr int CH = D / 8;  // 16-byte chunks a row
   for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = i % CH;
     const bool ok = r0 + r < limit;
     // a zero-filled chunk still names an address inside the slice
-    const bf16* s = src + (ok ? (r0 + r) * ss : 0) + c * 8;
+    const T* s = src + (ok ? (r0 + r) * ss : 0) + c * 8;
     cp_async16(dst + r * (D + 8) + c * 8, s, ok ? 16 : 0);
   }
 }

@@ -5,10 +5,11 @@ Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``
 ``flash_attention`` (:975): the forward ``_flash_fwd`` (:662) with its
 fused counter-based dropout, the backward ``_flash_bwd`` (:773) and the
 ``custom_vjp`` wiring (:957-972), here a ``torch.autograd.Function``. The
-kernels are picked by dtype: bf16 runs the tensor-core kernels of
+kernels are picked by dtype: bf16 and fp16 run the tensor-core kernels of
 ``csrc/flash_attention_fwd_bf16.cu`` and ``csrc/flash_attention_bwd_bf16.cu``
-(dK/dV, then dQ), fp32 (the parity mode) the forward of
-``csrc/flash_attention_fwd.cu`` and the backward of
+(dK/dV, then dQ; one template, a bf16 and an fp16 instance), fp32 (the
+parity mode) the forward of ``csrc/flash_attention_fwd.cu`` and the
+backward of
 ``csrc/flash_attention_bwd.cu``, both on 3xTF32 tensor-core products
 (within about 2^-22 of an fp32 product); their headers say what bounds
 them on the H100 and how they are laid out. Both hold to the same plain
@@ -226,7 +227,7 @@ def _kernel_operands(q, k, v, bias):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: q/k/v dtypes differ "
                         f"({q.dtype}, {k.dtype}, {v.dtype})")
-    code = kernel_dtype_code(q.dtype)
+    code = kernel_dtype_code(q.dtype, fp16=True)
     dev = q.device
     for name, t in (("k", k), ("v", v)):
         if t.device != dev or t.shape[0] != b or t.shape[2] != h \
@@ -250,8 +251,9 @@ def _strides(t):
 
 def _entry(lib, name, code):
     """The C entry point of one flash kernel for the dtype code: the
-    bf16 tensor-core kernel for code 1, the fp32 kernel for code 0."""
-    return getattr(lib, name + "_bf16" if code == 1 else name)
+    tensor-core kernel's bf16 instance for code 1, its fp16 instance for
+    code 2, the fp32 kernel for code 0."""
+    return getattr(lib, name + ("", "_bf16", "_fp16")[code])
 
 
 def _launch(q, k, v, bias, causal, scale, dropout):
@@ -427,9 +429,9 @@ def flash_attention(q, k, v, *, bias=None, causal=True, softmax_scale=None,
     sharded block come with sequence parallelism; the ``Dropout`` tuple
     carries them). Gradients flow to q, k, v (and to the bias when it
     requires grad) through the backward kernels. A CUDA tensor launches
-    the kernels (head_dim 64, 80, 96 or 128; bfloat16 on the tensor
-    cores, float32 on 3xTF32 tensor-core products; else it raises); a
-    CPU tensor runs the plain versions.
+    the kernels (head_dim 64, 80, 96 or 128; bfloat16 and float16 on the
+    tensor cores, float32 on 3xTF32 tensor-core products; else it raises);
+    a CPU tensor runs the plain versions.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D [b, s, h, d] q/k/v")

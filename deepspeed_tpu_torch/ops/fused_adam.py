@@ -7,8 +7,12 @@ device table of (p, g, m, v, numel) entries built once by
 ``FusedAdamState`` (the parameters and their gradient buffers never
 move). The step's scalars (lr, the bias corrections c1/c2, betas, eps,
 weight decay) are computed on the host and passed by value; the global
-grad norm for clipping stays on the device. A CUDA state launches the
-kernel, a CPU state runs ``fused_adam_reference`` tensor by tensor.
+grad norm for clipping stays on the device. The gradient buffers are
+fp32, or bf16 (``data_types.grad_accum_dtype = bf16``): then the bf16
+instance of the kernel (``fused_adam_bf16``) widens g in registers, the
+same function as JAX's cast to fp32 before its kernel (fused_adam.py:106).
+A CUDA state launches the kernel, a CPU state runs
+``fused_adam_reference`` tensor by tensor.
 """
 
 from typing import NamedTuple, Optional
@@ -38,7 +42,9 @@ def fused_adam_reference(p, g, m, v, sc: AdamScalars, grad_norm=None,
     """The kernel's function on one fp32 tensor, in place on p, m, v:
     optax's global-norm clip (``norm < max_norm`` keeps g, else
     g / norm * max_norm), L2, then the Adam moments and the update
-    ``m c1 / (sqrt(v c2) + eps) + wd p`` scaled by -lr."""
+    ``m c1 / (sqrt(v c2) + eps) + wd p`` scaled by -lr. A bf16 ``g`` is
+    widened to fp32 first (exact)."""
+    g = g.float()
     if grad_norm is not None:
         g = torch.where(grad_norm < max_norm, g, g / grad_norm * max_norm)
     if sc.l2:
@@ -49,24 +55,39 @@ def fused_adam_reference(p, g, m, v, sc: AdamScalars, grad_norm=None,
     p.sub_(sc.lr * u)
 
 
+GRAD_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_buffers(name, params, grads):
+    """The fused optimizers' storage rule: contiguous fp32 parameters and
+    contiguous gradient buffers of one shape and device, all fp32 or all
+    bf16. Returns the gradient dtype."""
+    dtypes = {g.dtype for g in grads}
+    for p, g in zip(params, grads, strict=True):
+        if (p.dtype != torch.float32 or g.dtype not in GRAD_DTYPES
+                or len(dtypes) > 1 or p.shape != g.shape
+                or p.device != g.device
+                or not (p.is_contiguous() and g.is_contiguous())):
+            raise ValueError(
+                f"{name} takes contiguous fp32 parameters and fp32 or bf16 "
+                "gradients (one dtype for all) of one shape and device; got "
+                f"{p.dtype} {tuple(p.shape)} and {g.dtype} "
+                f"{tuple(g.shape)}")
+    return dtypes.pop() if dtypes else torch.float32
+
+
 class FusedAdamState:
     """Adam moments of a parameter list, and (on a card) the device table
-    the kernel reads. ``grads`` are the fp32 buffers the gradients are
-    accumulated into; they, like the parameters, must keep their storage
-    for the life of the state (checked at every step)."""
+    the kernel reads. ``grads`` are the fp32 or bf16 buffers the gradients
+    are accumulated into; they, like the parameters, must keep their
+    storage for the life of the state (checked at every step)."""
 
     SLOTS = ("exp_avg", "exp_avg_sq")     # the moments a checkpoint holds
 
     def __init__(self, params, grads):
         self.params, self.grads = list(params), list(grads)
-        for p, g in zip(self.params, self.grads, strict=True):
-            if (p.dtype != torch.float32 or g.dtype != torch.float32
-                    or p.shape != g.shape or p.device != g.device
-                    or not (p.is_contiguous() and g.is_contiguous())):
-                raise ValueError(
-                    "fused_adam takes contiguous fp32 parameters and "
-                    f"gradients of one shape and device; got {p.dtype} "
-                    f"{tuple(p.shape)} and {g.dtype} {tuple(g.shape)}")
+        self.grad_dtype = check_buffers("fused_adam", self.params,
+                                        self.grads)
         self.exp_avg = [torch.zeros_like(p) for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
         self.count = 0          # optimizer steps taken
@@ -128,15 +149,21 @@ def _launch(state, sc, grad_norm, max_norm):
                              f"on {state.device}")
         grad_norm = grad_norm.contiguous()
     lib = op_builder.load()
-    status = lib.fused_adam(
+    bf16 = state.grad_dtype == torch.bfloat16
+    status = (lib.fused_adam_bf16 if bf16 else lib.fused_adam)(
         state._table.data_ptr(), state._block_start.data_ptr(),
         len(state.params), state._n_blocks,
         grad_norm.data_ptr() if grad_norm is not None else None,
         sc.lr, sc.b1, 1.0 - sc.b1, sc.b2, 1.0 - sc.b2, sc.c1, sc.c2, sc.eps,
         sc.wd, sc.l2, float(max_norm),
         torch.cuda.current_stream(state.device).cuda_stream)
-    check_launch(status, "fused_adam")
-    fused_adam.launches += 1
+    if bf16:
+        check_launch(status, "fused_adam_bf16")
+        fused_adam.bf16_launches += 1
+    else:
+        check_launch(status, "fused_adam")
+        fused_adam.launches += 1
 
 
-fused_adam.launches = 0
+fused_adam.launches = 0          # the fp32-gradient instance
+fused_adam.bf16_launches = 0     # the bf16-gradient instance

@@ -11,6 +11,9 @@ by ``FusedLambState``, as ``ops/fused_adam.py`` does. The step's scalars
 are host floats; the global grad norm for clipping and the norms stay on
 the device, so a step never waits on the card. A CUDA state launches the
 kernels, a CPU state runs ``fused_lamb_reference`` tensor by tensor.
+With bf16 gradient buffers (``data_types.grad_accum_dtype = bf16``) phase
+1 is the kernel's bf16 instance (``fused_lamb_phase1_bf16``), which widens
+g in registers as JAX casts it before its kernel (fused_lamb.py:119).
 """
 
 from typing import NamedTuple, Optional
@@ -18,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ._common import check_launch, use_kernel
+from .fused_adam import check_buffers
 
 CHUNK = 16384         # elements per CTA (csrc/fused_lamb.cu)
 
@@ -39,7 +43,9 @@ def fused_lamb_reference(p, g, m, v, sc: LambScalars, grad_norm=None,
     """The kernels' function on one fp32 tensor, in place on p, m, v:
     optax's global-norm clip, the Adam moments, u = m c1 / (sqrt(v c2) +
     eps) + wd p, trust = |p| / |u| (1 when either is 0) and
-    p + (-lr trust) u. Nothing is read back to the host."""
+    p + (-lr trust) u. Nothing is read back to the host. A bf16 ``g`` is
+    widened to fp32 first (exact)."""
+    g = g.float()
     if grad_norm is not None:
         g = torch.where(grad_norm < max_norm, g, g / grad_norm * max_norm)
     m.mul_(sc.b1).add_((1.0 - sc.b1) * g)
@@ -54,8 +60,8 @@ def fused_lamb_reference(p, g, m, v, sc: LambScalars, grad_norm=None,
 
 class FusedLambState:
     """LAMB moments of a parameter list, and (on a card) the device table
-    and partial-sum scratch the kernels use. ``grads`` are the fp32
-    buffers the gradients are accumulated into; they, like the
+    and partial-sum scratch the kernels use. ``grads`` are the fp32 or
+    bf16 buffers the gradients are accumulated into; they, like the
     parameters, must keep their storage for the life of the state
     (checked at every step)."""
 
@@ -63,14 +69,8 @@ class FusedLambState:
 
     def __init__(self, params, grads):
         self.params, self.grads = list(params), list(grads)
-        for p, g in zip(self.params, self.grads, strict=True):
-            if (p.dtype != torch.float32 or g.dtype != torch.float32
-                    or p.shape != g.shape or p.device != g.device
-                    or not (p.is_contiguous() and g.is_contiguous())):
-                raise ValueError(
-                    "fused_lamb takes contiguous fp32 parameters and "
-                    f"gradients of one shape and device; got {p.dtype} "
-                    f"{tuple(p.shape)} and {g.dtype} {tuple(g.shape)}")
+        self.grad_dtype = check_buffers("fused_lamb", self.params,
+                                        self.grads)
         self.exp_avg = [torch.zeros_like(p) for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
         self.count = 0          # optimizer steps taken
@@ -140,11 +140,17 @@ def _launch(state, sc, grad_norm, max_norm):
             state._partials.data_ptr(), sc.b1, 1.0 - sc.b1, sc.b2,
             1.0 - sc.b2, sc.c1, sc.c2, sc.eps, sc.wd, float(max_norm),
             -sc.lr, torch.cuda.current_stream(state.device).cuda_stream)
-    check_launch(lib.fused_lamb_phase1(*args), "fused_lamb_phase1")
-    fused_lamb.phase1_launches += 1
+    if state.grad_dtype == torch.bfloat16:
+        check_launch(lib.fused_lamb_phase1_bf16(*args),
+                     "fused_lamb_phase1_bf16")
+        fused_lamb.bf16_phase1_launches += 1
+    else:
+        check_launch(lib.fused_lamb_phase1(*args), "fused_lamb_phase1")
+        fused_lamb.phase1_launches += 1
     check_launch(lib.fused_lamb_apply(*args), "fused_lamb_apply")
     fused_lamb.apply_launches += 1
 
 
-fused_lamb.phase1_launches = 0
-fused_lamb.apply_launches = 0
+fused_lamb.phase1_launches = 0          # phase 1, fp32 gradients
+fused_lamb.bf16_phase1_launches = 0     # phase 1, bf16 gradients
+fused_lamb.apply_launches = 0           # the apply (both)

@@ -59,9 +59,15 @@ SIGNATURES = {
     "flash_attention_fwd_bf16": _FWD,
     "flash_attention_bwd_dkv_bf16": [_p] * 9 + _BWD,
     "flash_attention_bwd_dq_bf16": [_p] * 8 + _BWD,
+    # their fp16 instances: the same arguments again
+    "flash_attention_fwd_fp16": _FWD,
+    "flash_attention_bwd_dkv_fp16": [_p] * 9 + _BWD,
+    "flash_attention_bwd_dq_fp16": [_p] * 8 + _BWD,
     # table, block_start, n_entries, n_blocks, grad_norm, lr, b1, 1-b1,
     # b2, 1-b2, c1, c2, eps, wd, l2, max_norm, stream
     "fused_adam": [_p, _p, _i, _i, _p] + [_f] * 11 + [_p],
+    # the same over bf16 gradient buffers
+    "fused_adam_bf16": [_p, _p, _i, _i, _p] + [_f] * 11 + [_p],
     # q, k, v, lengths, slopes, o, split-KV partials and counters, their
     # sizes, dtype, B, H, S, d, q strides (batch, head), k/v strides
     # (batch, head, seq), scale, stream
@@ -83,6 +89,7 @@ SIGNATURES = {
     # table, block_start, n_entries, n_blocks, grad_norm, partials, b1,
     # 1-b1, b2, 1-b2, c1, c2, eps, wd, max_norm, -lr, stream (both passes)
     "fused_lamb_phase1": _LAMB,
+    "fused_lamb_phase1_bf16": _LAMB,      # phase 1 over bf16 gradients
     "fused_lamb_apply": _LAMB,
     "block_sparse_attention_dkv": [_p] * 13 + _SPARSE_BWD,
     # the bf16 tensor-core dQ and dK/dV: the same arguments as the two above

@@ -8,7 +8,9 @@ uses (``['params']['h_0']['attn']['qkv']['kernel']``)::
     save_dir/latest                  <- the tag, written atomically
     save_dir/<tag>/state.pt          <- {"params": {path: tensor},
                                          "optimizer_state": {"count": n,
-                                           slot: {path: tensor}}}
+                                           slot: {path: tensor}},
+                                         fp16: "loss_scale": {field: 0-dim
+                                           tensor}}
     save_dir/<tag>/engine_meta.json  <- the JAX package's keys, and
                                         micro_steps
     save_dir/<tag>/manifest.json     <- sizes and digests of the above
@@ -99,14 +101,19 @@ def _host_copy(named):
 
 
 def snapshot_state(engine):
-    """The engine's state as CPU tensors: parameters, and the optimizer's
-    slots and step count."""
+    """The engine's state as CPU tensors: parameters, the optimizer's
+    slots and step count, and in fp16 the loss-scale state (JAX
+    checkpointing.py:184-185)."""
     opt = engine.optimizer_state
     paths = [path for path, _ in engine._named_params]
-    return {"params": _host_copy(engine._named_params),
-            "optimizer_state": {"count": int(opt.count), **{
-                slot: _host_copy(zip(paths, getattr(opt, slot)))
-                for slot in opt.SLOTS}}}
+    state = {"params": _host_copy(engine._named_params),
+             "optimizer_state": {"count": int(opt.count), **{
+                 slot: _host_copy(zip(paths, getattr(opt, slot)))
+                 for slot in opt.SLOTS}}}
+    if engine.fp16_enabled and engine.loss_scale_state is not None:
+        state["loss_scale"] = _host_copy(
+            engine.loss_scale_state._asdict().items())
+    return state
 
 
 def _write_state(path, state):
@@ -327,6 +334,17 @@ def load_engine_checkpoint(engine, load_dir, tag=None,
             _copy_into(list(zip(paths, getattr(opt, slot))), saved[slot],
                        f"optimizer {slot}")
         opt.count = int(saved["count"])
+    if engine.fp16_enabled:
+        # JAX :387-390, :432-435: restored when the tag holds it (an fp32
+        # or bf16 tag leaves the live scale as it is)
+        if "loss_scale" in state:
+            from .fp16.loss_scaler import LossScaleState
+            engine.loss_scale_state = LossScaleState(**{
+                k: v.to(engine.device)
+                for k, v in state["loss_scale"].items()})
+        else:
+            logger.warning(f"checkpoint at {path} holds no loss-scale "
+                           "state; the engine keeps its current one")
     client_state = {}
     meta_path = os.path.join(path, META_FILE)
     if os.path.exists(meta_path):

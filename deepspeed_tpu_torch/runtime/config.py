@@ -2,10 +2,12 @@
 
 The same JSON schema and key names: ``DeepSpeedConfig.from_dict`` reads
 the blocks this slice of the port runs (batch sizes, ``optimizer``,
-``scheduler``, ``bf16``, ``gradient_clipping``, ``zero_optimization``
-stage 0/1, ``data_types`` fp32, ``sparse_attention`` stored unread as
-in the JAX package, ``compression_training`` weight quantization and
-pruning, ``quantize_training`` MoQ) and resolves the reference's batch
+``scheduler``, ``fp16`` with static or dynamic loss scaling, ``bf16``,
+``gradient_clipping``, ``zero_optimization`` stage 0/1, ``data_types``
+fp32 or bf16 gradient accumulation, ``activation_checkpointing``,
+``progressive_layer_drop``, ``sparse_attention`` stored unread as in the
+JAX package, ``compression_training`` weight quantization and pruning,
+``quantize_training`` MoQ) and resolves the reference's batch
 arithmetic (train_batch_size = micro_batch * gradient_accumulation_steps
 * dp_world_size) with dp_world_size = 1: the port trains on one card.
 
@@ -28,9 +30,20 @@ from .config_utils import (DeepSpeedConfigError, dataclass_to_dict,
 
 @dataclass
 class FP16Config:
-    """fp16 block: ``enabled: true`` raises (loss scaling comes with a
-    later slice); its loss-scale keys come with it and warn until then."""
+    """fp16 block (JAX config.py:32-45): ``loss_scale`` 0 means dynamic
+    scaling from 2 ** ``initial_scale_power``. ``auto_cast`` is stored and,
+    as in the JAX package, read by nothing."""
     enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0.0           # 0 -> dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+
+    @property
+    def dynamic_loss_scale(self):
+        return self.loss_scale == 0
 
 
 @dataclass
@@ -65,9 +78,40 @@ class SchedulerConfig:
 
 
 @dataclass
+class ActivationCheckpointingConfig:
+    """activation_checkpointing block (JAX config.py:185-205):
+    ``remat_policy`` picks what a checkpointed block saves (None: the
+    model's own policy, or ``full`` when it has none)."""
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    remat_policy: Optional[str] = None
+
+    def __post_init__(self):
+        # the models' table is the one list of names; "offload" is known
+        # and refused by name at config read (_later_slice_check)
+        from ..models.layers import REMAT_POLICIES
+        names = (*REMAT_POLICIES, "offload")
+        if self.remat_policy is not None and self.remat_policy not in names:
+            raise DeepSpeedConfigError(
+                f"activation_checkpointing.remat_policy must be one of "
+                f"{names}, got {self.remat_policy!r}")
+
+
+@dataclass
+class ProgressiveLayerDropConfig:
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+
+@dataclass
 class DataTypesConfig:
-    """data_types block: gradient accumulation in fp32 (bf16 accumulation
-    comes with a later slice)."""
+    """data_types block: gradient accumulation in fp32 (the default) or
+    bf16."""
     grad_accum_dtype: Optional[str] = None
 
     def resolve(self):
@@ -103,12 +147,9 @@ def _mesh_wide(mesh):
 # top-level key -> (is it asked for?, the later slice of the port that
 # brings it); a key that is present with its default value is accepted
 LATER_SLICES = {
-    "fp16": (_on, "the fp16 loss-scaling slice"),
     "zero_optimization": (
         lambda z: isinstance(z, dict) and int(z.get("stage", 0)) >= 2,
         "the multi-GPU ZeRO slice (stage >= 2)"),
-    "activation_checkpointing": (lambda b: b is not None,
-                                 "the remat slice"),
     "tiering": (_on, "the offload and tiering slice"),
     "pipeline": (lambda b: isinstance(b, dict)
                  and int(b.get("stages", 1)) > 1, "the pipeline slice"),
@@ -117,7 +158,6 @@ LATER_SLICES = {
     "observability": (_on, "the observability slice"),
     "curriculum_learning": (_on, "the data-efficiency slice"),
     "data_efficiency": (lambda b: bool(b), "the data-efficiency slice"),
-    "progressive_layer_drop": (_on, "the data-efficiency slice (PLD)"),
     "eigenvalue": (_on, "the compression slice (eigenvalue)"),
     "flops_profiler": (_on, "the observability slice"),
     "comms_logger": (_on, "the observability slice"),
@@ -184,12 +224,13 @@ def _later_slice_check(d: dict):
     if isinstance(opt, dict) and opt.get("legacy_fusion"):
         raise NotImplementedError(
             "optimizer.legacy_fusion has no counterpart in the port")
-    dt = d.get("data_types")
-    if isinstance(dt, dict) and dict_to_dataclass(
-            DataTypesConfig, dt, "data_types").resolve() != "float32":
+    ac = d.get("activation_checkpointing")
+    if isinstance(ac, dict) and (ac.get("cpu_checkpointing")
+                                 or ac.get("remat_policy") == "offload"):
         raise NotImplementedError(
-            "data_types.grad_accum_dtype = bf16 comes with a later slice "
-            "of the port (gradients accumulate in fp32)")
+            "activation_checkpointing cpu_checkpointing / remat policy "
+            "'offload' (saved activations in host memory) comes with the "
+            "offload and tiering slice of the port")
 
 
 @dataclass
@@ -205,6 +246,10 @@ class DeepSpeedConfig:
     bf16: BF16Config = field(default_factory=BF16Config)
     zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
     data_types: DataTypesConfig = field(default_factory=DataTypesConfig)
+    activation_checkpointing: ActivationCheckpointingConfig = field(
+        default_factory=ActivationCheckpointingConfig)
+    progressive_layer_drop: ProgressiveLayerDropConfig = field(
+        default_factory=ProgressiveLayerDropConfig)
 
     gradient_clipping: float = 0.0
     # stored as the JAX config does (config.py:412); nothing reads it: a
@@ -224,6 +269,8 @@ class DeepSpeedConfig:
         "bf16": BF16Config,
         "zero_optimization": ZeroConfig,
         "data_types": DataTypesConfig,
+        "activation_checkpointing": ActivationCheckpointingConfig,
+        "progressive_layer_drop": ProgressiveLayerDropConfig,
     }
 
     @classmethod
@@ -247,6 +294,12 @@ class DeepSpeedConfig:
                                f"slice of the port: {NO_EFFECT[k]}")
             elif k not in LATER_SLICES:
                 logger.warning(f"Unknown top-level config key '{k}' ignored")
+        fp16 = d.get("fp16")
+        if isinstance(fp16, dict) and not fp16.get("enabled", False):
+            for k in fp16:
+                if k != "enabled" and k in FP16Config.__dataclass_fields__:
+                    logger.warning(f"config key 'fp16.{k}' has no effect: "
+                                   "fp16 is not enabled")
         cfg = cls(**kwargs)
         cfg.resolve_batch_sizes(1)
         cfg.validate()
@@ -289,6 +342,12 @@ class DeepSpeedConfig:
                 f"micro_batch={mb} * gas={gas} * dp_world={dp_world_size}")
 
     def validate(self):
+        if self.fp16.enabled and self.bf16.enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        if self.fp16.enabled and self.data_types.resolve() != "float32":
+            raise DeepSpeedConfigError(
+                "data_types.grad_accum_dtype=bf16 is incompatible with fp16 "
+                "loss scaling (unscale needs fp32 headroom)")
         if self.gradient_clipping < 0:
             raise DeepSpeedConfigError("gradient_clipping must be >= 0")
 

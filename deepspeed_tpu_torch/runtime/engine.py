@@ -22,11 +22,32 @@ norm, and the fused optimizer's launches (one for Adam, two for LAMB)
 that clip as optax's ``clip_by_global_norm`` does (``norm < max`` keeps
 g, else g / norm * max; torch's ``clip_grad_norm_`` is a different
 function). The loss, the norm and the clip decision stay on the device:
-``train_batch`` never waits on the card and returns the mean loss as a
-0-dim device tensor. ``forward``/``backward``/``step`` run the same
-microbatch and optimizer code one call at a time: ``backward`` adds the
-gradient of ``loss / gas`` into the same buffers (the first one after a
-step zeroes them), ``step`` runs the optimizer at the boundary.
+outside fp16 ``train_batch`` never waits on the card and returns the mean
+loss as a 0-dim device tensor. ``forward``/``backward``/``step`` run the
+same microbatch and optimizer code one call at a time: ``backward`` adds
+the gradient of ``loss / gas`` into the same buffers (the first one after
+a step zeroes them), ``step`` runs the optimizer at the boundary.
+
+fp16 (JAX :118-123, :862-994): each microbatch differentiates
+``loss * scale / gas`` (the forward/backward convention: ``loss * scale``,
+its gradient then divided by gas), the step unscales the buffers, takes
+the norm of the unscaled gradients, checks every element for
+finiteness, and updates the loss scale (``runtime/fp16/loss_scaler.py``).
+An overflowed step skips the optimizer, whose count, bias corrections
+and learning rate stay where they were, while ``global_steps`` and
+``skipped_steps`` advance. The optimizer's count and learning rate live
+on the host, so fp16 reads the finite flag back once a step.
+
+``data_types.grad_accum_dtype = bf16`` (JAX :862-912, :1362-1370): the
+buffers are bf16 tensors beside the parameters (``.grad`` stays None);
+each microbatch's fp32 gradient, of ``loss / gas`` in ``train_batch`` or
+of ``loss`` divided by gas afterwards in ``backward``, is cast to bf16 and
+added. The fused optimizers read them through their bf16-gradient kernels.
+
+``activation_checkpointing`` sets the model's remat policy
+(``_apply_activation_checkpointing_config``, JAX :306-392) and
+``progressive_layer_drop`` hands ``layer_keep_prob`` (theta of the step,
+a 0-dim fp32 tensor) to a ``loss_fn`` that takes it (JAX :214-237).
 
 After each optimizer step the compression and MoQ projections
 (``compression_training``, ``quantize_training``) snap the fp32 masters
@@ -41,6 +62,8 @@ elements. With dropout on, the two conventions draw different bits by
 design (in JAX too); with it off they agree bit for bit.
 """
 
+import dataclasses
+import inspect
 import os
 from typing import Any, Callable, Dict, Optional
 
@@ -51,8 +74,26 @@ from ..ops._common import resolve_device
 from ..ops.dropout import fold_seed, seed_words
 from .config import DeepSpeedConfig
 from .config_utils import logger
+from .fp16.loss_scaler import grads_finite, init_loss_scale, update_scale
 from .lr_schedules import get_lr_schedule
 from .optimizers import Optimizer, build_optimizer
+from .progressive_layer_drop import ProgressiveLayerDrop
+
+
+def _cast_add_hook(buf, divisor):
+    """A parameter's post-accumulate-grad hook for a bf16 buffer ``buf``:
+    during the engine's backward (``divisor[0]`` set) the fp32 gradient
+    autograd just finished is divided, cast to the buffer's dtype and
+    added (JAX's round-then-add, :906), and ``.grad`` is dropped. The
+    hook holds the buffer and the divisor cell, not the engine."""
+    def hook(p):
+        if divisor[0] is None:
+            return
+        g, p.grad = p.grad, None
+        if divisor[0] != 1:
+            g = g.div_(divisor[0])
+        buf.add_(g.to(buf.dtype))
+    return hook
 
 
 class DeepSpeedEngine:
@@ -63,7 +104,8 @@ class DeepSpeedEngine:
     ``rng`` is the microbatch's dropout seed words (s0, s1), for
     ``model(..., dropout_seed=rng)``; ``loss_kwargs`` are the keyword
     operands given to ``train_batch``, ``forward`` or ``eval_batch``,
-    passed through unchanged.
+    passed through unchanged (with progressive layer drop, training calls
+    also get ``layer_keep_prob`` when the ``loss_fn`` takes it).
     """
 
     def __init__(self, model: torch.nn.Module, config, *,
@@ -86,24 +128,47 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
-        self.skipped_steps = 0      # no fp16 overflow skips: bf16 or fp32
+        self.skipped_steps = 0      # fp16 steps skipped on an overflow
         self.dp_world_size = 1
         self.zero_stage = config.zero_optimization.stage
-        self.fp16_enabled = False
+        self._apply_activation_checkpointing_config()
+
+        # ---- precision -----------------------------------------------------
+        self.fp16_enabled = config.fp16.enabled
         self.bf16_enabled = config.bf16.enabled
+        fp16 = config.fp16
+        self.loss_scale_state = init_loss_scale(
+            0.0 if fp16.dynamic_loss_scale else fp16.loss_scale,
+            fp16.initial_scale_power, hysteresis=fp16.hysteresis,
+            device=self.device) if self.fp16_enabled else None
+        self._accum_dtype = getattr(torch, config.data_types.resolve())
         self._seed = seed_words(seed)
 
         # ---- fp32 master weights and their gradient buffers ---------------
+        # fp32 buffers are the parameters' .grad (autograd adds into them);
+        # bf16 ones sit beside the parameters and take each microbatch's
+        # gradient cast to bf16 as it arrives (_cast_add_hook)
         self._params = [p for p in self.module.parameters()
                         if p.requires_grad]
         for p in self._params:
             if p.dtype != torch.float32:
                 raise TypeError(f"the engine trains fp32 master weights; a "
                                 f"parameter is {p.dtype}")
-            p.grad = torch.zeros_like(p)
-        self._grads = [p.grad for p in self._params]
+            if self._accum_dtype == torch.float32:
+                p.grad = torch.zeros_like(p)
+        self._grads = [p.grad if self._accum_dtype == torch.float32 else
+                       torch.zeros_like(p, dtype=self._accum_dtype)
+                       for p in self._params]
+        # the divisor of a backward that feeds the bf16 buffers; None
+        # outside the engine's own backward (the hooks then do nothing)
+        self._grad_divisor = [None]
+        if self._accum_dtype != torch.float32:
+            for p, buf in zip(self._params, self._grads):
+                p.register_post_accumulate_grad_hook(
+                    _cast_add_hook(buf, self._grad_divisor))
 
         self._configure_optimizer(optimizer, lr_scheduler)
+        self._configure_progressive_layer_drop(loss_fn)
         self._configure_weight_projections()
         self._last_loss = None
         self._last_grad_norm = None
@@ -115,7 +180,97 @@ class DeepSpeedEngine:
             f"DeepSpeedEngine ready on {self.device}: micro_batch="
             f"{config.train_micro_batch_size_per_gpu} "
             f"gas={config.gradient_accumulation_steps} precision="
-            f"{'bf16' if self.bf16_enabled else 'fp32'}")
+            f"{self._precision()} grad_accum={str(self._accum_dtype)[6:]}")
+
+    def _precision(self):
+        return ("fp16" if self.fp16_enabled else
+                "bf16" if self.bf16_enabled else "fp32")
+
+    def _apply_activation_checkpointing_config(self):
+        """The ``activation_checkpointing`` block (JAX :306-392): present,
+        it sets the model's remat policy (``remat_policy``, else the
+        model's own, else ``full``) on models that carry a config with a
+        ``remat`` field (``models.GPT``, ``BertForPreTraining``). Knobs
+        with no counterpart on one card warn; ``cpu_checkpointing`` and
+        the ``offload`` policy raise at config read."""
+        raw = self.config._raw.get("activation_checkpointing")
+        if raw is None:
+            return
+        acfg = self.config.activation_checkpointing
+        for knob in ("contiguous_memory_optimization",
+                     "synchronize_checkpoint_boundary"):
+            if raw.get(knob):
+                logger.warning(
+                    f"activation_checkpointing.{knob} has no counterpart "
+                    "here (the caching allocator owns buffer layout; one "
+                    "stream needs no explicit synchronization) — ignored")
+        if raw.get("number_checkpoints"):
+            logger.warning(
+                "activation_checkpointing.number_checkpoints is ignored: "
+                "remat granularity is per transformer block")
+        if acfg.partition_activations:
+            logger.warning(
+                "activation_checkpointing.partition_activations needs a "
+                "model-parallel mesh axis (mp=1 here) — no-op")
+        mcfg = getattr(self.module, "config", None)
+        if mcfg is None or not hasattr(mcfg, "remat"):
+            logger.warning(
+                "activation_checkpointing block set but the model does not "
+                "expose a rematerialization config (models from "
+                "deepspeed_tpu_torch.models do) — apply "
+                "torch.utils.checkpoint in your own model code to honor it")
+            return
+        from ..models.layers import remat_policy
+        remat = mcfg.remat if mcfg.remat != "none" else "full"
+        if acfg.remat_policy is not None:
+            remat_policy(acfg.remat_policy)
+            remat = acfg.remat_policy
+        if remat != mcfg.remat:
+            new = dataclasses.replace(mcfg, remat=remat)
+            for m in self.module.modules():     # BERT's encoder shares it
+                if getattr(m, "config", None) is mcfg:
+                    m.config = new
+            logger.info(f"activation_checkpointing: model remat policy set "
+                        f"to '{remat}'")
+
+    def _configure_progressive_layer_drop(self, loss_fn):
+        """PLD (JAX :214-237): theta reaches the model through the
+        ``loss_fn`` as ``layer_keep_prob`` when it declares that keyword
+        (or takes ``**kwargs``)."""
+        pld = self.config.progressive_layer_drop
+        self.progressive_layer_drop = (
+            ProgressiveLayerDrop(theta=pld.theta, gamma=pld.gamma)
+            if pld.enabled else None)
+        try:
+            sig = inspect.signature(loss_fn).parameters
+            self._loss_fn_kwargs = {
+                name for name, p in sig.items()
+                if p.kind in (p.KEYWORD_ONLY, p.POSITIONAL_OR_KEYWORD)
+            } | ({"*"} if any(p.kind == p.VAR_KEYWORD
+                              for p in sig.values()) else set())
+        except (TypeError, ValueError):  # builtins without signatures
+            self._loss_fn_kwargs = {"*"}
+        if (self.progressive_layer_drop is not None
+                and not self._loss_accepts("layer_keep_prob")):
+            logger.warning(
+                "progressive_layer_drop is enabled but loss_fn does not "
+                "accept a 'layer_keep_prob' kwarg — theta cannot reach the "
+                "model and PLD is a no-op")
+
+    def _loss_accepts(self, kwarg: str) -> bool:
+        return "*" in self._loss_fn_kwargs or kwarg in self._loss_fn_kwargs
+
+    def _train_kwargs(self, loss_kwargs):
+        """The loss_fn's keyword operands of a training call: the caller's,
+        and PLD's theta of this step (JAX :1113-1117)."""
+        extra = dict(loss_kwargs)
+        if (self.progressive_layer_drop is not None
+                and self._loss_accepts("layer_keep_prob")):
+            theta = self.progressive_layer_drop.update_state(
+                self.global_steps)
+            extra["layer_keep_prob"] = torch.tensor(
+                theta, dtype=torch.float32, device=self.device)
+        return extra
 
     def _configure_optimizer(self, client_optimizer, client_scheduler):
         """JAX :583-607: LR schedule (client > config scheduler > constant
@@ -194,21 +349,66 @@ class DeepSpeedEngine:
 
     def global_grad_norm(self):
         """sqrt of the sum of squares of every gradient, fp32, on the
-        device (JAX :936)."""
-        return torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(self._grads)))
+        device (JAX :936; bf16 buffers are widened, as JAX casts them)."""
+        if self._accum_dtype == torch.float32:
+            norms = torch._foreach_norm(self._grads)
+        else:
+            norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
+                     for g in self._grads]
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def _add_microbatch_grads(self, loss, divide_by_gas: bool):
+        """Add the gradient of ``loss`` (divided by gas afterwards with
+        ``divide_by_gas``, the forward/backward convention's g / gas) into
+        the buffers: autograd's own add into the fp32 ``.grad`` where it
+        can; bf16 buffers take each parameter's fp32 gradient (divided,
+        then cast) as autograd finishes it, so one gradient at a time
+        lives in fp32; else the fp32 gradients, divided, added in place."""
+        gas = self.config.gradient_accumulation_steps
+        if self._accum_dtype != torch.float32:
+            self._grad_divisor[0] = gas if divide_by_gas else 1
+            try:
+                loss.backward()
+            finally:
+                self._grad_divisor[0] = None
+            return
+        if not divide_by_gas:
+            loss.backward()
+            return
+        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        bufs = [b for b, g in zip(self._grads, grads) if g is not None]
+        grads = [g for g in grads if g is not None]
+        torch._foreach_div_(grads, gas)
+        torch._foreach_add_(bufs, grads)
 
     def _optimizer_step(self):
         """The boundary of a gradient-accumulation window, shared by
         ``train_batch`` and ``step`` (JAX :1434 and :1413-1419, in its
-        order): the global grad norm, the optimizer launch with the clip,
-        the step and sample counts, then the weight projections."""
+        order): the fp16 unscale, the global grad norm, the optimizer
+        launch with the clip (skipped on an fp16 overflow, JAX :975-994),
+        the loss-scale update, the step and sample counts, then the weight
+        projections."""
         cfg = self.config
+        scaler = self.loss_scale_state
+        if self.fp16_enabled:
+            torch._foreach_mul_(self._grads, 1.0 / scaler.scale)
         gnorm = self.global_grad_norm()
         clip = cfg.gradient_clipping
-        self.optimizer.step(self.optimizer_state,
-                            grad_norm=gnorm if clip > 0 else None,
-                            max_norm=clip)
+        finite = grads_finite(self._grads) if self.fp16_enabled else None
+        # fp16: the one host read of a step, the finite flag (the
+        # optimizer's count and learning rate live on the host)
+        if finite is None or bool(finite):
+            self.optimizer.step(self.optimizer_state,
+                                grad_norm=gnorm if clip > 0 else None,
+                                max_norm=clip)
+        else:
+            self.skipped_steps += 1
+        if self.fp16_enabled:
+            f16 = cfg.fp16
+            self.loss_scale_state = update_scale(
+                scaler, finite, dynamic=f16.dynamic_loss_scale,
+                scale_window=f16.loss_scale_window,
+                hysteresis=f16.hysteresis, min_scale=f16.min_loss_scale)
         self.global_steps += 1
         self.global_samples += cfg.train_batch_size
         self._last_grad_norm = gnorm
@@ -230,11 +430,14 @@ class DeepSpeedEngine:
         torch._foreach_zero_(self._grads)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         step_words = fold_seed(self._seed, self.global_steps + 1)
+        extra = self._train_kwargs(loss_kwargs)
         for i in range(gas):
             mb = {k: v[i] for k, v in batch.items()}
             loss = self._loss_fn(self.module, mb, fold_seed(step_words, i),
-                                 True, **loss_kwargs)
-            (loss / gas).backward()
+                                 True, **extra)
+            self._add_microbatch_grads(
+                loss * self.loss_scale_state.scale / gas
+                if self.fp16_enabled else loss / gas, divide_by_gas=False)
             loss_sum += loss.detach().float()
         mean_loss = loss_sum / gas
         self.micro_steps += gas
@@ -255,7 +458,7 @@ class DeepSpeedEngine:
         self.module.train()
         loss = self._loss_fn(self.module, batch,
                              fold_seed(self._seed, self.micro_steps + 1),
-                             True, **loss_kwargs)
+                             True, **self._train_kwargs(loss_kwargs))
         self._pending_loss = loss
         self._last_loss = loss.detach()
         return loss
@@ -264,17 +467,27 @@ class DeepSpeedEngine:
 
     def backward(self, loss=None):
         """Add the gradient of the last ``forward``'s loss / gas into the
-        fp32 gradient buffers (the first call after a step zeroes them
-        first). As in the JAX engine, ``loss`` is taken for the
-        reference's signature: the gradient is that of the loss the last
-        ``forward`` returned."""
+        gradient buffers (the first call after a step zeroes them first);
+        in fp16 and with bf16 buffers, the gradient of ``loss * scale``
+        (resp. ``loss``) divided by gas, as JAX orders it (:1362-1370). As
+        in the JAX engine, ``loss`` is taken for the reference's
+        signature: the gradient is that of the loss the last ``forward``
+        returned."""
         if self._pending_loss is None:
             raise RuntimeError(
                 "backward() called without a preceding forward()")
         if self._accum_count == 0:
             torch._foreach_zero_(self._grads)
         gas = self.config.gradient_accumulation_steps
-        (self._pending_loss / gas).backward()
+        if self.fp16_enabled:
+            self._add_microbatch_grads(
+                self._pending_loss * self.loss_scale_state.scale,
+                divide_by_gas=True)
+        elif self._accum_dtype != torch.float32:
+            self._add_microbatch_grads(self._pending_loss,
+                                       divide_by_gas=True)
+        else:
+            (self._pending_loss / gas).backward()
         self._pending_loss = None
         self._accum_count += 1
         self.micro_steps += 1
@@ -307,7 +520,10 @@ class DeepSpeedEngine:
         return float(self.lr_schedule(self.global_steps))
 
     def get_loss_scale(self):
-        return 1.0
+        """The live loss scale (a host read in fp16), else 1.0."""
+        if not self.fp16_enabled:
+            return 1.0
+        return float(self.loss_scale_state.scale)
 
     def zero_optimization_stage(self):
         return self.zero_stage

@@ -221,9 +221,6 @@ def test_later_slice_options_raise():
     with pytest.raises(NotImplementedError, match="residual-dropout"):
         BertForPreTraining(dataclasses.replace(pcfg, dropout_rate=0.1))
     with pytest.raises(NotImplementedError, match="remat"):
-        BertForPreTraining(dataclasses.replace(pcfg, remat="full"))
-    model = BertForPreTraining(pcfg)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        model.bert(torch.zeros(1, 8, dtype=torch.long), layer_keep_prob=0.9)
+        BertForPreTraining(dataclasses.replace(pcfg, remat="offload"))
     with pytest.raises(ValueError, match="activation"):
         BertForPreTraining(dataclasses.replace(pcfg, activation="tanh"))

@@ -128,3 +128,52 @@ def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         op_builder.find_nvcc()
+
+
+def test_the_checks_cover_the_training_mode_modules():
+    """The training modes' modules (the loss scaler, PLD, the
+    activation-checkpointing API) are among the files and modules the
+    import checks walk."""
+    mods = {m.name for m in pkgutil.walk_packages(
+        deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")}
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("runtime/fp16/loss_scaler", "runtime/progressive_layer_drop",
+                 "runtime/activation_checkpointing/checkpointing"):
+        assert "deepspeed_tpu_torch." + name.replace("/", ".") in mods
+        assert name + ".py" in files
+
+
+def test_cpu_training_modes_launch_no_kernel():
+    """fp16 with loss scaling, bf16 accumulation with LAMB, remat and PLD
+    on the CPU run the plain versions only."""
+    from deepspeed_tpu_torch.models import gpt_chunked_loss_fn
+    from deepspeed_tpu_torch.ops import fused_adam, fused_lamb
+    counters = [(flash_attention, "launches"), (fused_adam, "launches"),
+                (fused_adam, "bf16_launches"),
+                (fused_lamb, "bf16_phase1_launches"),
+                (fused_lamb, "apply_launches")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+
+    def loss_fn(model, batch, rng, train, layer_keep_prob=None):
+        ids = batch["input_ids"].long()
+        h, w = model(ids[:, :-1], dropout_seed=rng, return_hidden=True,
+                     layer_keep_prob=layer_keep_prob)
+        return gpt_chunked_loss_fn(h, w, ids[:, 1:], 8)
+
+    ids = np.random.RandomState(0).randint(0, 17, (4, 17))
+    for dtype, extra in (
+            (torch.float16, {"fp16": {"enabled": True},
+                             "optimizer": {"type": "FusedAdam"}}),
+            (torch.float32, {"data_types": {"grad_accum_dtype": "bf16"},
+                             "optimizer": {"type": "FusedLamb"}})):
+        model = GPT(GPTConfig(vocab_size=17, max_seq_len=32, d_model=64,
+                              n_layers=2, n_heads=1, dtype=dtype,
+                              attn_dropout_rate=0.1))
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=model, loss_fn=loss_fn, device="cpu",
+            config={"train_batch_size": 4, "gradient_accumulation_steps": 2,
+                    "activation_checkpointing": {"remat_policy": "attn_out"},
+                    "progressive_layer_drop": {"enabled": True}, **extra})
+        assert np.isfinite(float(eng.train_batch({"input_ids": ids})))
+    assert all(getattr(fn, attr) == 0 for fn, attr in counters)

@@ -223,7 +223,7 @@ def test_config_reads_the_slice_blocks_and_rejects_bad_batches():
 
 
 @pytest.mark.parametrize("block,match", [
-    ({"fp16": {"enabled": True}}, "fp16"),
+    ({"activation_checkpointing": {"cpu_checkpointing": True}}, "offload"),
     ({"zero_optimization": {"stage": 2}}, "ZeRO"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
      "offload"),
@@ -235,9 +235,9 @@ def test_config_reads_the_slice_blocks_and_rejects_bad_batches():
     ({"compression_training": {"activation_quantization": {
         "shared_parameters": {"enabled": True}}}}, "compression"),
     ({"curriculum_learning": {"enabled": True}}, "data-efficiency"),
-    ({"progressive_layer_drop": {"enabled": True}}, "PLD"),
-    ({"activation_checkpointing": {}}, "remat"),
-    ({"data_types": {"grad_accum_dtype": "bf16"}}, "bf16"),
+    ({"eigenvalue": {"enabled": True}}, "eigenvalue"),
+    ({"activation_checkpointing": {"remat_policy": "offload"}}, "remat"),
+    ({"flops_profiler": {"enabled": True}}, "observability"),
     ({"wall_clock_breakdown": True}, "timers"),
     ({"memory_breakdown": True}, "memory report"),
     ({"dump_state": True}, "observability"),
