@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile | --checks-only | --8c-only |
                            --7a-only | --loop-only | --fp16-only |
-                           --serving-only |
+                           --inject-only | --11b-only | --serving-only |
                            --serving-timing [dir] | --decode-timing [dir] |
                            --serving-ab dir | --chunk-sweep |
                            --planted-faults [name]]
@@ -164,13 +164,40 @@ Phases, each fatal on failure:
    parameters within 4 lr. Phase 3 holds the fp16 flash kernels (the
    training grid and GPT-2's shape; fp16 ``Gate``) and Adam and LAMB over
    bf16 gradients against their plain versions first, and times them at
-   10a's and 10c's shapes.
+   10a's and 10c's shapes;
+11. checkpoint injection end to end: (a) Pythia-1.4B (EleutherAI's
+   ``config.json``: d 2048, 16 heads of 128, 24 layers, d_ff 8192, rotary
+   over 32 dims, vocab 50304, parallel residual, exact GELU, untied head)
+   drawn from a seed, exported to HuggingFace's layout in fp16
+   (``export_hf_state_dict``), written as two ``pytorch_model-*.bin``
+   shards with their index and a ``config.json`` of the non-default
+   fields, loaded through ``init_inference(read_hf_config(dir),
+   checkpoint=dir, replace_with_kernel_inject=True, dtype=bf16)``: the
+   checkpoint reads back bit-equal and the model holds its bf16 rounding
+   (LayerNorms fp32); parameter bytes on the card; phase 6's trace served
+   paged, launch counts exact, prefix hits, allocator clean, first tokens
+   exact against ``generate()`` (the rest classified, as 6b), tokens/s
+   and decode wall ms; (c) the same model with int8 weights (the untied
+   head too) against the int8 model's ``generate()``: first tokens exact
+   (11a's tie rule), the rest classified (at d 2048 the eager
+   LayerNorm's variance rounds a row by the batch's row count), small-m
+   and tiled launches exact; (b) fp32 at the
+   same widths and 2 layers: the injected state exports back bit-equal,
+   card logits within 2e-3 of the CPU's, prefill and decode steps
+   through the cache within 2e-3 of the cache-free forward, contiguous
+   and paged serving and a ragged ``generate()`` token-exact against
+   ``generate()`` (near-tie rule), decode, paged and flash launches
+   exact; (d) GPT-J-6B's head dim 256 refused by name with no device
+   allocation; (e) ``BertSparseSelfAttention`` at BERT-base widths with
+   HF-named query/key/value weights, BigBird-64 at 4096 tokens, bf16,
+   against its plain version (``Gate``), one block-sparse forward launch.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result);
 ``--7a-only`` phase 7a likewise, ``--loop-only`` phase 9,
-``--fp16-only`` phase 10, ``--serving-only`` phases 4b and 6b.
+``--fp16-only`` phase 10, ``--inject-only`` phase 11, ``--11b-only``
+phase 11b, ``--serving-only`` phases 4b and 6b.
 ``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
 with this checkout's decode and paged ops and with those of the checkout
 ``dir`` in turns (no result).
@@ -182,7 +209,8 @@ prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
 ``--planted-faults [name]`` runs ``--checks-only`` (thirty-five faults),
-``--8c-only`` (two) or ``--7a-only`` (one) in copies of the checkout,
+``--8c-only`` (two), ``--7a-only`` (one) or ``--11b-only`` (three: the
+injection path's Python) in copies of the checkout,
 each with one kernel fault planted (``PLANTED_FAULTS``; only those
 whose source file name or description contains ``name``, when given;
 ``instance:`` picks the four of the fp16 and bf16-gradient instances),
@@ -519,7 +547,8 @@ def check_repeat(dev, gen, launches=20):
 def check_int8(dev, gen):
     """Both int8 kernels against the plain version over m 1, 8, 16, 256,
     1000, the four GPT-2 125M weight shapes and a ragged k (200: neither
-    a whole segment nor a whole 16-row step), fp32 and bf16 x; and the
+    a whole segment nor a whole 16-row step), fp32 and bf16 x, and over
+    Pythia-1.4B's five matrices at m 1, 16 and 256, bf16 x; and the
     summation order, bit for bit: rows of an m = 16 call (small-m kernel)
     and of an m = 1 call equal the same rows of an m = 1000 call (tiled),
     rows 5..20 of the m = 1000 call equal an m = 16 call on those rows (so
@@ -566,15 +595,54 @@ def check_int8(dev, gen):
                         f"wo_int8_matmul k={k} n={n} m={m} bf16: the tiled "
                         f"kernel's bits depend on the k split ({sorted(runs)} "
                         "CTAs along k)")
+    # phase 11c's shapes: Pythia-1.4B's five int8 matrices (the untied
+    # head too) at m 1 (generate()), 16 (a decode step of 16 slots) and
+    # 256 (a prefill chunk), bf16 x; their own generator leaves the later
+    # checks' inputs as they were
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for k, n in pythia_int8_weights():
+        q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand(1, n, generator=gen, device=dev) * 0.01
+        x = torch.randn(256, k, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        outs = {}
+        for m in (1, 16, 256):
+            outs[m] = wo_int8_matmul(x[:m], q, scale)
+            ref = wo_int8_matmul_reference(x[:m], q, scale)
+            torch.cuda.synchronize()
+            gate.case(torch.bfloat16, [outs[m]], [ref],
+                      f"Pythia-1.4B k={k:4d} n={n:5d} m={m:3d}",
+                      show=m != 1)
+        segs = -(-k // SEG)
+        runs = {s: _launch(x, q, scale, torch.bfloat16, splits=s)
+                for s in sorted({1, segs, tiled_splits(256, k, n)})}
+        splits_seen.update(s for s in runs if s > 1)
+        if not (torch.equal(outs[1], outs[256][:1])
+                and torch.equal(outs[16], outs[256][:16])
+                and all(torch.equal(y, outs[256]) for y in runs.values())):
+            raise AssertionError(
+                f"wo_int8_matmul Pythia-1.4B k={k} n={n} bf16: a row's "
+                "result depends on m or on the k split")
+        del q, x, outs, runs
     gate.close()
     log("  wo_int8: rows of m = 1, 16, 256 and 1000 calls and rows 5..20 "
         "bit-equal (one summation order in both kernels, fp32 FMAs and "
         "bf16 mma.sync); bf16 tiled bit-equal split over "
-        f"{sorted(splits_seen)} CTAs along k and unsplit")
+        f"{sorted(splits_seen)} CTAs along k and unsplit (GPT-2 125M's and "
+        "Pythia-1.4B's matrices)")
 
 
 GPT2_WEIGHTS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 INT8_RAGGED = ((200, 768),)   # k % 128 != 0 and k % 16 != 0
+
+
+def pythia_int8_weights():
+    """(k, n) of Pythia-1.4B's int8 matrices: qkv, the attention output,
+    the MLP's two and the untied head."""
+    d, ff = PYTHIA_1_4B["hidden_size"], PYTHIA_1_4B["intermediate_size"]
+    return ((d, 3 * d), (d, d), (d, ff), (ff, d),
+            (d, PYTHIA_1_4B["vocab_size"]))
 
 
 def served_lengths(n, seed):
@@ -1958,14 +2026,21 @@ def serve_traffic(engine, prompts, outs, config):
 
 
 def top2_gaps(model, prompt, generated):
-    """Top-2 logit gap at every generated position, from one cache-free
-    forward over prompt + generated tokens."""
+    """Top-2 logit gap and top logit at every generated position, from one
+    cache-free forward over prompt + generated tokens."""
     seq = torch.tensor(np.concatenate([prompt, generated])[None],
                        device=model.wte.device)
     with torch.no_grad():
         logits = model(seq)[0, len(prompt) - 1:-1].float()
     top = logits.topk(2, dim=-1).values
-    return (top[:, 0] - top[:, 1]).cpu().numpy()
+    gaps = (top[:, 0] - top[:, 1]).cpu().numpy()
+    return gaps, top[:, 0].cpu().numpy()
+
+
+def bf16_ulp(x):
+    """The bf16 spacing at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+                   - 7)
 
 
 def phase_fp32(model_fp32, prompts, outs, config,
@@ -1978,7 +2053,7 @@ def phase_fp32(model_fp32, prompts, outs, config,
     for i, (req, p, o) in enumerate(zip(reqs, prompts, outs)):
         ref = engine.generate(p[None], max_new_tokens=o)[0, len(p):]
         ref = ref.cpu().numpy()
-        gaps = top2_gaps(engine.module, p, ref)
+        gaps, _ = top2_gaps(engine.module, p, ref)
         near = np.nonzero(gaps < GAP_STOP)[0]
         upto = int(near[0]) if near.size else o
         stops += bool(near.size)
@@ -2473,14 +2548,24 @@ def serve_paged(engine, prompts, outs, config):
     snap = srv.metrics.snapshot()
     n_layers = engine.module.config.n_layers
     chunks, iters = snap["prefill_chunks"], snap["decode_iterations"]
-    int8 = srv.config.weights_int8
+    # every int8 matrix runs once a program: 4 a layer, and the head when
+    # it is untied (phase 11's Pythia)
+    from deepspeed_tpu_torch.models.layers import QDense
+    cfg = engine.module.config
+    n_int8 = (4 * n_layers + (0 if cfg.tie_embeddings else 1)
+              if srv.config.weights_int8 else 0)
+    held = sum(isinstance(m, QDense) and m.quantized
+               for m in srv.module.modules())
+    if held != n_int8:
+        raise AssertionError(f"the served model holds {held} int8 matrices, "
+                             f"its config {n_int8}")
     want = {"flash_attention": n_layers * chunks, "decode_attention": 0,
             "paged_attention": n_layers * iters,
-            "wo_int8_matmul_small_m": 4 * n_layers * iters if int8 else 0,
-            "wo_int8_matmul": 4 * n_layers * chunks if int8 else 0}
+            "wo_int8_matmul_small_m": n_int8 * iters,
+            "wo_int8_matmul": n_int8 * chunks}
     log(f"  launches over the serving run: {counts} (want {want}: "
         f"{n_layers} layers x {iters} decode iterations, x {chunks} "
-        f"prefill chunks{'; 4 int8 matrices a layer' if int8 else ''})")
+        f"prefill chunks{f'; {n_int8} int8 matrices' if n_int8 else ''})")
     if counts != want:
         raise AssertionError("the paged serving run did not go through its "
                              "kernels the expected number of times")
@@ -2502,21 +2587,24 @@ def serve_paged(engine, prompts, outs, config):
 
 
 def check_against_generate(engine, reqs, prompts, outs, gap_stop, what,
-                           first_token_only=False):
+                           first_token_only=False, first_tie_ulps=0):
     """Every request token-exact against ``engine.generate()`` up to its
     first near-tie step (reference top-2 logit gap < ``gap_stop``). With
     ``first_token_only`` (bf16 serving, exempt from that rule: cuBLAS
     rounds a row of a dense layer's product by the batch's row count,
     PERF.md's tolerance table) only each request's first token is gated,
-    and the rest is classified. Every request that differs is logged with
-    its first differing step and the reference gap there before the phase
-    fails."""
+    and the rest is classified. ``first_tie_ulps`` (11a's 24 bf16 layers,
+    whose prefill GEMMs also round by m: chunks of 256 against the whole
+    prompt) exempts a first token whose reference top-2 gap is at most
+    that many bf16 ulps of the top logit. Every request that differs is
+    logged with its first differing step and the reference gap there
+    before the phase fails."""
     stops = compared = agree = 0
-    early, bad = [], []
+    early, bad, tied = [], [], []
     for i, (req, p, o) in enumerate(zip(reqs, prompts, outs)):
         ref = engine.generate(p[None], max_new_tokens=o)[0, len(p):]
         ref = ref.cpu().numpy()
-        gaps = top2_gaps(engine.module, p, ref)
+        gaps, tops = top2_gaps(engine.module, p, ref)
         near = np.nonzero(gaps < gap_stop)[0]
         upto = int(near[0]) if near.size else o
         stops += bool(near.size)
@@ -2533,16 +2621,22 @@ def check_against_generate(engine, reqs, prompts, outs, gap_stop, what,
                 f"compared up to {upto}")
             if j < upto:
                 early.append(i)
-            if (j == 0) if first_token_only else (j < upto):
+            if (first_tie_ulps and j == 0
+                    and gaps[0] <= first_tie_ulps * bf16_ulp(tops[0])):
+                tied.append(i)
+            elif (j == 0) if first_token_only else (j < upto):
                 bad.append(i)
     log(f"  {what}: {len(reqs) - len(early)}/{len(reqs)} requests "
         f"token-exact against generate() up to their first near tie "
         f"(reference top-2 gap < {gap_stop}: {stops} requests, {compared} "
         f"of {sum(outs)} tokens before the first); {agree} of {sum(outs)} "
         f"tokens agree" + (
-            f"; first tokens {len(reqs) - len(bad)}/{len(reqs)} exact (the "
-            f"gate; requests {early} differ before a near tie, exempt)"
-            if first_token_only else ""))
+            f"; first tokens {len(reqs) - len(bad) - len(tied)}/{len(reqs)} "
+            f"exact (the gate; requests {early} differ before a near tie, "
+            f"exempt" + (f"; requests {tied} in the first token at a "
+                         f"reference gap <= {first_tie_ulps} bf16 ulps of "
+                         "the top logit, exempt" if first_tie_ulps else "")
+            + ")" if first_token_only else ""))
     if bad:
         where = "in the first token" if first_token_only else \
             "before a near tie"
@@ -4149,6 +4243,499 @@ def phase_training_modes(card):
 
 
 # --------------------------------------------------------------------------
+# phase 11: a HuggingFace-layout checkpoint served through injection
+# --------------------------------------------------------------------------
+
+# EleutherAI/pythia-1.4b's config.json (the HuggingFace Hub), the fields
+# the GPT-NeoX policy reads; the weights are drawn from SEED
+PYTHIA_1_4B = {
+    "model_type": "gpt_neox", "architectures": ["GPTNeoXForCausalLM"],
+    "hidden_size": 2048, "num_attention_heads": 16,
+    "num_hidden_layers": 24, "intermediate_size": 8192, "rotary_pct": 0.25,
+    "rotary_emb_base": 10000, "max_position_embeddings": 2048,
+    "vocab_size": 50304, "use_parallel_residual": True, "hidden_act": "gelu",
+    "layer_norm_eps": 1e-5, "tie_word_embeddings": False,
+    "torch_dtype": "float16"}
+PYTHIA_LAYERS = 24          # full depth
+PARITY_LAYERS = 2           # 11b: fp32 parity at the same widths
+CACHE_STEPS = 8             # 11b: decode steps against the cache-free forward
+# 11a, 11c: a first token may differ from generate()'s where the
+# reference top-2 gap is within this many bf16 ulps of the top logit
+# (the chip runs' first tokens: one of 24 requests, at 2 ulps)
+BF16_TIE_ULPS = 2
+BERT_BASE = (768, 12)       # 11e: BERT-base's width and heads
+
+
+def pythia_dir(path, n_layers):
+    """Write ``config.json`` as ``save_pretrained`` would: only the fields
+    that differ from HuggingFace's GPT-NeoX defaults (and the model type,
+    architecture and dtype); returns the port's reading of it."""
+    from deepspeed_tpu_torch.module_inject import read_hf_config
+    from deepspeed_tpu_torch.module_inject.load_checkpoint import \
+        HF_CONFIG_DEFAULTS
+    defaults = HF_CONFIG_DEFAULTS["gpt_neox"]
+    fields = {**PYTHIA_1_4B, "num_hidden_layers": n_layers}
+    written = {k: v for k, v in fields.items()
+               if k not in defaults or defaults[k] != v}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(written, f, indent=2)
+    return read_hf_config(path), written
+
+
+def draw_pythia(ns, dtype):
+    """The port's GPT at the configuration ``ns`` (fp32 parameters), weights
+    from SEED, and its config."""
+    from deepspeed_tpu_torch.models import GPT
+    from deepspeed_tpu_torch.module_inject import GPTNEOXLayerPolicy
+    cfg = GPTNEOXLayerPolicy.build_config(ns, dtype)
+    return GPT(cfg, seed=SEED), cfg
+
+
+def write_sharded_bin(path, state, n_shards=2):
+    """``state`` (name -> tensor) as ``pytorch_model-0000i-of-0000n.bin``
+    shards and ``pytorch_model.bin.index.json``, as ``save_pretrained``
+    writes a sharded torch checkpoint; returns the bytes written."""
+    names = list(state)
+    per = -(-len(names) // n_shards)
+    weight_map, total = {}, 0
+    for i in range(n_shards):
+        fname = f"pytorch_model-{i + 1:05d}-of-{n_shards:05d}.bin"
+        part = {k: state[k] for k in names[i * per:(i + 1) * per]}
+        torch.save(part, os.path.join(path, fname))
+        weight_map.update({k: fname for k in part})
+        total += sum(t.numel() * t.element_size() for t in part.values())
+    with open(os.path.join(path, "pytorch_model.bin.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return total
+
+
+def _ln_key(key):
+    return "layernorm" in key or "layer_norm" in key
+
+
+def phase_inject_serve(card, tmp, profile=False):
+    """11a: Pythia-1.4B drawn from SEED, exported to HuggingFace's layout in
+    fp16, written as a sharded torch checkpoint with a config.json of the
+    non-default fields, loaded through ``init_inference(config, checkpoint=
+    dir, replace_with_kernel_inject=True, dtype=bf16)`` and served paged
+    (phase 6's trace). Returns (engine, launch counts, readings)."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.module_inject import export_hf_state_dict
+    from deepspeed_tpu_torch.module_inject.load_checkpoint import \
+        load_state_dict_from_checkpoint
+    log(f"phase 11a: Pythia-1.4B ({PYTHIA_LAYERS} layers) written as a "
+        "HuggingFace checkpoint, loaded through checkpoint injection, served "
+        "paged in bf16")
+    ns, written = pythia_dir(tmp, PYTHIA_LAYERS)
+    t0 = time.perf_counter()
+    model, cfg = draw_pythia(ns, torch.bfloat16)
+    t1 = time.perf_counter()
+    fp16 = {k: torch.from_numpy(v).half()
+            for k, v in export_hf_state_dict("gpt_neox", model, cfg).items()}
+    del model
+    nbytes = write_sharded_bin(tmp, fp16)
+    t2 = time.perf_counter()
+    log(f"  config.json {written}")
+    log(f"  drew the model in {t1 - t0:.1f} s; exported and wrote "
+        f"{len(fp16)} fp16 tensors, {nbytes} bytes in 2 shards in "
+        f"{t2 - t1:.1f} s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = init_inference(ns, checkpoint=tmp,
+                            replace_with_kernel_inject=True,
+                            dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    log(f"  init_inference(config, checkpoint=dir, replace_with_kernel_"
+        f"inject=True, dtype=bf16): {load_s:.1f} s; {n_params} parameters, "
+        f"torch.cuda.memory_allocated() {held} bytes after the load [{card}]")
+    # the reader is bit-exact, and the model holds the checkpoint rounded
+    # once to bf16 (LayerNorms in fp32, as JAX's)
+    read = load_state_dict_from_checkpoint(tmp)
+    back = export_hf_state_dict("gpt_neox", engine.module,
+                                engine.module.config)
+    bad_read = [k for k, t in fp16.items()
+                if not np.array_equal(read[k], t.float().numpy())]
+    bad_held = [k for k, t in fp16.items() if not np.array_equal(
+        back[k], (t.float() if _ln_key(k) else t.bfloat16().float()).numpy())]
+    log(f"  checkpoint read back bit-equal to the export: "
+        f"{len(fp16) - len(bad_read)}/{len(fp16)} tensors; the served "
+        f"model's weights equal to the checkpoint's bf16 rounding: "
+        f"{len(fp16) - len(bad_held)}/{len(fp16)}")
+    if bad_read or bad_held or set(read) != set(fp16):
+        raise AssertionError(f"11a: the loaded state differs from the "
+                             f"exported one: {(bad_read + bad_held)[:5]}")
+    del read, back, fp16
+    icfg = engine.module.config
+    if not (engine.injected and icfg.rotary
+            and icfg.rotary_dim == icfg.head_dim // 4):     # rotary_pct 0.25
+        raise AssertionError("11a: not an injected rotary model")
+
+    prompts, outs = paged_traffic(cfg.vocab_size)
+    reqs, srv, counts, wall = serve_paged(engine, prompts, outs,
+                                          PAGED_CONFIG)
+    check_against_generate(engine, reqs, prompts, outs, GAP_STOP,
+                           "11a bf16", first_token_only=True,
+                           first_tie_ulps=BF16_TIE_ULPS)
+    tokens = srv.metrics.tokens_generated
+    log(f"  serving: {tokens} tokens, {srv.metrics.decode_iterations} decode "
+        f"iterations, {srv.metrics.prefill_chunks} prefill chunks, wall "
+        f"{wall:.3f} s, {tokens / wall:.1f} tokens/s; KV pool "
+        f"{srv._paged.pool_bytes()} bytes [{card}]")
+    run_decode = _paged_decode_runner(srv, engine.module,
+                                      served_lengths(16, SEED + 7))
+    decode = wall_ms(run_decode, iters=20)
+    log(f"  paged decode wall ms per iteration (16 slots): {decode:.3f} "
+        f"[{card}]")
+    if profile:
+        device_profile("11a paged decode", run_decode, decode, card)
+    return engine, counts, {"tokens_per_s": tokens / wall,
+                            "decode_wall_ms": decode, "load_s": load_s,
+                            "param_bytes": held}
+
+
+def phase_inject_int8(engine, card):
+    """11c: int8 weights on the loaded checkpoint, served paged, against
+    the int8 model's own ``generate()``: first tokens exact (11a's tie
+    rule), the rest classified. 6c's token-exact gate needs every op of a
+    decode step to round a row alike at 16 rows and at 1; at d 2048 the
+    eager LayerNorm's fp32 variance does not (torch's reduction splits a
+    row by the row count; PERF.md's tolerance table)."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.module_inject.module_quantize import \
+        quantized_nbytes
+    log("phase 11c: the loaded checkpoint with int8 weights, served paged")
+    engine_int8 = init_inference(engine.module, quantize_weights=True)
+    prompts, outs = paged_traffic(engine.module.config.vocab_size)
+    config = {**PAGED_CONFIG, "quantize": {"weights": "int8"}}
+    reqs, srv, counts, wall = serve_paged(engine_int8, prompts, outs, config)
+    if srv.module is not engine_int8.module:
+        raise AssertionError("11c: the server re-quantized an int8 model")
+    nb = quantized_nbytes(engine_int8.module)
+    log(f"  weights {nb['quantized']} bytes int8 against "
+        f"{nb['dense_equivalent']} bf16-equivalent; served "
+        f"{srv.metrics.tokens_generated} tokens in {wall:.3f} s "
+        f"({srv.metrics.tokens_generated / wall:.1f} tokens/s) [{card}]")
+    check_against_generate(engine_int8, reqs, prompts, outs, GAP_STOP,
+                           "11c int8 weights", first_token_only=True,
+                           first_tie_ulps=BF16_TIE_ULPS)
+    # why 6c's gate cannot hold here: the LayerNorm variance of a row at
+    # 16 rows against the same row alone (seeded bf16 rows, d 2048)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x = torch.randn(16, 1, engine.module.config.d_model, generator=g,
+                    device="cuda").bfloat16().float() * 3
+
+    def var(t):
+        return (t - t.mean(-1, keepdim=True)).square().mean(-1)
+    alone = torch.cat([var(x[i:i + 1]) for i in range(16)])
+    diff = (var(x) - alone).abs()
+    log(f"  LayerNorm variance at 16 rows against each row alone: "
+        f"{int((diff > 0).sum())} of 16 rows differ, by up to "
+        f"{diff.max().item():.3e} [{card}]")
+    del reqs, srv
+    int8_in_turns(engine, engine_int8, prompts, outs, config, card)
+    return counts
+
+
+def int8_in_turns(engine, engine_int8, prompts, outs, config, card):
+    """bf16 and int8 weights in turns in one process (bf16, int8, int8,
+    bf16): the whole trace served paged, then 20 decode iterations at 16
+    slots on that server; logs each turn's tokens/s and decode wall ms."""
+    lengths = served_lengths(16, SEED + 7)
+    turns = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        eng, cfg = ((engine, PAGED_CONFIG) if name == "bf16"
+                    else (engine_int8, config))
+        _, srv, _, wall = serve_paged(eng, prompts, outs, cfg)
+        decode = wall_ms(_paged_decode_runner(srv, eng.module, lengths),
+                         iters=20)
+        turns[name].append((srv.metrics.tokens_generated / wall, decode))
+        del srv
+        torch.cuda.empty_cache()
+    for name, runs in turns.items():
+        log(f"  in turns, {name} weights: tokens/s "
+            f"{[round(t, 1) for t, _ in runs]}, paged decode wall ms "
+            f"{[round(d, 3) for _, d in runs]} [{card}]")
+    (b1, b2), (i1, i2) = turns["bf16"], turns["int8"]
+    log(f"  int8 / bf16 in turns: tokens/s "
+        f"{(i1[0] + i2[0]) / (b1[0] + b2[0]):.3f}, decode wall ms "
+        f"{(i1[1] + i2[1]) / (b1[1] + b2[1]):.3f} [{card}]")
+
+
+def paged_step_err(model, prompt, steps=CACHE_STEPS):
+    """Logits of the paged engine's own decode iteration
+    (``_paged_decode_iter_impl``, which places the token's position) over
+    a pool holding ``prompt`` (page-aligned, written through the chunk
+    scatter) against the contiguous cache path's decode steps at the same
+    positions; returns the largest difference over ``steps`` steps."""
+    from deepspeed_tpu_torch.inference.cache import (
+        gather_pages, init_page_pool, scatter_chunk_pages)
+    from deepspeed_tpu_torch.inference.generation import (_sampling_mode,
+                                                          init_cache)
+    from deepspeed_tpu_torch.serving.paging.manager import \
+        _paged_decode_iter_impl
+    dev, n = model.wte.device, len(prompt)
+    page = PAGED_CONFIG["paging"]["page_len"]
+    ids = torch.tensor(prompt[None], device=dev).long()
+    table = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+    table[0, :8] = torch.arange(1, 9)
+    pool = init_page_pool(model, 9, page)
+    seen = []
+    hook = model.register_forward_hook(
+        lambda m, a, out: seen.append(out[:, -1].float()))
+    with torch.no_grad():
+        row = gather_pages(pool, table, dequant_dtype=model.config.dtype)
+        row.index = 0
+        model(ids, positions=torch.arange(n, device=dev), cache=row)
+        scatter_chunk_pages(pool, row.k[:, 0, :, :n], row.v[:, 0, :, :n],
+                            table[0, :n // page])
+        cache = init_cache(model, 1, n + steps + 1)
+        model(ids, positions=torch.arange(n, device=dev), cache=cache)
+        tok = torch.tensor([int(prompt[-1])], device=dev)
+        state = {"lengths": torch.tensor([n], dtype=torch.int32, device=dev),
+                 "last_token": tok, "active": torch.ones(
+                     1, dtype=torch.bool, device=dev),
+                 "remaining": torch.full((1,), 10 ** 6, dtype=torch.int32,
+                                         device=dev)}
+        err = 0.0
+        for i in range(steps):
+            seen.clear()
+            state, _, _ = _paged_decode_iter_impl(
+                model, pool, table, state, None, -1,
+                _sampling_mode(None, None, None), True)
+            paged = seen[-1]
+            ref = model(tok[:, None], positions=torch.tensor(
+                [[n + i]], device=dev), cache=cache)[:, -1].float()
+            err = max(err, (paged - ref).abs().max().item())
+            tok = state["last_token"]
+    hook.remove()
+    return err
+
+
+def phase_inject_parity(card, n_layers=PARITY_LAYERS):
+    """11b: Pythia-1.4B's widths at ``n_layers`` layers, fp32, injected from
+    its HuggingFace-layout state dict: the state round-trips bit for bit;
+    card logits against the CPU's; the cache path (prefill, then decode
+    steps) against the cache-free forward; contiguous and paged serving
+    and a ragged ``generate()`` token-exact against ``generate()``
+    (near-tie rule), with exact launch counts. Returns the launch counts."""
+    import tempfile
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.generation import init_cache
+    from deepspeed_tpu_torch.module_inject import export_hf_state_dict
+    from deepspeed_tpu_torch.ops import decode_attention, flash_attention
+    log(f"phase 11b: fp32 parity at Pythia-1.4B's widths, {n_layers} layers")
+    with tempfile.TemporaryDirectory() as tmp:
+        ns, _ = pythia_dir(tmp, n_layers)
+    src, cfg = draw_pythia(ns, torch.float32)
+    sd = export_hf_state_dict("gpt_neox", src, cfg)
+    del src
+    engine = init_inference(ns, checkpoint=dict(sd),
+                            replace_with_kernel_inject=True,
+                            dtype=torch.float32)
+    back = export_hf_state_dict("gpt_neox", engine.module,
+                                engine.module.config)
+    bad = [k for k in sd if not np.array_equal(back[k], sd[k])]
+    log(f"  the injected state exports back bit-equal: "
+        f"{len(sd) - len(bad)}/{len(sd)} tensors")
+    if bad or set(back) != set(sd):
+        raise AssertionError(f"11b: the injected state differs from the "
+                             f"checkpoint: {bad[:5]}")
+    cpu = init_inference(ns, checkpoint=dict(sd),
+                         replace_with_kernel_inject=True,
+                         dtype=torch.float32, device="cpu")
+    del sd
+    rs = np.random.RandomState(SEED + 11)
+    tol = 2e-3      # 4c's gate
+    vocab = cfg.vocab_size
+    for n in (48, 100):
+        ids = rs.randint(0, vocab, size=(1, n))
+        out = engine(torch.tensor(ids, device="cuda")).float().cpu()
+        ref = cpu(torch.tensor(ids)).float()
+        err = (out - ref).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= tol
+        log(f"  prompt of {n}: card logits against the CPU's max_abs_err "
+            f"{err:.3e} tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("11b: card and CPU logits disagree")
+    del cpu
+    # the cache path against the cache-free forward, on the card
+    model = engine.module
+    seq = torch.tensor(rs.randint(0, vocab, size=(1, 100 + CACHE_STEPS)),
+                       device="cuda")
+    with torch.no_grad():
+        full = model(seq).float()
+        cache = init_cache(model, 1, 128)
+        got = [model(seq[:, :100], positions=torch.arange(100, device="cuda"),
+                     cache=cache)[:, -1].float()]
+        for i in range(CACHE_STEPS - 1):
+            got.append(model(seq[:, 100 + i:101 + i], positions=torch.tensor(
+                [100 + i], device="cuda"), cache=cache)[:, -1].float())
+    err = max((g - full[:, 99 + i]).abs().max().item()
+              for i, g in enumerate(got))
+    log(f"  prefill and {CACHE_STEPS - 1} decode steps through the cache "
+        f"against the cache-free forward: max_abs_err {err:.3e} tol "
+        f"{tol:.0e} {'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError("11b: the cache path disagrees with the "
+                             "cache-free forward")
+    err = paged_step_err(model, rs.randint(
+        0, vocab, size=2 * PAGED_CONFIG["paging"]["page_len"]))
+    log(f"  {CACHE_STEPS} paged decode iterations (the serving engine's) "
+        f"against the cache path's decode steps: max_abs_err {err:.3e} tol "
+        f"{tol:.0e} {'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError("11b: the paged decode iteration disagrees with "
+                             "the cache path")
+    counts = phase_fp32(model, *traffic(vocab), SERVING_CONFIG,
+                        label="phase 11b: contiguous fp32 serving")
+    prompts, outs = paged_traffic(vocab)
+    reqs, _, paged_counts, _ = serve_paged(engine, prompts, outs,
+                                           PAGED_CONFIG)
+    check_against_generate(engine, reqs, prompts, outs, GAP_STOP,
+                           "11b paged fp32")
+    # a ragged generate() over 8 prompts against each prompt's own
+    ragged_prompts = prompts[:8]
+    lens = [len(p) for p in ragged_prompts]
+    ids = np.zeros((len(lens), max(lens)), np.int64)
+    for row, p in enumerate(ragged_prompts):
+        ids[row, :len(p)] = p
+    new = 16
+    torch.cuda.synchronize()
+    flash_attention.launches = decode_attention.launches = 0
+    ragged = engine.generate(ids, max_new_tokens=new,
+                             prompt_lengths=lens).cpu().numpy()
+    torch.cuda.synchronize()
+    rc = {"flash_attention": flash_attention.launches,
+          "decode_attention": decode_attention.launches}
+    want = {"flash_attention": n_layers, "decode_attention":
+            n_layers * (new - 1)}
+    log(f"  ragged generate() launches {rc} (want {want})")
+    if rc != want:
+        raise AssertionError("11b: the ragged generate() did not go through "
+                             "the flash and decode kernels")
+    for row, p in enumerate(ragged_prompts):
+        ref = engine.generate(p[None], max_new_tokens=new)[0, len(p):]
+        ref = ref.cpu().numpy()
+        gaps, _ = top2_gaps(model, p, ref)
+        near = np.nonzero(gaps < GAP_STOP)[0]
+        upto = int(near[0]) if near.size else new
+        got = ragged[row, len(p):len(p) + new]
+        if not np.array_equal(got[:upto], ref[:upto]):
+            raise AssertionError(f"11b: ragged row {row} {got.tolist()} != "
+                                 f"generate() {ref.tolist()} (up to {upto})")
+    log(f"  ragged generate(): {len(lens)}/{len(lens)} rows token-exact "
+        "against generate() up to their first near tie")
+    return {"flash_attention": counts["flash_attention"],
+            "decode_attention": counts["decode_attention"],
+            "paged_attention": paged_counts["paged_attention"]}
+
+
+def phase_inject_refusal(tmp):
+    """11d: GPT-J-6B's widths (config.json of the model type alone: HF's
+    GPT-J defaults, head dim 256) are refused by name before anything is
+    allocated on the card."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.module_inject import read_hf_config
+    log("phase 11d: GPT-J-6B's head dim 256 refused by init_inference")
+    with open(os.path.join(tmp, "config.json"), "w") as f:
+        json.dump({"model_type": "gptj",
+                   "architectures": ["GPTJForCausalLM"]}, f)
+    ns = read_hf_config(tmp)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        init_inference(ns, replace_with_kernel_inject=True,
+                       dtype=torch.bfloat16)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("11d: head dim 256 was not refused")
+    after = torch.cuda.memory_allocated()
+    log(f"  ValueError in {time.perf_counter() - t0:.3f} s: {msg}; device "
+        f"memory {before} -> {after} bytes")
+    if "head_dim 256" not in msg or after != before:
+        raise AssertionError("11d: the refusal does not name the head dim, "
+                             "or came after an allocation")
+
+
+def phase_bert_sparse_hf(card):
+    """11e: ``BertSparseSelfAttention`` at BERT-base widths (768, 12 heads)
+    with query/key/value loaded by name from an HF-layout state dict,
+    BigBird-64 at 4096 tokens, bf16: its output against its plain version
+    (the bf16 ``Gate``), one block-sparse forward launch a call."""
+    import sys as _sys
+    from deepspeed_tpu_torch.ops import block_sparse_attention
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        BertSparseSelfAttention
+    log("phase 11e: an HF BERT's attention weights by name through the "
+        f"block-sparse kernel (BigBird-64, {SPARSE_SEQ} tokens, bf16)")
+    d, heads = BERT_BASE
+    g = torch.Generator().manual_seed(SEED + 12)
+    hf = {}
+    for name in ("query", "key", "value"):
+        hf[f"{name}.weight"] = torch.randn(d, d, generator=g) * 0.03
+        hf[f"{name}.bias"] = torch.randn(d, generator=g) * 0.02
+    layer = BertSparseSelfAttention(d, heads, bigbird_64(heads),
+                                    dtype=torch.bfloat16)
+    missing = layer.load_state_dict(hf)
+    layer = layer.to("cuda")
+    x = torch.randn(2, SPARSE_SEQ, d, generator=g).to("cuda")
+    torch.cuda.synchronize()
+    block_sparse_attention.fwd_launches = 0
+    with torch.no_grad():
+        out = layer(x)
+    torch.cuda.synchronize()
+    launches = block_sparse_attention.fwd_launches
+    mod = _sys.modules["deepspeed_tpu_torch.ops.block_sparse_attention"]
+    use_kernel = mod.use_kernel
+    mod.use_kernel = lambda t: False
+    try:
+        with torch.no_grad():
+            plain = layer(x)
+    finally:
+        mod.use_kernel = use_kernel
+    gate = Gate("11e BertSparseSelfAttention")
+    gate.case(torch.bfloat16, [out.float()], [plain.float()],
+              f"[2, {SPARSE_SEQ}, {d}]", show=True)
+    log(f"  loaded {sorted(hf)} by name ({missing}); block-sparse forward "
+        f"launches {launches} (want 1) [{card}]")
+    gate.close()
+    if launches != 1:
+        raise AssertionError("11e: the layer did not go through the "
+                             "block-sparse forward kernel once")
+    return {"block_sparse_attention_fwd": launches}
+
+
+def phase_inject(card, profile=False):
+    """Phase 11; returns the launch counts of its serving runs."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        engine, counts_a, serve = phase_inject_serve(card, tmp, profile)
+    t1 = time.perf_counter()
+    counts_c = phase_inject_int8(engine, card)
+    del engine
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    counts_b = phase_inject_parity(card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_inject_refusal(tmp)
+    counts_e = phase_bert_sparse_hf(card)
+    log(f"  phase 11 wall: 11a {t1 - t0:.1f} s, 11c {t2 - t1:.1f} s, "
+        f"11b, 11d and 11e {time.perf_counter() - t2:.1f} s")
+    return {"11a": counts_a, "11b": counts_b, "11c": counts_c,
+            "11e": counts_e, "serve": serve}
+
+
+# --------------------------------------------------------------------------
 # planted faults: each edits a copy of the kernel sources and must fail
 # ``--checks-only`` there
 # --------------------------------------------------------------------------
@@ -4344,6 +4931,25 @@ PLANTED_FAULTS = (
      (('#include "decode_split.cuh"',
        '#define DS_SPLIT_CHUNK 127\n#include "decode_split.cuh"'),),
      "--checks-only"),
+    # phase 11b's gates against faults in the injection path (Python
+    # sources, named relative to the package)
+    ("11b: K written to the cache before rotary", "models/layers.py",
+     (("        q, k, v = self.project(x, positions, rope)\n",
+       "        q, k, v = self.project(x, positions, rope)\n"
+       "        if kv_cache is not None:\n"
+       "            k = self.qkv(x).unflatten(-1, (3, self.n_heads, -1))"
+       "[:, :, 1]\n"),), "--11b-only"),
+    ("11b: the NeoX qkv regrouping skipped",
+     "module_inject/replace_policy.py",
+     (("            qkv_w = _headfirst_qkv_to_split(\n"
+       "                _t(sd[lp + \"attention.query_key_value.weight\"]), "
+       "nh)",
+       "            qkv_w = _t(sd[lp + \"attention.query_key_value.weight\"])"),),
+     "--11b-only"),
+    ("11b: the paged decode step's rotary position off by one (idx_w + 1)",
+     "serving/paging/manager.py",
+     (("    positions = idx_w[:, None]\n",
+       "    positions = (idx_w + 1)[:, None]\n"),), "--11b-only"),
     # phase 7a's loss gate against a run whose parameters never move
     ("7a: the LAMB apply launch skipped (parameters unchanged)",
      "fused_lamb.cu",
@@ -4356,9 +4962,10 @@ PLANTED_FAULTS = (
 
 def run_in_copy(name, src, edits, flag):
     """Copy chip_smoke.py and the package into a temporary directory, make
-    ``edits`` to one source there (``src`` relative to ``ops/csrc``; as
-    ``sed`` would; each pattern must occur) and run ``chip_smoke.py flag``
-    in the copy; returns the finished process and its seconds."""
+    ``edits`` to one source there (``src`` relative to ``ops/csrc``, or to
+    the package when it names a directory; as ``sed`` would; each pattern
+    must occur) and run ``chip_smoke.py flag`` in the copy; returns the
+    finished process and its seconds."""
     import shutil
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
@@ -4366,7 +4973,8 @@ def run_in_copy(name, src, edits, flag):
         shutil.copytree(os.path.join(REPO, "deepspeed_tpu_torch"),
                         os.path.join(tmp, "deepspeed_tpu_torch"),
                         ignore=shutil.ignore_patterns("__pycache__"))
-        path = os.path.join(tmp, "deepspeed_tpu_torch", "ops", "csrc", src)
+        path = os.path.join(tmp, "deepspeed_tpu_torch",
+                            *(() if "/" in src else ("ops", "csrc")), src)
         with open(path) as f:
             text = f.read()
         for old, new in edits:
@@ -4385,9 +4993,9 @@ def run_in_copy(name, src, edits, flag):
 def run_planted_faults(only=None):
     """Each fault of ``PLANTED_FAULTS`` (those whose source file name or
     description contains ``only``, when given) made in a copy of the checkout
-    (``run_in_copy``) with the fault's flag (``--checks-only`` or
-    ``--8c-only`` or ``--7a-only``); each copy must fail. Logs each run's
-    failing gate lines (and 8c's and 7a's readings)."""
+    (``run_in_copy``) with the fault's flag (``--checks-only``,
+    ``--8c-only``, ``--7a-only`` or ``--11b-only``); each copy must fail.
+    Logs each run's failing gate lines (and 8c's and 7a's readings)."""
     faults = [f for f in PLANTED_FAULTS
               if only is None or only in f[1] or only in f[0]]
     caught = 0
@@ -4398,7 +5006,8 @@ def run_planted_faults(only=None):
                      "layernorm" in ln or "quantizer" in ln or "flash" in ln
                      or "block_sparse" in ln or "wo_int8" in ln
                      or "decode" in ln or "paged" in ln)
-                 or "Error" in ln or "after step" in ln or "losses" in ln]
+                 or "Error" in ln or "after step" in ln or "losses" in ln
+                 or "11b" in ln or "max_abs_err" in ln]
         # the gates' failing summaries first, then the failing cases
         worst = [ln for ln in lines
                  if (m := re.search(r"(\d+)/(\d+) cases ok", ln))
@@ -4412,7 +5021,7 @@ def run_planted_faults(only=None):
         for ln in lines[:40]:
             log("    " + ln.strip()[:400])
     log(f"{caught} of {len(faults)} planted faults fail the kernel "
-        "checks, phase 7a or phase 8c")
+        "checks, phase 7a, 8c or 11b")
     if not faults or caught != len(faults):
         raise AssertionError("a planted kernel fault passed the checks")
 
@@ -4479,6 +5088,16 @@ def main():
     if "--fp16-only" in sys.argv[1:]:
         phase_training_modes(card)
         log("phase 10 passed (--fp16-only: no other phase, no result)")
+        return 0
+    if "--inject-only" in sys.argv[1:]:
+        log(f"phase 11: {PYTHIA_LAYERS}-layer Pythia-1.4B served from a "
+            "HuggingFace-layout checkpoint through checkpoint injection")
+        phase_inject(card, profile="--profile" in sys.argv[1:])
+        log("phase 11 passed (--inject-only: no other phase, no result)")
+        return 0
+    if "--11b-only" in sys.argv[1:]:
+        phase_inject_parity(card)
+        log("phase 11b passed (--11b-only: no other phase, no result)")
         return 0
     if "--7a-only" in sys.argv[1:]:
         set_gemm_flags(defaults)
@@ -4658,6 +5277,11 @@ def main():
         "accumulation, progressive layer drop)")
     mode_counts = phase_training_modes(card)
 
+    log(f"phase 11: {PYTHIA_LAYERS}-layer Pythia-1.4B served from a "
+        "HuggingFace-layout checkpoint through checkpoint injection "
+        "(rotary attention, the GPT-NeoX policy)")
+    inject = phase_inject(card, profile="--profile" in sys.argv[1:])
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -4699,6 +5323,18 @@ def main():
         t["launches"] = mode_counts[name]
     bf16g_t["fused_lamb_bf16"]["apply_launches"] = mode_counts[
         "fused_lamb_apply"]
+    # phase 11's runs, each with its counters set to 0 just before: 11a
+    # (bf16 paged serving of the injected checkpoint), 11b (fp32, 2
+    # layers: contiguous decode), 11c (int8 weights), 11e (the HF-named
+    # sparse attention)
+    flash_t["inject_launches"] = inject["11a"]["flash_attention"]
+    decode_t["inject_launches"] = inject["11b"]["decode_attention"]
+    paged_t["paged_attention"]["inject_launches"] = inject["11a"][
+        "paged_attention"]
+    for name in ("wo_int8_matmul_small_m", "wo_int8_matmul"):
+        paged_t[name]["inject_launches"] = inject["11c"][name]
+    sparse_t["block_sparse_attention_fwd"]["inject_launches"] = inject[
+        "11e"]["block_sparse_attention_fwd"]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
@@ -4811,8 +5447,14 @@ def main():
                if "apply_launches" in t else {}),
             **({"loop_launches": t["loop_launches"]}
                if "loop_launches" in t else {}),
+            **({"inject_launches": t["inject_launches"]}
+               if "inject_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}
                if "fake_quantize_ms" in t else {})})
+    log(f"phase 11a: {inject['serve']['tokens_per_s']:.1f} tokens/s, paged "
+        f"decode {inject['serve']['decode_wall_ms']:.3f} ms an iteration, "
+        f"{inject['serve']['param_bytes']} bytes of parameters on the card, "
+        f"loaded in {inject['serve']['load_s']:.1f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

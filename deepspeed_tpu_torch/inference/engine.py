@@ -1,15 +1,16 @@
 """Inference engine (counterpart of ``deepspeed_tpu/inference/engine.py``
-``InferenceEngine``): places a model on its device, in the requested
-compute dtype, and fronts ``forward``, ``generate`` and ``serve``."""
+``InferenceEngine``): injects a HuggingFace model or config into one of
+the port's models (``module_inject``), loads its checkpoint, places it on
+its device in the requested compute dtype, and fronts ``forward``,
+``generate`` and ``serve``."""
 
 import dataclasses
 from collections.abc import Mapping
 
 import torch
 
-from ..module_inject.module_quantize import (adopt_int8_layout,
-                                             quantize_for_serving)
 from ..ops._common import resolve_device
+from ..ops.flash_attention import HEAD_DIMS
 
 
 class InferenceEngine:
@@ -17,25 +18,38 @@ class InferenceEngine:
     ``deepspeed_tpu_torch.init_inference``.
 
     model: a ``models.GPT`` (or any module with a ``config`` carrying
-        ``dtype`` and ``max_seq_len``).
-    dtype: compute dtype; None keeps the model's. A different dtype
-        rebuilds the model with it (master weights stay fp32).
+        ``dtype`` and ``max_seq_len``), or, with
+        ``replace_with_kernel_inject=True``, a HuggingFace model (read
+        through ``.config`` and ``.state_dict()``) or its config (a
+        ``transformers`` config or ``module_inject.read_hf_config``'s
+        namespace), converted by an injection policy.
+    dtype: compute dtype; None keeps the model's (bf16 for an injected
+        model, whose parameters are then held in it too). A different
+        dtype rebuilds a port model with it.
     params: optional state dict to load (e.g. ``models.convert.
         params_from_jax``, int8 ``q``/``scale`` buffers included).
+    checkpoint: weights to load (``module_inject.load_checkpoint``): a HF
+        directory or file, a json descriptor, a numpy state dict, or the
+        port's engine checkpoint directory.
+    injection_policy: an ``InjectionPolicy`` subclass overriding the
+        ``model_type`` lookup.
     quantize_weights: serve an int8 copy of the model (weight-only, per
         output channel, every ``QDense`` kernel of at least
-        ``quantize_min_size`` elements; JAX engine.py:77-97); the caller's
-        model is not changed.
+        ``quantize_min_size`` elements, or the transform mode for other
+        modules; JAX engine.py:77-97), after any checkpoint load; the
+        caller's model is not changed.
     device: None means CUDA (raises without a card); "cpu" runs the
         kernels' plain versions. Keyword only: the port's own argument.
+        On CUDA a head dim no attention kernel takes raises a
+        ``ValueError`` before any weight is built or moved.
 
     The positional parameters are the JAX engine's, in its order
     (``deepspeed_tpu/inference/engine.py`` ``InferenceEngine.__init__``).
-    ``checkpoint``, ``injection_policy`` and ``mesh`` do nothing at their
-    default (None), and a ``mesh`` whose model axis is 1 does nothing
-    either; other values raise ``NotImplementedError`` naming the slice of
-    the port that brings them. Other keyword arguments are accepted and
-    ignored, as the JAX engine ignores them.
+    ``mesh`` does nothing at its default (None) or with a model axis of
+    1; ``mp_size > 1``, a wider model axis and ``offload_params`` raise
+    ``NotImplementedError`` naming the slice of the port that brings
+    them. Other keyword arguments are accepted and ignored, as the JAX
+    engine ignores them.
     """
 
     def __init__(self, model, mp_size: int = 1, dtype=None, params=None,
@@ -46,12 +60,6 @@ class InferenceEngine:
                  offload_params: bool = False, *, device=None, **kwargs):
         later = {
             "mp_size > 1": (mp_size > 1, "the multi-GPU slice"),
-            "checkpoint": (checkpoint is not None,
-                           "the checkpoint-injection slice"),
-            "replace_with_kernel_inject": (replace_with_kernel_inject,
-                                           "the checkpoint-injection slice"),
-            "injection_policy": (injection_policy is not None,
-                                 "the checkpoint-injection slice"),
             "a mesh with a model axis > 1": (_model_axis(mesh) > 1,
                                              "the multi-GPU slice"),
             "offload_params": (offload_params,
@@ -62,7 +70,33 @@ class InferenceEngine:
                 raise NotImplementedError(
                     f"init_inference({name}) comes with {slice_name} of the "
                     "port")
+        # imported here: module_inject imports the models, which import
+        # this package's cache
+        from ..module_inject.module_quantize import (adopt_int8_layout,
+                                                     quantize_for_serving)
+        from ..module_inject.replace_module import (
+            _resolve_policy, is_port_model, replace_transformer_layer,
+            serving_config)
         self.device = resolve_device(device)
+        inject = replace_with_kernel_inject and not is_port_model(model)
+        if inject:
+            hf_config = getattr(model, "config", model)
+            cfg = serving_config(_resolve_policy(hf_config, injection_policy),
+                                 hf_config, dtype or torch.bfloat16)
+        else:
+            cfg = model.config
+        if self.device.type == "cuda":
+            check_head_dim(cfg)
+        if inject:
+            model, params = replace_transformer_layer(
+                model, params=params, policy=injection_policy,
+                dtype=dtype or torch.bfloat16, checkpoint=checkpoint)
+            params = None          # loaded into the injected model
+        elif params is None and checkpoint is not None:
+            from ..module_inject.load_checkpoint import load_model_checkpoint
+            params = load_model_checkpoint(
+                model, checkpoint, dtype=dtype or model.config.dtype,
+                policy=injection_policy)
         if dtype is not None and dtype != model.config.dtype:
             rebuilt = type(model)(dataclasses.replace(model.config,
                                                       dtype=dtype))
@@ -75,6 +109,7 @@ class InferenceEngine:
             model.load_state_dict(params)
         if quantize_weights:
             model = quantize_for_serving(model, min_size=quantize_min_size)
+        self.injected = inject
         self.module = model.to(self.device).eval().requires_grad_(False)
         self.max_tokens = max_tokens
 
@@ -115,6 +150,19 @@ class InferenceEngine:
         ``serving.ServingConfig`` or dict; extra kwargs override knobs."""
         from ..serving.engine import ServingEngine
         return ServingEngine(self.module, config, **kwargs)
+
+
+def check_head_dim(cfg):
+    """A ``ValueError`` naming the head dim when no attention kernel takes
+    it (``ops.flash_attention.HEAD_DIMS``, as every attention kernel)."""
+    if not hasattr(cfg, "d_model") or not hasattr(cfg, "n_heads"):
+        return
+    head_dim = cfg.d_model // cfg.n_heads
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(
+            f"head_dim {head_dim} (d_model {cfg.d_model} / {cfg.n_heads} "
+            f"heads): the attention kernels take head dims {HEAD_DIMS} "
+            "(device='cpu' runs their plain versions, which take any)")
 
 
 def _model_axis(mesh) -> int:

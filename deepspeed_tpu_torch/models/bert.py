@@ -66,12 +66,34 @@ BERT_PRESETS = {
 }
 
 
+def init_params(module: nn.Module, seed: int):
+    """Embeddings ~ N(0, 0.02), dense kernels ~ N(0, 1/fan_in), biases 0,
+    LayerNorm scale 1 — drawn on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.endswith("embeddings"):
+                val = torch.randn(p.shape, generator=gen) * 0.02
+            elif leaf == "kernel":
+                val = torch.randn(p.shape, generator=gen) / p.shape[0] ** 0.5
+            elif leaf == "scale":
+                val = torch.ones(p.shape)
+            else:
+                val = torch.zeros(p.shape)
+            p.copy_(val)
+
+
 class BertEncoder(nn.Module):
     """Token + position + type embeddings -> N encoder blocks; returns
     (sequence_output [b, s, d], pooled_output [b, d]) in the compute
-    dtype."""
+    dtype. Weights drawn from ``seed`` (``init_params``; None leaves them
+    unset, for a caller that loads every weight)."""
 
-    def __init__(self, config: BertConfig):
+    # every dense layer is a QDense (module_quantize's direct mode)
+    supports_quantized_kernels = True
+
+    def __init__(self, config: BertConfig, seed: Optional[int] = 0):
         super().__init__()
         remat_policy(config.remat)
         self.config = cfg = config
@@ -91,6 +113,8 @@ class BertEncoder(nn.Module):
                   sparsity_pattern_len=cfg.max_seq_len)
             for _ in range(cfg.n_layers))
         self.pooler = QDense(d, d, True, cfg.dtype)
+        if seed is not None:
+            init_params(self, seed)
 
     def forward(self, input_ids, *, token_type_ids=None, attention_mask=None,
                 dropout_seed=None, layer_keep_prob=None):
@@ -119,7 +143,9 @@ class BertForPreTraining(nn.Module):
     (mlm_logits [b, s, vocab], nsp_logits [b, 2]) in the compute dtype.
     Built on the CPU with weights drawn from ``seed``."""
 
-    def __init__(self, config: BertConfig, seed: int = 0):
+    supports_quantized_kernels = True
+
+    def __init__(self, config: BertConfig, seed: Optional[int] = 0):
         super().__init__()
         if config.dropout_rate > 0.0:
             raise NotImplementedError(
@@ -127,28 +153,16 @@ class BertForPreTraining(nn.Module):
                 "dropout) comes with the residual-dropout slice of the "
                 "port; attn_dropout_rate is supported")
         self.config = cfg = config
-        self.bert = BertEncoder(cfg)
+        self.bert = BertEncoder(cfg, seed=None)
         self.mlm_transform = QDense(cfg.d_model, cfg.d_model, True, cfg.dtype)
         self.mlm_ln = LayerNorm(cfg.d_model, cfg.ln_epsilon)
         self.nsp_head = QDense(cfg.d_model, 2, True, cfg.dtype)
-        self.reset_parameters(seed)
+        if seed is not None:
+            self.reset_parameters(seed)
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0):
-        """Embeddings ~ N(0, 0.02), dense kernels ~ N(0, 1/fan_in), biases
-        0, LayerNorm scale 1 — drawn on the CPU from ``seed``."""
-        gen = torch.Generator().manual_seed(seed)
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf.endswith("embeddings"):
-                val = torch.randn(p.shape, generator=gen) * 0.02
-            elif leaf == "kernel":
-                val = torch.randn(p.shape, generator=gen) / p.shape[0] ** 0.5
-            elif leaf == "scale":
-                val = torch.ones(p.shape)
-            else:
-                val = torch.zeros(p.shape)
-            p.copy_(val)
+        """``init_params`` over every weight, the encoder's included."""
+        init_params(self, seed)
 
     def forward(self, input_ids, *, token_type_ids=None, attention_mask=None,
                 dropout_seed=None, layer_keep_prob=None):

@@ -1,5 +1,7 @@
 """JAX model parameters -> the port's state dict (``GPT``,
-``BertForPreTraining``, stacks of ``DeepSpeedTransformerLayer``).
+``BertForPreTraining``, stacks of ``DeepSpeedTransformerLayer``), and
+back (``params_to_jax``: the scan-stacked flax layout the injection
+policies' ``export`` reads).
 
 The port's module and parameter names are the flax ones, so the map is
 structural: nested dict keys join with ".", and a block tree becomes the
@@ -50,7 +52,8 @@ def params_from_jax(tree, config) -> dict:
     """``tree``: the flax ``params`` of a JAX ``GPT``,
     ``BertForPreTraining`` or ``DeepSpeedTransformerLayer`` stack as nested
     dicts of numpy arrays (unboxed), int8 ``{"q", "scale"}`` kernels
-    included. ``config``: the model's config; its ``n_layers`` (or
+    included; bf16 leaves (a ``param_dtype`` bf16 model) are widened.
+    ``config``: the model's config; its ``n_layers`` (or
     ``num_hidden_layers``) splits a scanned stack. Returns a state dict for
     the port's model: fp32, except int8 ``q`` buffers (load it into a
     quantized model, or after
@@ -62,3 +65,44 @@ def params_from_jax(tree, config) -> dict:
     return {name: torch.from_numpy(np.array(
         leaf, np.int8 if name.endswith(".q") else np.float32))
         for name, leaf in flat.items()}
+
+
+def params_to_jax(state_dict) -> dict:
+    """The inverse of ``params_from_jax`` into the scan layout: a port
+    state dict (or a module's) as nested dicts of fp32 numpy arrays, each
+    ``h.<i>`` / ``layer.<i>`` / ``layers.<i>`` run stacked on a leading
+    layer axis, int8 ``q`` / ``scale`` buffers as a ``{"q", "scale"}``
+    kernel node."""
+    if isinstance(state_dict, torch.nn.Module):
+        state_dict = state_dict.state_dict()
+    stacks = {}
+    tree = {}
+    int8 = {name[:-2] for name in state_dict if name.endswith(".q")}
+    for name, t in state_dict.items():
+        if t is None:
+            continue
+        arr = t.detach().cpu()
+        arr = (arr.numpy() if arr.dtype == torch.int8
+               else arr.float().numpy())
+        parts = name.split(".")
+        if ".".join(parts[:-1]) in int8:
+            parts = parts[:-1] + ["kernel", parts[-1]]
+        for j in range(len(parts) - 1):
+            if parts[j] in _STACKED and parts[j + 1].isdigit():
+                head = tuple(parts[:j + 1])
+                stacks.setdefault(head, {}).setdefault(
+                    tuple(parts[j + 2:]), {})[int(parts[j + 1])] = arr
+                break
+        else:
+            _put(tree, parts, arr)
+    for head, leaves in stacks.items():
+        for rest, by_layer in leaves.items():
+            _put(tree, list(head) + list(rest),
+                 np.stack([by_layer[i] for i in sorted(by_layer)]))
+    return tree
+
+
+def _put(tree, parts, leaf):
+    for key in parts[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[parts[-1]] = leaf

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..inference.cache import PagedView
 from ..ops.dropout import fold_seed
+from ..ops.transformer.rotary import rotary_tables
 from .layers import REMAT_POLICIES, Block, LayerNorm, QDense, remat_policy
 
 
@@ -45,11 +46,15 @@ class GPTConfig:
     d_ff: Optional[int] = None           # default 4*d_model
     dropout_rate: float = 0.0            # residual/MLP/embedding: later slice
     attn_dropout_rate: float = 0.0
-    dtype: torch.dtype = torch.bfloat16  # compute dtype (params are fp32)
+    dtype: torch.dtype = torch.bfloat16  # compute dtype
+    param_dtype: torch.dtype = torch.float32  # embeddings and dense layers
     use_bias: bool = True
     ln_epsilon: float = 1e-5
     tie_embeddings: bool = True
+    rotary: bool = False                 # GPT-J/NeoX style when True
+    rotary_dim: Optional[int] = None     # GPT-J: 64; None = full head_dim
     learned_pos: bool = True             # GPT-2 learned position embeddings
+    activation: str = "gelu"             # key into layers.ACTIVATIONS
     parallel_residual: bool = False      # GPT-J / GPT-NeoX layout
     shared_parallel_ln: bool = False     # GPT-J (one LN), NeoX uses two
     attn_use_bias: Optional[bool] = None  # GPT-J: False (mlp keeps bias)
@@ -80,13 +85,16 @@ GPT2_PRESETS = {
 class GPT(nn.Module):
     """Decoder-only LM; ``forward`` returns logits [batch, seq, vocab] in
     the compute dtype. Built on the CPU with weights drawn from ``seed``
-    (the same weights on every device); move it with ``.to(device)``."""
+    (the same weights on every device; ``seed=None`` leaves them unset,
+    for a caller that loads every weight); move it with ``.to(device)``.
+    The embeddings and dense layers are held in ``param_dtype`` (serving
+    sets it to the compute dtype), LayerNorms in fp32, as in JAX."""
 
     # every matmul weight is a QDense kernel, which can hold int8 weights
     # (module_inject.module_quantize's direct mode)
     supports_quantized_kernels = True
 
-    def __init__(self, config: GPTConfig, seed: int = 0):
+    def __init__(self, config: GPTConfig, seed: Optional[int] = 0):
         super().__init__()
         if config.dropout_rate > 0.0:
             raise NotImplementedError(
@@ -106,13 +114,24 @@ class GPT(nn.Module):
                   parallel_residual=cfg.parallel_residual,
                   shared_parallel_ln=cfg.shared_parallel_ln,
                   attn_use_bias=cfg.attn_use_bias, alibi=cfg.alibi,
-                  attn_dropout_rate=cfg.attn_dropout_rate)
+                  attn_dropout_rate=cfg.attn_dropout_rate,
+                  activation=cfg.activation,
+                  rotary_dim=(cfg.rotary_dim or cfg.head_dim) if cfg.rotary
+                  else None)
             for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.ln_epsilon)
         self.lm_head = (None if cfg.tie_embeddings else
                         QDense(cfg.d_model, cfg.vocab_size, cfg.lm_head_bias,
                                cfg.dtype))
-        self.reset_parameters(seed)
+        if cfg.param_dtype != torch.float32:
+            for m in self.modules():
+                if isinstance(m, QDense):
+                    m.to(cfg.param_dtype)
+            for p in (self.wte, self.wpe):
+                if p is not None:
+                    p.data = p.data.to(cfg.param_dtype)
+        if seed is not None:
+            self.reset_parameters(seed)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0):
@@ -152,12 +171,18 @@ class GPT(nn.Module):
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)
         if self.wpe is not None:
-            h = h + F.embedding(positions, self.wpe).to(cfg.dtype)
+            # clamped as the reference's clipping gather: only inactive
+            # serving slots and prefill pad tails pass the table, and
+            # their outputs are masked (rotary takes the raw positions)
+            h = h + F.embedding(positions.clamp(max=cfg.max_seq_len - 1),
+                                self.wpe).to(cfg.dtype)
         if self.emb_ln is not None:
             h = self.emb_ln(h)
         mask = (attention_mask[:, None, None, :].bool()
                 if attention_mask is not None else None)
         paged = isinstance(cache, PagedView)
+        rope = (rotary_tables(positions, cfg.rotary_dim or cfg.head_dim,
+                              cfg.dtype) if cfg.rotary else None)
         for i, block in enumerate(self.h):
             if paged:
                 kv, idx = cache.layer(i), None
@@ -169,7 +194,8 @@ class GPT(nn.Module):
                       cache_index=idx,
                       dropout_seed=(None if dropout_seed is None
                                     else fold_seed(dropout_seed, i)),
-                      layer_keep_prob=layer_keep_prob, remat=cfg.remat)
+                      layer_keep_prob=layer_keep_prob, remat=cfg.remat,
+                      rope=rope)
         if cache is not None and not paged:
             cache.index = cache.index + s
         h = self.ln_f(h)

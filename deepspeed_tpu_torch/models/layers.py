@@ -62,6 +62,7 @@ from ..ops.decode_attention import decode_attention
 from ..ops.paged_attention import paged_attention
 from ..ops.sparse_attention import layout_to_dense_mask, sparse_attention
 from ..ops.transformer.attention import attention
+from ..ops.transformer.rotary import rotary_tables, rotate
 from ..ops.wo_int8_matmul import wo_int8_matmul
 
 
@@ -139,15 +140,20 @@ class LayerNorm(nn.Module):
 
 class SelfAttention(nn.Module):
     """Fused-QKV multi-head attention (causal by default) with a
-    contiguous or paged KV cache, or a block-sparse pattern."""
+    contiguous or paged KV cache, or a block-sparse pattern. With
+    ``rotary_dim`` q and k are rotated right after the projection
+    (layers.py:299-303), before every path, so the cache and the page
+    pool hold post-rotary K."""
 
     def __init__(self, n_heads: int, d_model: int, dtype=torch.bfloat16,
                  use_bias: bool = True, alibi: bool = False,
                  dropout_rate: float = 0.0, causal: bool = True,
                  sparsity_config=None,
-                 sparsity_pattern_len: Optional[int] = None):
+                 sparsity_pattern_len: Optional[int] = None,
+                 rotary_dim: Optional[int] = None):
         super().__init__()
         self.n_heads, self.d_model, self.alibi = n_heads, d_model, alibi
+        self.rotary_dim = rotary_dim
         self.dropout_rate, self.causal = dropout_rate, causal
         self.sparsity_config = sparsity_config
         self.sparsity_pattern_len = sparsity_pattern_len
@@ -158,7 +164,7 @@ class SelfAttention(nn.Module):
                                  persistent=False)
 
     def forward(self, x, mask=None, positions=None, kv_cache=None,
-                cache_index=None, dropout_seed=None):
+                cache_index=None, dropout_seed=None, rope=None):
         """x [b, s, d_model]. ``kv_cache`` is this layer's (k, v) cache
         pair [B, H, S, head_dim], written in place, or its
         ``PagedLayer`` (paged decode; ``cache_index`` unused);
@@ -166,9 +172,10 @@ class SelfAttention(nn.Module):
         or an int [B] tensor (one token per row, clamped into the cache
         like the reference's ``dynamic_update_slice``). ``dropout_seed``:
         this layer's (s0, s1) words, needed when attention dropout is
-        live."""
+        live. ``rope``: the forward's ``rotary_tables`` (built from
+        ``positions`` when None)."""
         b, s, _ = x.shape
-        q, k, v = self.project(x)
+        q, k, v = self.project(x, positions, rope)
         drop = self.dropout_rate > 0.0 and self.training
         if kv_cache is None:
             out = self.attend(q, k, v, mask, positions, dropout_seed)
@@ -194,11 +201,21 @@ class SelfAttention(nn.Module):
             out = self._attend_token(q, k, v, kv_cache, cache_index)
         return self.out(out.reshape(b, s, self.d_model))
 
-    def project(self, x):
+    def project(self, x, positions=None, rope=None):
         """q, k, v [b, s, heads, head_dim]: thirds of the fused QKV
-        projection, then heads (layers.py:293-297)."""
-        return tuple(t.unflatten(-1, (self.n_heads, -1))
-                     for t in self.qkv(x).split(self.d_model, dim=-1))
+        projection, then heads (layers.py:293-297); q and k rotated
+        together when the layer is rotary (``rope`` or ``positions``,
+        default ``arange(s)``)."""
+        qkv = self.qkv(x).unflatten(-1, (3, self.n_heads, -1))
+        q, k, v = qkv.unbind(2)
+        if self.rotary_dim:
+            if rope is None:
+                if positions is None:
+                    positions = torch.arange(x.shape[1], device=x.device)
+                rope = rotary_tables(positions, self.rotary_dim, qkv.dtype)
+            q, k = rotate(qkv[:, :, :2], tuple(t[:, :, None]
+                                                 for t in rope)).unbind(2)
+        return q, k, v
 
     def attend(self, q, k, v, mask=None, positions=None, dropout_seed=None):
         """Cache-free attention of projected q, k, v (dense through the
@@ -417,7 +434,8 @@ class Block(nn.Module):
                  attn_dropout_rate: float = 0.0, causal: bool = True,
                  pre_ln: bool = True, activation: str = "gelu",
                  sparsity_config=None,
-                 sparsity_pattern_len: Optional[int] = None):
+                 sparsity_pattern_len: Optional[int] = None,
+                 rotary_dim: Optional[int] = None):
         super().__init__()
         self.parallel_residual, self.pre_ln = parallel_residual, pre_ln
         self.ln_1 = LayerNorm(d_model, ln_epsilon)
@@ -426,19 +444,21 @@ class Block(nn.Module):
         self.attn = SelfAttention(
             n_heads, d_model, dtype,
             use_bias if attn_use_bias is None else attn_use_bias, alibi,
-            attn_dropout_rate, causal, sparsity_config, sparsity_pattern_len)
+            attn_dropout_rate, causal, sparsity_config, sparsity_pattern_len,
+            rotary_dim)
         self.mlp = MLP(d_model, d_ff, dtype, use_bias, activation)
 
     def forward(self, x, mask=None, positions=None, kv_cache=None,
                 cache_index=None, dropout_seed=None, layer_keep_prob=None,
-                remat: str = "none"):
+                remat: str = "none", rope=None):
         policy = remat_policy(remat)
         if (policy is not None and kv_cache is None
                 and torch.is_grad_enabled()):
             if policy.whole_block:
                 return checkpointed(policy, self._block, x, mask, positions,
-                                    dropout_seed, layer_keep_prob)
-            q, k, v, h1 = checkpointed(policy, self._pre_attention, x)
+                                    dropout_seed, layer_keep_prob, rope)
+            q, k, v, h1 = checkpointed(policy, self._pre_attention, x,
+                                       positions, rope)
             o = self.attn.attend(q, k, v, mask, positions, dropout_seed)
             # the shared LN's output crosses into the second region, so
             # ln_1 runs once, as in the layer without remat
@@ -447,15 +467,17 @@ class Block(nn.Module):
                                 h1 if self.ln_2 is None else None)
         if kv_cache is None:
             return self._block(x, mask, positions, dropout_seed,
-                               layer_keep_prob)
+                               layer_keep_prob, rope)
         h1 = self._attn_input(x)
         a = self.attn(h1, mask=mask, positions=positions, kv_cache=kv_cache,
-                      cache_index=cache_index, dropout_seed=dropout_seed)
+                      cache_index=cache_index, dropout_seed=dropout_seed,
+                      rope=rope)
         return self._residual(x, a, layer_keep_prob, h1)
 
-    def _block(self, x, mask, positions, dropout_seed, layer_keep_prob):
+    def _block(self, x, mask, positions, dropout_seed, layer_keep_prob,
+               rope=None):
         """The cache-free layer; ln_1(x) is computed once."""
-        q, k, v, h1 = self._pre_attention(x)
+        q, k, v, h1 = self._pre_attention(x, positions, rope)
         o = self.attn.attend(q, k, v, mask, positions, dropout_seed)
         return self._post_attention(x, o, layer_keep_prob, h1)
 
@@ -465,10 +487,10 @@ class Block(nn.Module):
             return x
         return self.ln_1(x)
 
-    def _pre_attention(self, x):
+    def _pre_attention(self, x, positions=None, rope=None):
         """q, k, v of the block input, and the attention's input h1."""
         h1 = self._attn_input(x)
-        return (*self.attn.project(h1), h1)
+        return (*self.attn.project(h1, positions, rope), h1)
 
     def _post_attention(self, x, o, layer_keep_prob, h1=None):
         """The output projection of the attention ``o`` and the rest of

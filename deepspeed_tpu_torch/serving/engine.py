@@ -57,12 +57,12 @@ def _admit_impl(model, cache, state, prompt, prompt_len: int, slot: int,
     from position ``prompt_len - 1`` and activate the slot's state row (in
     place). The pad tail's K/V sits at positions >= prompt_len, which the
     slot's length mask never reads and later decode tokens overwrite in
-    order; its positions are clipped to the model's table (a bucket may
-    pass ``max_seq_len`` when ``cache_len`` does). Returns (token, done)
-    as device tensors."""
+    order (a bucket may pass ``max_seq_len`` when ``cache_len`` does:
+    ``GPT.forward`` clamps its learned-position gather, and rotary takes
+    the raw positions, as JAX's). Returns (token, done) as device
+    tensors."""
     row = make_row_cache(cache)
-    positions = torch.arange(prompt.shape[1], device=prompt.device).clamp(
-        max=model.config.max_seq_len - 1)
+    positions = torch.arange(prompt.shape[1], device=prompt.device)
     logits = _prefill_impl(model, row, prompt, positions)
     tok = _sample_impl(logits[:, prompt_len - 1], generator, mode)[0]
     write_cache_row(cache, row, slot)
@@ -81,13 +81,14 @@ def _decode_iter_impl(model, cache, state, generator, eos_id: int, mode):
 
     Every slot runs; inactive slots write their token at a clamped
     position inside their own row (re-prefilled at the next admission)
-    and their output is masked to -1. Positions are clamped to the
-    model's table as the reference's clipping gather does (only inactive
-    slots can reach the clamp). Returns (new state, tokens, done)."""
+    and their output is masked to -1. Positions are the write positions,
+    as JAX's (only inactive slots can pass the model's position table,
+    whose gather ``GPT.forward`` clamps). Returns (new state, tokens,
+    done)."""
     lengths, active = state["lengths"], state["active"]
     idx_w = lengths.clamp(max=cache_max_len(cache) - 1)
     set_cache_index(cache, idx_w)
-    positions = idx_w.clamp(max=model.config.max_seq_len - 1)[:, None]
+    positions = idx_w[:, None]
     logits = model(state["last_token"][:, None], positions=positions,
                    cache=cache)
     nxt = _sample_impl(logits[:, -1, :], generator, mode)

@@ -102,9 +102,9 @@ def _chunk_prefill_impl(model, pool, state, ptab_row, chunk_ids,
     row = gather_pages(pool, ptab_row[None], dequant_dtype=model.config.dtype)
     row.index = chunk_start
     # the pad tail of the last chunk may pass the model's position table
+    # (GPT.forward clamps that gather; rotary takes the raw positions)
     positions = torch.arange(chunk_start, chunk_start + chunk,
-                             device=chunk_ids.device).clamp(
-                                 max=model.config.max_seq_len - 1)
+                             device=chunk_ids.device)
     logits = model(chunk_ids, positions=positions, cache=row)
     run = ptab_row[chunk_start // page_len:(chunk_start + chunk) // page_len]
     scatter_chunk_pages(pool, row.k[:, 0, :, chunk_start:chunk_start + chunk],

@@ -6,11 +6,14 @@ every call that names them, by keyword or by position, means the same
 thing in both packages; ``device`` is the port's own keyword-only
 argument. At their defaults the parameters the port does not implement
 yet do nothing; other values raise ``NotImplementedError`` naming the
-slice of the port that brings them. Extra keyword arguments are ignored,
-as the JAX engine ignores them.
+slice of the port that brings them. ``checkpoint`` (by keyword or by
+position), ``replace_with_kernel_inject`` and ``injection_policy`` work
+since the checkpoint-injection slice (``test_torch_injection.py``).
+Extra keyword arguments are ignored, as the JAX engine ignores them.
 """
 
 import inspect
+import json
 
 import pytest
 import torch
@@ -75,9 +78,8 @@ def test_extra_keywords_are_ignored_as_jax_ignores_them(model):
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    ({"checkpoint": "ckpt.pt"}, "checkpoint-injection slice"),
-    ({"injection_policy": {"Block": ("attn.out",)}},
-     "checkpoint-injection slice"),
+    ({"offload_params": True}, "offload and tiering slice"),
+    ({"mp_size": 8}, "multi-GPU slice"),
     ({"mesh": {"model": 2}}, "multi-GPU slice"),
     ({"mesh": MeshSpec(model=4)}, "multi-GPU slice"),
     ({"mp_size": 2}, "multi-GPU slice"),
@@ -87,7 +89,20 @@ def test_each_non_default_value_names_its_slice(model, kwargs, slice_name):
         init_inference(model, **kwargs, device="cpu")
 
 
-def test_a_checkpoint_by_position_names_its_slice(model):
-    with pytest.raises(NotImplementedError,
-                       match="checkpoint-injection slice"):
-        InferenceEngine(model, 1, None, None, "ckpt.pt", device="cpu")
+def test_a_checkpoint_by_position_names_its_slice(model, tmp_path):
+    """The fifth positional parameter is the checkpoint in both packages:
+    a HF directory (GPT-2 names, ``config.json`` beside them) given by
+    position loads into the model."""
+    from deepspeed_tpu_torch.module_inject import export_hf_state_dict
+    source = GPT(model.config, seed=5)
+    sd = export_hf_state_dict("gpt2", source, model.config)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               tmp_path / "pytorch_model.bin")
+    cfg = model.config
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump({"model_type": "gpt2", "vocab_size": cfg.vocab_size,
+                   "n_positions": cfg.max_seq_len, "n_embd": cfg.d_model,
+                   "n_layer": cfg.n_layers, "n_head": cfg.n_heads}, f)
+    eng = InferenceEngine(model, 1, None, None, str(tmp_path), device="cpu")
+    for name, t in source.state_dict().items():
+        assert torch.equal(eng.module.state_dict()[name], t), name

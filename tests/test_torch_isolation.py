@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX, no flax, nothing of ``deepspeed_tpu``;
-it runs on the card unless told otherwise; CPU tensors never launch a
-kernel."""
+"""The port stands alone: no JAX, no flax, nothing of ``deepspeed_tpu``,
+and neither ``transformers`` nor ``safetensors`` (it reads HuggingFace
+checkpoints and configs itself); it runs on the card unless told
+otherwise; CPU tensors never launch a kernel."""
 
 import ast
 import os
@@ -21,7 +22,8 @@ from deepspeed_tpu_torch.ops import op_builder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deepspeed_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepspeed_tpu",
+             "transformers", "safetensors")
 
 
 def _port_files():
@@ -177,3 +179,57 @@ def test_cpu_training_modes_launch_no_kernel():
                     "progressive_layer_drop": {"enabled": True}, **extra})
         assert np.isfinite(float(eng.train_batch({"input_ids": ids})))
     assert all(getattr(fn, attr) == 0 for fn, attr in counters)
+
+
+def test_the_checks_cover_the_injection_modules():
+    """The checkpoint-injection slice's modules (policies, the
+    checkpoint and config readers, the Megatron loader, rotary, the
+    HF-named sparse attention) are among the files and modules the import
+    checks walk, and none of them reaches transformers or safetensors."""
+    mods = {m.name for m in pkgutil.walk_packages(
+        deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")}
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("module_inject/replace_policy",
+                 "module_inject/replace_module",
+                 "module_inject/load_checkpoint",
+                 "runtime/state_dict_factory", "ops/transformer/rotary",
+                 "ops/sparse_attention/bert_sparse_self_attention"):
+        assert "deepspeed_tpu_torch." + name.replace("/", ".") in mods
+        assert name + ".py" in files
+    assert {"transformers", "safetensors"} <= set(FORBIDDEN)
+
+
+def test_cpu_injected_serving_launches_no_kernel(tmp_path):
+    """A checkpoint written in HF's layout, read back through
+    ``init_inference(config, checkpoint=dir, replace_with_kernel_inject=
+    True)`` and served paged with int8 weights on the CPU: plain versions
+    only."""
+    from deepspeed_tpu_torch.module_inject import (export_hf_state_dict,
+                                                   read_hf_config)
+    cfg = GPTConfig(vocab_size=64, max_seq_len=64, d_model=128, n_layers=2,
+                    n_heads=2, d_ff=256, rotary=True, rotary_dim=16,
+                    learned_pos=False, tie_embeddings=False,
+                    parallel_residual=True, activation="gelu_exact",
+                    dtype=torch.float32)
+    sd = export_hf_state_dict("gpt_neox", GPT(cfg, seed=1), cfg)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               tmp_path / "pytorch_model.bin")
+    (tmp_path / "config.json").write_text(
+        '{"model_type": "gpt_neox", "vocab_size": 64, "hidden_size": 128, '
+        '"num_attention_heads": 2, "num_hidden_layers": 2, '
+        '"intermediate_size": 256, "max_position_embeddings": 64}')
+    flash_attention.launches = paged_attention.launches = 0
+    wo_int8_matmul.small_m_launches = wo_int8_matmul.tiled_launches = 0
+    eng = init_inference(read_hf_config(str(tmp_path)),
+                         checkpoint=str(tmp_path),
+                         replace_with_kernel_inject=True,
+                         dtype=torch.float32, quantize_weights=True,
+                         quantize_min_size=256, device="cpu")
+    srv = eng.serve({"num_slots": 2, "max_len": 64,
+                     "paging": {"page_len": 16, "prefill_chunk": 16}})
+    reqs = [srv.submit(p, max_new_tokens=3) for p in ([5, 6, 7], [1] * 20)]
+    srv.run()
+    assert all(len(r.output_tokens) == 3 for r in reqs)
+    assert flash_attention.launches == paged_attention.launches == 0
+    assert wo_int8_matmul.small_m_launches == 0
+    assert wo_int8_matmul.tiled_launches == 0
