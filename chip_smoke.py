@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--profile | --checks-only | --8c-only |
                            --7a-only | --loop-only | --fp16-only |
-                           --inject-only | --11b-only | --serving-only |
+                           --inject-only | --11b-only | --gptj-only |
+                           --serving-only |
                            --serving-timing [dir] | --decode-timing [dir] |
                            --serving-ab dir | --chunk-sweep |
                            --planted-faults [name]]
@@ -14,11 +15,13 @@ Phases, each fatal on failure:
    TF32 and reduced-precision bf16 GEMM reductions switched off for
    every phase but 5a, 7a, 8a and 8b, which run under torch's defaults;
 2. build: the kernels of ``deepspeed_tpu_torch/ops/csrc`` with nvcc for
-   sm_90a (register and spill counts printed);
+   sm_90a (register and spill counts printed; the bf16 and fp16 flash
+   forward's head-dim-256 instances must not spill);
 3. kernels: every kernel of the serving and training paths against its
    plain PyTorch version on the card (the flash forward with dropout, both
    flash backward kernels and fused Adam over the training grid, the
-   attention kernels at head_dim 64, 80, 96 and 128, the bf16 flash
+   attention kernels at head_dim 64, 80, 96 and 128, the flash forward,
+   decode and paged kernels also at 256 (GPT-J-6B's), the bf16 flash
    kernels again at phases 5a's and 8a's shapes; bf16 held by the largest
    error and by the rms error, ``Gate``), then timed at the serving and
    training shapes beside the plain version, one PyTorch library call
@@ -167,8 +170,8 @@ Phases, each fatal on failure:
    10a's and 10c's shapes;
 11. checkpoint injection end to end: (a) Pythia-1.4B (EleutherAI's
    ``config.json``: d 2048, 16 heads of 128, 24 layers, d_ff 8192, rotary
-   over 32 dims, vocab 50304, parallel residual, exact GELU, untied head)
-   drawn from a seed, exported to HuggingFace's layout in fp16
+   over 32 dims, vocab 50304, parallel residual, exact GELU, untied head;
+   cut to ``PYTHIA_LAYERS`` 12 layers) drawn from a seed, exported to HuggingFace's layout in fp16
    (``export_hf_state_dict``), written as two ``pytorch_model-*.bin``
    shards with their index and a ``config.json`` of the non-default
    fields, loaded through ``init_inference(read_hf_config(dir),
@@ -187,17 +190,38 @@ Phases, each fatal on failure:
    through the cache within 2e-3 of the cache-free forward, contiguous
    and paged serving and a ragged ``generate()`` token-exact against
    ``generate()`` (near-tie rule), decode, paged and flash launches
-   exact; (d) GPT-J-6B's head dim 256 refused by name with no device
-   allocation; (e) ``BertSparseSelfAttention`` at BERT-base widths with
-   HF-named query/key/value weights, BigBird-64 at 4096 tokens, bf16,
-   against its plain version (``Gate``), one block-sparse forward launch.
+   exact; (d) a flash forward at head dim 256 that needs a gradient
+   refused by name, naming the backward kernels' head dims, with no
+   launch and no device allocation; (e) ``BertSparseSelfAttention`` at
+   BERT-base widths with HF-named query/key/value weights, BigBird-64 at
+   4096 tokens, bf16, against its plain version (``Gate``), one
+   block-sparse forward launch;
+12. head dim 256 end to end: (a) GPT-J-6B (EleutherAI's ``config.json``:
+   d 4096, 16 heads of 256, 28 layers, d_ff 16384, rotary over 64 of
+   each head's dims, vocab 50400, a parallel residual with one shared
+   LayerNorm, no attention biases, a head with a bias) at full width and
+   4 layers drawn from a seed, exported to HuggingFace's layout in fp16,
+   written as a sharded checkpoint and loaded through
+   ``init_inference(read_hf_config(dir), checkpoint=dir,
+   replace_with_kernel_inject=True, dtype=bf16)`` (read back bit-equal,
+   held as its bf16 rounding); then all 28 layers from weights the
+   policy draws, through ``init_inference(config,
+   replace_with_kernel_inject=True, dtype=bf16)``, serving phase 6's
+   trace paged: launch counts exact (28 flash forward launches a prefill
+   chunk, 28 paged a decode iteration), first tokens exact against
+   ``generate()`` (11a's tie rule, the rest classified), its decode
+   launches exact, tokens/s, decode wall ms, parameter, KV pool and host
+   peak bytes; (c) the same model with int8 KV pages (6d's logit rung;
+   the greedy agreement classified against 12a's own with
+   ``generate()``); (b)
+   fp32 at GPT-J-6B's widths and 2 layers, 11b's gates.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result);
 ``--7a-only`` phase 7a likewise, ``--loop-only`` phase 9,
 ``--fp16-only`` phase 10, ``--inject-only`` phase 11, ``--11b-only``
-phase 11b, ``--serving-only`` phases 4b and 6b.
+phase 11b, ``--gptj-only`` phase 12, ``--serving-only`` phases 4b and 6b.
 ``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
 with this checkout's decode and paged ops and with those of the checkout
 ``dir`` in turns (no result).
@@ -208,9 +232,11 @@ it on copies built with each split-KV chunk width of ``SWEEP_CHUNKS``.
 prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (thirty-five faults),
-``--8c-only`` (two), ``--7a-only`` (one) or ``--11b-only`` (three: the
-injection path's Python) in copies of the checkout,
+``--planted-faults [name]`` runs ``--checks-only`` (forty faults; ``d-256``
+picks the five of the head-dim-256 instances),
+``--8c-only`` (two), ``--7a-only`` (one), ``--11b-only`` (three: the
+injection path's Python) or ``--gptj-only`` (one, ``12c``: int8 pages at
+head dim 256 in every slot but the first) in copies of the checkout,
 each with one kernel fault planted (``PLANTED_FAULTS``; only those
 whose source file name or description contains ``name``, when given;
 ``instance:`` picks the four of the fp16 and bf16-gradient instances),
@@ -258,7 +284,6 @@ ADAM_TOL = 1e-5   # fused Adam, relative to max(1, max |ref|): FMA contraction
 # near tie: stop comparing a request at a step whose reference top-2 logit
 # gap is below this (in bf16, where a logit's ulp is ~0.03, only exact ties)
 GAP_STOP = 1e-3
-HEAD_DIMS = (64, 80, 96, 128)  # the attention kernels' head dims
 SEED = 0
 DS_SEQ, DS_MICRO = 128, 64    # phase 8: bing_bert's seq-128 LAMB schedule
 
@@ -309,6 +334,43 @@ def bound_ms(flops, nbytes, peak_flops):
 
 
 # --------------------------------------------------------------------------
+# phase 2: the build
+# --------------------------------------------------------------------------
+
+# the tensor-core flash forward's d-256 instances (bf16 and fp16, dropout
+# on and off), whose accumulator alone takes 128 registers a thread
+D256_FWD_ENTRY = r"flash_fwd_kernelI(13__nv_bfloat16|6__half)Li256E"
+
+
+def check_d256_spills(build_log):
+    """ptxas's registers and spill bytes of every kernel instance
+    matching ``D256_FWD_ENTRY`` in nvcc's ``-Xptxas -v`` output: four
+    instances, none spilling."""
+    name, seen = None, {}
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            name = m[1] if re.search(D256_FWD_ENTRY, m[1]) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            seen[name] = [int(m[1]) + int(m[2]), None]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in seen:
+            seen[name][1] = int(m[1])
+    log("  flash forward d-256 instances (bf16, fp16; dropout off, on): "
+        + ", ".join(f"{regs} registers / {spill} spill bytes"
+                    for spill, regs in seen.values()))
+    if len(seen) != 4 or any(spill for spill, _ in seen.values()):
+        raise AssertionError("the bf16/fp16 flash forward's d-256 instances "
+                             f"spill or were not found: {seen}")
+
+
+# --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
@@ -330,10 +392,10 @@ def _padding_bias(b, sk, dev):
 
 def check_flash(dev, gen):
     from deepspeed_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        FWD_HEAD_DIMS, flash_attention, flash_attention_reference)
     gate = Gate("flash")
     for dtype in (torch.float32, torch.bfloat16):
-        for d in HEAD_DIMS:
+        for d in FWD_HEAD_DIMS:
             for sq in (128, 512):
                 cases = [("causal", 1, True, sq, None),
                          ("cache_mask", 1, False, 1024,
@@ -372,7 +434,7 @@ def boundary_lengths(capacity):
 def check_decode(dev, gen):
     from deepspeed_tpu_torch.models.layers import alibi_slopes
     from deepspeed_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        HEAD_DIMS, decode_attention, decode_attention_reference)
     S = 1024
     lengths = torch.tensor([0, 1, 77, 1024, 500, 333, 1000, 64,
                             *boundary_lengths(S)],
@@ -443,13 +505,13 @@ def _paged_case(dev, gen, dtype, quant, page_len, d, lengths, B=8, H=12,
 
 def check_paged(dev, gen):
     """The paged kernel against its plain version over fp32, bf16 and int8
-    pages, page_len 16 and 128, d 64, 80, 96 and 128, ALiBi on and off,
+    pages, page_len 16 and 128, d 64, 80, 96, 128 and 256, ALiBi on and off,
     lengths 0, 1, ragged, at the chunk boundaries and a full table, with
     NaN in every unreadable position; with fp32 and bf16 pages also
     bit-equal to the decode kernel over the same tokens."""
     from deepspeed_tpu_torch.models.layers import alibi_slopes
     from deepspeed_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_reference)
+        HEAD_DIMS, paged_attention, paged_attention_reference)
     gate = Gate("paged")
     lengths = [0, 1, 77, 1024, 500, 333, 1000, 128, *boundary_lengths(1024)]
     for dtype in (torch.float32, torch.bfloat16):
@@ -548,7 +610,8 @@ def check_int8(dev, gen):
     """Both int8 kernels against the plain version over m 1, 8, 16, 256,
     1000, the four GPT-2 125M weight shapes and a ragged k (200: neither
     a whole segment nor a whole 16-row step), fp32 and bf16 x, and over
-    Pythia-1.4B's five matrices at m 1, 16 and 256, bf16 x; and the
+    Pythia-1.4B's and GPT-J-6B's five matrices (GPT-J's head: n 50400,
+    not a multiple of 64) at m 1, 16 and 256, bf16 x; and the
     summation order, bit for bit: rows of an m = 16 call (small-m kernel)
     and of an m = 1 call equal the same rows of an m = 1000 call (tiled),
     rows 5..20 of the m = 1000 call equal an m = 16 call on those rows (so
@@ -597,10 +660,11 @@ def check_int8(dev, gen):
                         "CTAs along k)")
     # phase 11c's shapes: Pythia-1.4B's five int8 matrices (the untied
     # head too) at m 1 (generate()), 16 (a decode step of 16 slots) and
-    # 256 (a prefill chunk), bf16 x; their own generator leaves the later
-    # checks' inputs as they were
+    # 256 (a prefill chunk), bf16 x, and GPT-J-6B's; their own generator
+    # leaves the later checks' inputs as they were
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    for k, n in pythia_int8_weights():
+    for model, (k, n) in [("Pythia-1.4B", w) for w in pythia_int8_weights()] \
+            + [("GPT-J-6B", w) for w in gptj_int8_weights()]:
         q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                           dtype=torch.int8)
         scale = torch.rand(1, n, generator=gen, device=dev) * 0.01
@@ -612,7 +676,7 @@ def check_int8(dev, gen):
             ref = wo_int8_matmul_reference(x[:m], q, scale)
             torch.cuda.synchronize()
             gate.case(torch.bfloat16, [outs[m]], [ref],
-                      f"Pythia-1.4B k={k:4d} n={n:5d} m={m:3d}",
+                      f"{model} k={k:5d} n={n:5d} m={m:3d}",
                       show=m != 1)
         segs = -(-k // SEG)
         runs = {s: _launch(x, q, scale, torch.bfloat16, splits=s)
@@ -622,15 +686,15 @@ def check_int8(dev, gen):
                 and torch.equal(outs[16], outs[256][:16])
                 and all(torch.equal(y, outs[256]) for y in runs.values())):
             raise AssertionError(
-                f"wo_int8_matmul Pythia-1.4B k={k} n={n} bf16: a row's "
+                f"wo_int8_matmul {model} k={k} n={n} bf16: a row's "
                 "result depends on m or on the k split")
         del q, x, outs, runs
     gate.close()
     log("  wo_int8: rows of m = 1, 16, 256 and 1000 calls and rows 5..20 "
         "bit-equal (one summation order in both kernels, fp32 FMAs and "
         "bf16 mma.sync); bf16 tiled bit-equal split over "
-        f"{sorted(splits_seen)} CTAs along k and unsplit (GPT-2 125M's and "
-        "Pythia-1.4B's matrices)")
+        f"{sorted(splits_seen)} CTAs along k and unsplit (GPT-2 125M's, "
+        "Pythia-1.4B's and GPT-J-6B's matrices)")
 
 
 GPT2_WEIGHTS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
@@ -645,6 +709,15 @@ def pythia_int8_weights():
             (d, PYTHIA_1_4B["vocab_size"]))
 
 
+def gptj_int8_weights():
+    """(k, n) of GPT-J-6B's matrices as the port holds them: the fused
+    qkv, the attention output, the MLP's two and the untied head (n
+    50400, a multiple of 16 but not of 64)."""
+    d = GPTJ_6B["n_embd"]
+    return ((d, 3 * d), (d, d), (d, 4 * d), (4 * d, d),
+            (d, GPTJ_6B["vocab_size"]))
+
+
 def served_lengths(n, seed):
     """Pool lengths of ``n`` slots drawn like phase 6's traffic: the
     shared system prompt, a tail and part of the output."""
@@ -653,18 +726,19 @@ def served_lengths(n, seed):
             + rs.randint(1, 65, size=n))
 
 
-def time_paged(dev, gen, quant):
+def time_paged(dev, gen, quant, d=64, H=12, dt=torch.bfloat16):
     """The paged decode shape of phase 6: 16 slots, 12 heads, d 64,
-    page_len 128, capacity 1024, bf16 compute, bf16 or int8 pages. The
-    library comparison is two calls: the page gather (an index, with the
+    page_len 128, capacity 1024, bf16 compute, bf16 or int8 pages (phase
+    12's: 16 heads of 256, bf16, int8 or fp32). The library
+    comparison is two calls: the page gather (an index, with the
     dequantizing product for int8) and SDPA over the gathered rows."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
-    B, H, d, page_len, dt = 16, 12, 64, 128, torch.bfloat16
+    B, page_len = 16, 128
     lengths = [int(n) for n in served_lengths(B, SEED + 6)]
     q, kn, vn, k, v, ks, vs, table, lens = _paged_case(
-        dev, gen, dt, quant, page_len, d, lengths, B=B, poison=False)
+        dev, gen, dt, quant, page_len, d, lengths, B=B, H=H, poison=False)
     kw = dict(k_scale=ks, v_scale=vs)
     kernel = gpu_ms(lambda: paged_attention(q, k, v, table, lens, kn, vn,
                                             **kw))
@@ -689,13 +763,15 @@ def time_paged(dev, gen, quant):
     total = sum(lengths)
     psize = k.element_size()
     nbytes = (2 * total * H * d * psize + (2 * total * H * 4 if quant else 0)
-              + 4 * B * H * d * 2 + table.numel() * 4 + B * 4)
-    bound, by = bound_ms(4 * (total + B) * H * d, nbytes, PEAK_BF16_FLOPS)
+              + 4 * B * H * d * q.element_size() + table.numel() * 4 + B * 4)
+    bound, by = bound_ms(4 * (total + B) * H * d, nbytes, PEAK_FP32_FLOPS
+                         if dt == torch.float32 else PEAK_BF16_FLOPS)
     err = (paged_attention(q, k, v, table, lens, kn, vn, **kw).float()
            - paged_attention_reference(q, k, v, table, lens, kn, vn, **kw)
            .float()).abs().max().item()
-    return dict(shape=f"B={B} H={H} d={d} page_len={page_len} bf16, "
-                f"{'int8' if quant else 'bf16'} pages, sum(lengths)={total}; "
+    dname = str(dt)[6:]
+    return dict(shape=f"B={B} H={H} d={d} page_len={page_len} {dname}, "
+                f"{'int8' if quant else dname} pages, sum(lengths)={total}; "
                 f"library = gather {lib_gather:.4f} ms + SDPA "
                 f"{lib_sdpa:.4f} ms",
                 ms=kernel, plain_ms=plain, library_ms=lib_gather + lib_sdpa,
@@ -832,11 +908,12 @@ def check_flash_dropout(dev, gen, sizes=(128, 1024)):
     tolerance) and without; logs fp32's worst reading per bias (ALiBi's
     scores reach ~1000, where the exp's argument loses bits first)."""
     from deepspeed_tpu_torch.ops.flash_attention import (
-        _bias_operand, flash_attention_fwd, flash_attention_reference)
+        FWD_HEAD_DIMS, _bias_operand, flash_attention_fwd,
+        flash_attention_reference)
     gate = Gate("flash+dropout")
     worst = {}
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for d in HEAD_DIMS:
+        for d in FWD_HEAD_DIMS:
             for s in sizes:
                 for name, b, bias in _train_cases(dev, s):
                     for rate in (0.0, 0.1, 0.5):
@@ -869,11 +946,11 @@ def check_flash_dropout(dev, gen, sizes=(128, 1024)):
 def check_flash_bwd(dev, gen, sizes=(128, 1024)):
     """Both backward kernels against the plain backward: dK/dV and dQ."""
     from deepspeed_tpu_torch.ops.flash_attention import (
-        _bias_operand, flash_attention_bwd, flash_attention_bwd_reference,
-        flash_attention_fwd)
+        BWD_HEAD_DIMS, _bias_operand, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd)
     gate = Gate("flash bwd")
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for d in HEAD_DIMS:
+        for d in BWD_HEAD_DIMS:
             for s in sizes:
                 for name, b, bias in _train_cases(dev, s):
                     for rate in (0.0, 0.1, 0.5):
@@ -1197,12 +1274,13 @@ def _plain_step(state, sc, gnorm):
         ref(p, g, m, v, sc, gnorm, 1.0)
 
 
-def time_flash(dev, gen, sq=512, d=64):
-    """The serving prefill shape: one request, 12 heads, a causal bucket."""
+def time_flash(dev, gen, sq=512, d=64, h=12, dt=torch.bfloat16):
+    """The serving prefill shape: one request, ``h`` heads (GPT-2's 12;
+    GPT-J's 16 at d 256), a causal bucket."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
-    b, h, dt = 1, 12, torch.bfloat16
+    b = 1
     q, k, v = (torch.randn(b, sq, h, d, generator=gen, device=dev, dtype=dt)
                for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1214,23 +1292,24 @@ def time_flash(dev, gen, sq=512, d=64):
     visible = sq * (sq + 1) // 2
     flops = 4 * b * h * d * visible
     nbytes = 4 * q.numel() * q.element_size() + b * h * sq * 4
-    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    bound, by = bound_ms(flops, nbytes, PEAK_TF32_FLOPS / 3
+                         if dt == torch.float32 else PEAK_BF16_FLOPS)
     err = (flash_attention(q, k, v, causal=True).float()
            - flash_attention_reference(q, k, v, causal=True)[0].float()
            ).abs().max().item()
-    return dict(shape=f"b={b} h={h} sq=sk={sq} d={d} bf16 causal",
+    return dict(shape=f"b={b} h={h} sq=sk={sq} d={d} {str(dt)[6:]} causal",
                 impl=FLASH_IMPL[dt], ms=kernel, plain_ms=plain,
                 library_ms=library, bound_ms=bound, bound_by=by,
                 max_abs_err=err)
 
 
-def time_decode(dev, gen, d=64):
-    """The serving decode shape: 8 slots, 12 heads, capacity 1024, slot
+def time_decode(dev, gen, d=64, H=12, dt=torch.bfloat16):
+    """The serving decode shape: 8 slots, ``H`` heads, capacity 1024, slot
     lengths drawn like the served traffic (prompt + part of the output)."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
-    B, H, S, dt = 8, 12, 1024, torch.bfloat16
+    B, S = 8, 1024
     rs = np.random.RandomState(SEED + 1)
     lens = rs.randint(16, 401, size=B) + rs.randint(1, 65, size=B)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -1247,12 +1326,14 @@ def time_decode(dev, gen, d=64):
         qt, k, v, attn_mask=mask))
     total = int(lens.sum())
     flops = 4 * total * H * d
-    nbytes = (2 * total * H * d + 2 * B * H * d) * 2 + B * 4
-    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    nbytes = (2 * total * H * d + 2 * B * H * d) * q.element_size() + B * 4
+    bound, by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS
+                         if dt == torch.float32 else PEAK_BF16_FLOPS)
     err = (decode_attention(q, k, v, lengths)[:, 0].float()
            - decode_attention_reference(q[:, 0], k, v, lengths).float()
            ).abs().max().item()
-    return dict(shape=f"B={B} H={H} S={S} d={d} bf16 sum(lengths)={total}",
+    return dict(shape=f"B={B} H={H} S={S} d={d} {str(dt)[6:]} "
+                f"sum(lengths)={total}",
                 ms=kernel, plain_ms=plain, library_ms=library,
                 bound_ms=bound, bound_by=by, max_abs_err=err)
 
@@ -1410,7 +1491,7 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     m = NEG_INF and l = 1."""
     from deepspeed_tpu_torch.ops._common import NEG_INF
     from deepspeed_tpu_torch.ops.block_sparse_attention import (
-        block_sparse_dkv_reference, block_sparse_dq_reference,
+        HEAD_DIMS, block_sparse_dkv_reference, block_sparse_dq_reference,
         block_sparse_fwd_reference, launch_dkv, launch_dq, launch_fwd)
     from deepspeed_tpu_torch.ops.flash_attention import Dropout
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
@@ -2037,6 +2118,27 @@ def top2_gaps(model, prompt, generated):
     return gaps, top[:, 0].cpu().numpy()
 
 
+def served_deficits(model, prompts, tokens, outs):
+    """For every served token: the reference's top logit less its logit
+    for the served token, from one cache-free forward over prompt + served
+    tokens a request (so every step shares its history with the
+    reference). Greedy serving whose logits are within e of the
+    reference's picks tokens whose deficit is at most 2 e."""
+    out = []
+    for t, p, o in zip(tokens, prompts, outs):
+        got = np.asarray(t)
+        if got.shape != (o,):
+            raise AssertionError(f"a request served {got.shape} tokens, "
+                                 f"not {o}")
+        seq = torch.tensor(np.concatenate([p, got])[None],
+                           device=model.wte.device)
+        with torch.no_grad():
+            logits = model(seq)[0, len(p) - 1:-1].float()
+        picked = logits.gather(1, seq[0, len(p):, None].long()).squeeze(1)
+        out.append((logits.max(-1).values - picked).cpu().numpy())
+    return np.concatenate(out)
+
+
 def bf16_ulp(x):
     """The bf16 spacing at |x| (8 significant bits)."""
     return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
@@ -2598,7 +2700,7 @@ def check_against_generate(engine, reqs, prompts, outs, gap_stop, what,
     prompt) exempts a first token whose reference top-2 gap is at most
     that many bf16 ulps of the top logit. Every request that differs is
     logged with its first differing step and the reference gap there
-    before the phase fails."""
+    before the phase fails. Returns the share of tokens that agree."""
     stops = compared = agree = 0
     early, bad, tied = [], [], []
     for i, (req, p, o) in enumerate(zip(reqs, prompts, outs)):
@@ -2642,6 +2744,7 @@ def check_against_generate(engine, reqs, prompts, outs, gap_stop, what,
             "before a near tie"
         raise AssertionError(f"{what}: requests {bad} differ from "
                              f"generate() {where}")
+    return agree / sum(outs)
 
 
 def _paged_decode_runner(srv, model, lengths):
@@ -4256,7 +4359,10 @@ PYTHIA_1_4B = {
     "vocab_size": 50304, "use_parallel_residual": True, "hidden_act": "gelu",
     "layer_norm_eps": 1e-5, "tie_word_embeddings": False,
     "torch_dtype": "float16"}
-PYTHIA_LAYERS = 24          # full depth
+# 11a, 11c: 12 of the 24 layers, full width (the checkpoint's host
+# round trip scales with depth; a slow host took 1,040 s of the 1,200 s
+# limit at 24 layers with phase 12)
+PYTHIA_LAYERS = 12
 PARITY_LAYERS = 2           # 11b: fp32 parity at the same widths
 CACHE_STEPS = 8             # 11b: decode steps against the cache-free forward
 # 11a, 11c: a first token may differ from generate()'s where the
@@ -4266,15 +4372,15 @@ BF16_TIE_ULPS = 2
 BERT_BASE = (768, 12)       # 11e: BERT-base's width and heads
 
 
-def pythia_dir(path, n_layers):
+def hf_dir(path, fields):
     """Write ``config.json`` as ``save_pretrained`` would: only the fields
-    that differ from HuggingFace's GPT-NeoX defaults (and the model type,
-    architecture and dtype); returns the port's reading of it."""
+    that differ from HuggingFace's defaults for the model type (and the
+    model type, architecture and dtype); returns the port's reading of it
+    and the fields written."""
     from deepspeed_tpu_torch.module_inject import read_hf_config
     from deepspeed_tpu_torch.module_inject.load_checkpoint import \
         HF_CONFIG_DEFAULTS
-    defaults = HF_CONFIG_DEFAULTS["gpt_neox"]
-    fields = {**PYTHIA_1_4B, "num_hidden_layers": n_layers}
+    defaults = HF_CONFIG_DEFAULTS[fields["model_type"]]
     written = {k: v for k, v in fields.items()
                if k not in defaults or defaults[k] != v}
     os.makedirs(path, exist_ok=True)
@@ -4283,12 +4389,17 @@ def pythia_dir(path, n_layers):
     return read_hf_config(path), written
 
 
-def draw_pythia(ns, dtype):
-    """The port's GPT at the configuration ``ns`` (fp32 parameters), weights
-    from SEED, and its config."""
+def pythia_dir(path, n_layers):
+    return hf_dir(path, {**PYTHIA_1_4B, "num_hidden_layers": n_layers})
+
+
+def draw_model(ns, dtype):
+    """The port's GPT at the configuration ``ns`` as its model type's
+    policy builds it (fp32 parameters), weights from SEED, and its
+    config."""
     from deepspeed_tpu_torch.models import GPT
-    from deepspeed_tpu_torch.module_inject import GPTNEOXLayerPolicy
-    cfg = GPTNEOXLayerPolicy.build_config(ns, dtype)
+    from deepspeed_tpu_torch.module_inject import POLICY_REGISTRY
+    cfg = POLICY_REGISTRY[ns.model_type].build_config(ns, dtype)
     return GPT(cfg, seed=SEED), cfg
 
 
@@ -4315,25 +4426,23 @@ def _ln_key(key):
     return "layernorm" in key or "layer_norm" in key
 
 
-def phase_inject_serve(card, tmp, profile=False):
-    """11a: Pythia-1.4B drawn from SEED, exported to HuggingFace's layout in
-    fp16, written as a sharded torch checkpoint with a config.json of the
-    non-default fields, loaded through ``init_inference(config, checkpoint=
-    dir, replace_with_kernel_inject=True, dtype=bf16)`` and served paged
-    (phase 6's trace). Returns (engine, launch counts, readings)."""
+def load_written_checkpoint(card, tmp, ns, written, phase):
+    """The model of the configuration ``ns`` drawn from SEED, exported to
+    HuggingFace's layout in fp16, written to ``tmp`` as a sharded torch
+    checkpoint beside its config.json (the non-default fields
+    ``written``), loaded through ``init_inference(config, checkpoint=dir,
+    replace_with_kernel_inject=True, dtype=bf16)``: the checkpoint must
+    read back bit-equal and the model hold its bf16 rounding (LayerNorms
+    fp32). Returns (engine, load seconds, parameter bytes on the card)."""
     from deepspeed_tpu_torch import init_inference
     from deepspeed_tpu_torch.module_inject import export_hf_state_dict
     from deepspeed_tpu_torch.module_inject.load_checkpoint import \
         load_state_dict_from_checkpoint
-    log(f"phase 11a: Pythia-1.4B ({PYTHIA_LAYERS} layers) written as a "
-        "HuggingFace checkpoint, loaded through checkpoint injection, served "
-        "paged in bf16")
-    ns, written = pythia_dir(tmp, PYTHIA_LAYERS)
     t0 = time.perf_counter()
-    model, cfg = draw_pythia(ns, torch.bfloat16)
+    model, cfg = draw_model(ns, torch.bfloat16)
     t1 = time.perf_counter()
-    fp16 = {k: torch.from_numpy(v).half()
-            for k, v in export_hf_state_dict("gpt_neox", model, cfg).items()}
+    fp16 = {k: torch.from_numpy(v).half() for k, v in
+            export_hf_state_dict(ns.model_type, model, cfg).items()}
     del model
     nbytes = write_sharded_bin(tmp, fp16)
     t2 = time.perf_counter()
@@ -4357,7 +4466,7 @@ def phase_inject_serve(card, tmp, profile=False):
     # the reader is bit-exact, and the model holds the checkpoint rounded
     # once to bf16 (LayerNorms in fp32, as JAX's)
     read = load_state_dict_from_checkpoint(tmp)
-    back = export_hf_state_dict("gpt_neox", engine.module,
+    back = export_hf_state_dict(ns.model_type, engine.module,
                                 engine.module.config)
     bad_read = [k for k, t in fp16.items()
                 if not np.array_equal(read[k], t.float().numpy())]
@@ -4368,35 +4477,82 @@ def phase_inject_serve(card, tmp, profile=False):
         f"model's weights equal to the checkpoint's bf16 rounding: "
         f"{len(fp16) - len(bad_held)}/{len(fp16)}")
     if bad_read or bad_held or set(read) != set(fp16):
-        raise AssertionError(f"11a: the loaded state differs from the "
+        raise AssertionError(f"{phase}: the loaded state differs from the "
                              f"exported one: {(bad_read + bad_held)[:5]}")
-    del read, back, fp16
-    icfg = engine.module.config
-    if not (engine.injected and icfg.rotary
-            and icfg.rotary_dim == icfg.head_dim // 4):     # rotary_pct 0.25
-        raise AssertionError("11a: not an injected rotary model")
+    return engine, load_s, held
 
+
+def serve_injected(engine, card, phase, profile=False):
+    """Phase 6's trace served paged on an injected bf16 engine, launch
+    counts exact; first tokens against ``generate()`` (the
+    ``BF16_TIE_ULPS`` rule, the rest classified), with the decode
+    launches of those ``generate()`` calls exact; tokens/s, KV pool bytes
+    and the paged decode wall ms at 16 slots. Returns (launch counts,
+    readings, the served tokens)."""
+    from deepspeed_tpu_torch.ops import decode_attention
+    cfg = engine.module.config
     prompts, outs = paged_traffic(cfg.vocab_size)
     reqs, srv, counts, wall = serve_paged(engine, prompts, outs,
                                           PAGED_CONFIG)
-    check_against_generate(engine, reqs, prompts, outs, GAP_STOP,
-                           "11a bf16", first_token_only=True,
-                           first_tie_ulps=BF16_TIE_ULPS)
+    torch.cuda.synchronize()
+    decode_attention.launches = 0
+    agree = check_against_generate(engine, reqs, prompts, outs, GAP_STOP,
+                                   f"{phase} bf16", first_token_only=True,
+                                   first_tie_ulps=BF16_TIE_ULPS)
+    torch.cuda.synchronize()
+    counts["generate_decode_attention"] = decode_attention.launches
+    want = cfg.n_layers * sum(o - 1 for o in outs)
+    log(f"  the generate() references: {decode_attention.launches} decode "
+        f"launches (want {want}: {cfg.n_layers} layers x the "
+        f"{sum(o - 1 for o in outs)} decode steps of {len(outs)} requests)")
+    if decode_attention.launches != want:
+        raise AssertionError(f"{phase}: generate() did not decode through "
+                             "the decode kernel")
     tokens = srv.metrics.tokens_generated
+    pool = srv._paged.pool_bytes()
     log(f"  serving: {tokens} tokens, {srv.metrics.decode_iterations} decode "
         f"iterations, {srv.metrics.prefill_chunks} prefill chunks, wall "
-        f"{wall:.3f} s, {tokens / wall:.1f} tokens/s; KV pool "
-        f"{srv._paged.pool_bytes()} bytes [{card}]")
+        f"{wall:.3f} s, {tokens / wall:.1f} tokens/s; KV pool {pool} bytes "
+        f"[{card}]")
     run_decode = _paged_decode_runner(srv, engine.module,
                                       served_lengths(16, SEED + 7))
     decode = wall_ms(run_decode, iters=20)
     log(f"  paged decode wall ms per iteration (16 slots): {decode:.3f} "
         f"[{card}]")
     if profile:
-        device_profile("11a paged decode", run_decode, decode, card)
-    return engine, counts, {"tokens_per_s": tokens / wall,
-                            "decode_wall_ms": decode, "load_s": load_s,
-                            "param_bytes": held}
+        device_profile(f"{phase} paged decode", run_decode, decode, card)
+    return counts, {"tokens_per_s": tokens / wall, "decode_wall_ms": decode,
+                    "pool_bytes": pool, "generate_agreement": agree}, [
+                        list(r.output_tokens) for r in reqs]
+
+
+def host_peak_rss():
+    """This process's peak resident host memory so far, in bytes."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def phase_inject_serve(card, tmp, profile=False):
+    """11a: Pythia-1.4B drawn from SEED, exported to HuggingFace's layout in
+    fp16, written as a sharded torch checkpoint with a config.json of the
+    non-default fields, loaded through ``init_inference(config, checkpoint=
+    dir, replace_with_kernel_inject=True, dtype=bf16)`` and served paged
+    (phase 6's trace). Returns (engine, launch counts, readings)."""
+    log(f"phase 11a: Pythia-1.4B ({PYTHIA_LAYERS} layers) written as a "
+        "HuggingFace checkpoint, loaded through checkpoint injection, served "
+        "paged in bf16")
+    ns, written = pythia_dir(tmp, PYTHIA_LAYERS)
+    engine, load_s, held = load_written_checkpoint(card, tmp, ns, written,
+                                                   "11a")
+    icfg = engine.module.config
+    if not (engine.injected and icfg.rotary
+            and icfg.rotary_dim == icfg.head_dim // 4):     # rotary_pct 0.25
+        raise AssertionError("11a: not an injected rotary model")
+    counts, readings, _ = serve_injected(engine, card, "11a", profile)
+    readings.update(load_s=load_s, param_bytes=held,
+                    host_peak_rss=host_peak_rss())
+    log(f"  host peak RSS so far {readings['host_peak_rss']} bytes")
+    return engine, counts, readings
 
 
 def phase_inject_int8(engine, card):
@@ -4517,34 +4673,36 @@ def paged_step_err(model, prompt, steps=CACHE_STEPS):
     return err
 
 
-def phase_inject_parity(card, n_layers=PARITY_LAYERS):
-    """11b: Pythia-1.4B's widths at ``n_layers`` layers, fp32, injected from
-    its HuggingFace-layout state dict: the state round-trips bit for bit;
-    card logits against the CPU's; the cache path (prefill, then decode
-    steps) against the cache-free forward; contiguous and paged serving
-    and a ragged ``generate()`` token-exact against ``generate()``
-    (near-tie rule), with exact launch counts. Returns the launch counts."""
+def phase_inject_parity(card, n_layers=PARITY_LAYERS, write_dir=pythia_dir,
+                        name="Pythia-1.4B", phase="11b"):
+    """11b (12b): Pythia-1.4B's (GPT-J-6B's) widths at ``n_layers`` layers,
+    fp32, injected from its HuggingFace-layout state dict: the state
+    round-trips bit for bit; card logits against the CPU's; the cache path
+    (prefill, then decode steps) against the cache-free forward;
+    contiguous and paged serving and a ragged ``generate()`` token-exact
+    against ``generate()`` (near-tie rule), with exact launch counts.
+    Returns the launch counts."""
     import tempfile
     from deepspeed_tpu_torch import init_inference
     from deepspeed_tpu_torch.inference.generation import init_cache
     from deepspeed_tpu_torch.module_inject import export_hf_state_dict
     from deepspeed_tpu_torch.ops import decode_attention, flash_attention
-    log(f"phase 11b: fp32 parity at Pythia-1.4B's widths, {n_layers} layers")
+    log(f"phase {phase}: fp32 parity at {name}'s widths, {n_layers} layers")
     with tempfile.TemporaryDirectory() as tmp:
-        ns, _ = pythia_dir(tmp, n_layers)
-    src, cfg = draw_pythia(ns, torch.float32)
-    sd = export_hf_state_dict("gpt_neox", src, cfg)
+        ns, _ = write_dir(tmp, n_layers)
+    src, cfg = draw_model(ns, torch.float32)
+    sd = export_hf_state_dict(ns.model_type, src, cfg)
     del src
     engine = init_inference(ns, checkpoint=dict(sd),
                             replace_with_kernel_inject=True,
                             dtype=torch.float32)
-    back = export_hf_state_dict("gpt_neox", engine.module,
+    back = export_hf_state_dict(ns.model_type, engine.module,
                                 engine.module.config)
     bad = [k for k in sd if not np.array_equal(back[k], sd[k])]
     log(f"  the injected state exports back bit-equal: "
         f"{len(sd) - len(bad)}/{len(sd)} tensors")
     if bad or set(back) != set(sd):
-        raise AssertionError(f"11b: the injected state differs from the "
+        raise AssertionError(f"{phase}: the injected state differs from the "
                              f"checkpoint: {bad[:5]}")
     cpu = init_inference(ns, checkpoint=dict(sd),
                          replace_with_kernel_inject=True,
@@ -4562,7 +4720,7 @@ def phase_inject_parity(card, n_layers=PARITY_LAYERS):
         log(f"  prompt of {n}: card logits against the CPU's max_abs_err "
             f"{err:.3e} tol {tol:.0e} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError("11b: card and CPU logits disagree")
+            raise AssertionError(f"{phase}: card and CPU logits disagree")
     del cpu
     # the cache path against the cache-free forward, on the card
     model = engine.module
@@ -4582,7 +4740,7 @@ def phase_inject_parity(card, n_layers=PARITY_LAYERS):
         f"against the cache-free forward: max_abs_err {err:.3e} tol "
         f"{tol:.0e} {'ok' if err <= tol else 'FAIL'}")
     if not err <= tol:
-        raise AssertionError("11b: the cache path disagrees with the "
+        raise AssertionError(f"{phase}: the cache path disagrees with the "
                              "cache-free forward")
     err = paged_step_err(model, rs.randint(
         0, vocab, size=2 * PAGED_CONFIG["paging"]["page_len"]))
@@ -4590,15 +4748,15 @@ def phase_inject_parity(card, n_layers=PARITY_LAYERS):
         f"against the cache path's decode steps: max_abs_err {err:.3e} tol "
         f"{tol:.0e} {'ok' if err <= tol else 'FAIL'}")
     if not err <= tol:
-        raise AssertionError("11b: the paged decode iteration disagrees with "
-                             "the cache path")
+        raise AssertionError(f"{phase}: the paged decode iteration "
+                             "disagrees with the cache path")
     counts = phase_fp32(model, *traffic(vocab), SERVING_CONFIG,
-                        label="phase 11b: contiguous fp32 serving")
+                        label=f"phase {phase}: contiguous fp32 serving")
     prompts, outs = paged_traffic(vocab)
     reqs, _, paged_counts, _ = serve_paged(engine, prompts, outs,
                                            PAGED_CONFIG)
     check_against_generate(engine, reqs, prompts, outs, GAP_STOP,
-                           "11b paged fp32")
+                           f"{phase} paged fp32")
     # a ragged generate() over 8 prompts against each prompt's own
     ragged_prompts = prompts[:8]
     lens = [len(p) for p in ragged_prompts]
@@ -4617,8 +4775,8 @@ def phase_inject_parity(card, n_layers=PARITY_LAYERS):
             n_layers * (new - 1)}
     log(f"  ragged generate() launches {rc} (want {want})")
     if rc != want:
-        raise AssertionError("11b: the ragged generate() did not go through "
-                             "the flash and decode kernels")
+        raise AssertionError(f"{phase}: the ragged generate() did not go "
+                             "through the flash and decode kernels")
     for row, p in enumerate(ragged_prompts):
         ref = engine.generate(p[None], max_new_tokens=new)[0, len(p):]
         ref = ref.cpu().numpy()
@@ -4627,8 +4785,9 @@ def phase_inject_parity(card, n_layers=PARITY_LAYERS):
         upto = int(near[0]) if near.size else new
         got = ragged[row, len(p):len(p) + new]
         if not np.array_equal(got[:upto], ref[:upto]):
-            raise AssertionError(f"11b: ragged row {row} {got.tolist()} != "
-                                 f"generate() {ref.tolist()} (up to {upto})")
+            raise AssertionError(
+                f"{phase}: ragged row {row} {got.tolist()} != generate() "
+                f"{ref.tolist()} (up to {upto})")
     log(f"  ragged generate(): {len(lens)}/{len(lens)} rows token-exact "
         "against generate() up to their first near tie")
     return {"flash_attention": counts["flash_attention"],
@@ -4636,33 +4795,38 @@ def phase_inject_parity(card, n_layers=PARITY_LAYERS):
             "paged_attention": paged_counts["paged_attention"]}
 
 
-def phase_inject_refusal(tmp):
-    """11d: GPT-J-6B's widths (config.json of the model type alone: HF's
-    GPT-J defaults, head dim 256) are refused by name before anything is
-    allocated on the card."""
-    from deepspeed_tpu_torch import init_inference
-    from deepspeed_tpu_torch.module_inject import read_hf_config
-    log("phase 11d: GPT-J-6B's head dim 256 refused by init_inference")
-    with open(os.path.join(tmp, "config.json"), "w") as f:
-        json.dump({"model_type": "gptj",
-                   "architectures": ["GPTJForCausalLM"]}, f)
-    ns = read_hf_config(tmp)
+def phase_inject_refusal():
+    """11d: a flash forward at GPT-J-6B's head dim 256 (16 heads, bf16)
+    whose q requires a gradient is refused by name, naming the backward
+    kernels' head dims, before any launch or device allocation: the d-256
+    backward is not ported."""
+    from deepspeed_tpu_torch.ops import flash_attention
+    from deepspeed_tpu_torch.ops.flash_attention import BWD_HEAD_DIMS
+    log("phase 11d: a head-dim-256 flash forward that needs a gradient "
+        "refused")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    q, k, v = (torch.randn(1, 128, 16, 256, generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_()
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    before, launches = torch.cuda.memory_allocated(), flash_attention.launches
     t0 = time.perf_counter()
     try:
-        init_inference(ns, replace_with_kernel_inject=True,
-                       dtype=torch.bfloat16)
+        flash_attention(q, k, v, causal=True)
     except ValueError as e:
         msg = str(e)
     else:
-        raise AssertionError("11d: head dim 256 was not refused")
+        raise AssertionError("11d: a d-256 forward with a gradient was not "
+                             "refused")
     after = torch.cuda.memory_allocated()
     log(f"  ValueError in {time.perf_counter() - t0:.3f} s: {msg}; device "
-        f"memory {before} -> {after} bytes")
-    if "head_dim 256" not in msg or after != before:
-        raise AssertionError("11d: the refusal does not name the head dim, "
-                             "or came after an allocation")
+        f"memory {before} -> {after} bytes, flash launches "
+        f"{flash_attention.launches - launches}")
+    if ("head_dim 256" not in msg or str(BWD_HEAD_DIMS) not in msg
+            or after != before or flash_attention.launches != launches):
+        raise AssertionError("11d: the refusal does not name the head dim "
+                             "and the backward's dims, or came after an "
+                             "allocation or a launch")
 
 
 def phase_bert_sparse_hf(card):
@@ -4726,13 +4890,151 @@ def phase_inject(card, profile=False):
     t2 = time.perf_counter()
     counts_b = phase_inject_parity(card)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_inject_refusal(tmp)
+    phase_inject_refusal()
     counts_e = phase_bert_sparse_hf(card)
     log(f"  phase 11 wall: 11a {t1 - t0:.1f} s, 11c {t2 - t1:.1f} s, "
         f"11b, 11d and 11e {time.perf_counter() - t2:.1f} s")
     return {"11a": counts_a, "11b": counts_b, "11c": counts_c,
             "11e": counts_e, "serve": serve}
+
+
+# --------------------------------------------------------------------------
+# phase 12: GPT-J-6B (head dim 256) served through injection
+# --------------------------------------------------------------------------
+
+# EleutherAI/gpt-j-6b's config.json (the HuggingFace Hub), the fields the
+# GPT-J policy reads (every one HuggingFace's GPTJConfig default); the
+# weights are drawn from SEED
+GPTJ_6B = {
+    "model_type": "gptj", "architectures": ["GPTJForCausalLM"],
+    "vocab_size": 50400, "n_positions": 2048, "n_embd": 4096, "n_layer": 28,
+    "n_head": 16, "rotary_dim": 64, "n_inner": None,
+    "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+    "tie_word_embeddings": False, "torch_dtype": "float16"}
+GPTJ_LAYERS = 28          # 12a serves full depth, weights drawn by the policy
+# 12a's checkpoint round trip, at full width: 28 layers through the fp32
+# host loader would take ~8 minutes and 70-90 GB of host memory
+GPTJ_CKPT_LAYERS = 4
+
+
+def gptj_dir(path, n_layers):
+    return hf_dir(path, {**GPTJ_6B, "n_layer": n_layers})
+
+
+def phase_gptj_serve(card, profile=False):
+    """12a: GPT-J-6B's checkpoint round trip at full width and
+    ``GPTJ_CKPT_LAYERS`` layers (``load_written_checkpoint``), then all
+    ``GPTJ_LAYERS`` layers from weights the policy draws from SEED,
+    through ``init_inference(config, replace_with_kernel_inject=True,
+    dtype=bf16)``, served paged (``serve_injected``: phase 6's trace).
+    Returns (engine, launch counts, readings, the served tokens)."""
+    import tempfile
+    from deepspeed_tpu_torch import init_inference
+    log(f"phase 12a: GPT-J-6B (d 4096, 16 heads of 256, rotary over 64 "
+        f"dims) written as a HuggingFace checkpoint at {GPTJ_CKPT_LAYERS} "
+        f"layers and loaded through checkpoint injection; {GPTJ_LAYERS} "
+        "layers served paged in bf16")
+    with tempfile.TemporaryDirectory() as tmp:
+        ns, written = gptj_dir(tmp, GPTJ_CKPT_LAYERS)
+        engine, ckpt_load_s, ckpt_bytes = load_written_checkpoint(
+            card, tmp, ns, written, "12a")
+        del engine
+        torch.cuda.empty_cache()
+        ns, _ = gptj_dir(tmp, GPTJ_LAYERS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = init_inference(ns, replace_with_kernel_inject=True,
+                            dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    cfg = engine.module.config
+    shape = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.rotary_dim,
+             cfg.n_layers, cfg.ffn_dim, cfg.vocab_size)
+    log(f"  init_inference(config, replace_with_kernel_inject=True, "
+        f"dtype=bf16), weights drawn by the policy: {load_s:.1f} s; "
+        f"{sum(p.numel() for p in engine.module.parameters())} parameters, "
+        f"torch.cuda.memory_allocated() {held} bytes [{card}]; (d_model, "
+        f"heads, head_dim, rotary_dim, layers, d_ff, vocab) {shape}")
+    want = (GPTJ_6B["n_embd"], GPTJ_6B["n_head"], 256, GPTJ_6B["rotary_dim"],
+            GPTJ_LAYERS, 4 * GPTJ_6B["n_embd"], GPTJ_6B["vocab_size"])
+    if not (engine.injected and cfg.rotary and cfg.shared_parallel_ln
+            and cfg.lm_head_bias and cfg.attn_use_bias is False
+            and shape == want):
+        raise AssertionError("12a: not GPT-J-6B's injected configuration")
+    counts, readings, served = serve_injected(engine, card, "12a", profile)
+    readings.update(load_s=load_s, param_bytes=held,
+                    ckpt_load_s=ckpt_load_s, ckpt_param_bytes=ckpt_bytes,
+                    host_peak_rss=host_peak_rss())
+    log(f"  host peak RSS so far {readings['host_peak_rss']} bytes")
+    return engine, counts, readings, served
+
+
+def phase_gptj_int8_kv(engine, served, floor, card):
+    """12c: the same engine with int8 KV pages, served paged: launch counts
+    exact; one decode step's logits against the bf16 pool inside the JAX
+    package's rung (6d's, < ``INT8_KV_LOGIT_ERR``); and every served token
+    of every request a near-argmax of the bf16 cache-free forward over
+    its own history (``served_deficits`` < ``2 * INT8_KV_LOGIT_ERR``: the
+    rung's error on either of two logits), with 12a's bf16 tokens' worst
+    deficit logged beside it. The greedy agreement with 12a's tokens is
+    logged beside ``floor``, 12a's own agreement with ``generate()`` on
+    the same bf16 weights, and not gated: the seeded 28-layer model's bf16
+    logits tie at the top at most requests, so its greedy tokens follow
+    the batch's rounding (6d's 0.9 rung needs a model whose bf16 serving
+    repeats ``generate()``)."""
+    log("phase 12c: GPT-J-6B with int8 KV pages, served paged")
+    prompts, outs = paged_traffic(engine.module.config.vocab_size)
+    config = {**PAGED_CONFIG, "quantize": {"kv": "int8"}}
+    reqs, srv, counts, wall = serve_paged(engine, prompts, outs, config)
+    pairs = [(a, b) for r, ref in zip(reqs, served)
+             for a, b in zip(r.output_tokens, ref)]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    err = decode_logit_err(engine.module, prompts[0])
+    deficit = served_deficits(engine.module, prompts,
+                              [r.output_tokens for r in reqs], outs)
+    bf16_deficit = served_deficits(engine.module, prompts, served, outs)
+    log(f"  KV pool {srv._paged.pool_bytes()} bytes (int8 pages + fp32 "
+        f"scales); greedy agreement with 12a {agree:.4f} (classified: 12a's "
+        f"bf16 serving agrees with generate() on {floor:.4f}); one decode "
+        f"step's logit max abs err against the bf16 pool {err:.4f} (gate < "
+        f"{INT8_KV_LOGIT_ERR}); served tokens' deficit against the bf16 "
+        f"cache-free forward: max {deficit.max():.4f}, mean "
+        f"{deficit.mean():.4f} over {deficit.size} tokens of "
+        f"{len(reqs)} requests (gate < {2 * INT8_KV_LOGIT_ERR}; 12a's bf16 "
+        f"tokens: max {bf16_deficit.max():.4f}, mean "
+        f"{bf16_deficit.mean():.4f}); "
+        f"{srv.metrics.tokens_generated / wall:.1f} tokens/s [{card}]")
+    if not err < INT8_KV_LOGIT_ERR:
+        raise AssertionError("12c: int8 KV pages outside the bounded-error "
+                             "rung")
+    if not deficit.max() < 2 * INT8_KV_LOGIT_ERR:
+        worst = int(deficit.argmax())
+        raise AssertionError(f"12c: served token {worst} (of all requests' "
+                             f"tokens in order) is {deficit[worst]:.4f} "
+                             "below the reference's top logit")
+    return counts
+
+
+def phase_gptj(card, profile=False):
+    """Phase 12; returns the launch counts of its runs and 12a's
+    readings."""
+    t0 = time.perf_counter()
+    engine, counts_a, serve, served = phase_gptj_serve(card, profile)
+    t1 = time.perf_counter()
+    counts_c = phase_gptj_int8_kv(engine, served,
+                                  serve["generate_agreement"], card)
+    del engine
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    counts_b = phase_inject_parity(card, PARITY_LAYERS, gptj_dir, "GPT-J-6B",
+                                   "12b")
+    torch.cuda.empty_cache()
+    log(f"  phase 12 wall: 12a {t1 - t0:.1f} s, 12c {t2 - t1:.1f} s, 12b "
+        f"{time.perf_counter() - t2:.1f} s")
+    return {"12a": counts_a, "12b": counts_b, "12c": counts_c,
+            "serve": serve}
 
 
 # --------------------------------------------------------------------------
@@ -4931,6 +5233,42 @@ PLANTED_FAULTS = (
      (('#include "decode_split.cuh"',
        '#define DS_SPLIT_CHUNK 127\n#include "decode_split.cuh"'),),
      "--checks-only"),
+    # the head-dim-256 instances (phase 12's kernels)
+    ("bf16/fp16 flash forward at d-256: Q's fragments of neighbouring "
+     "16-deep steps swapped (the shared-memory Q read)",
+     "flash_attention_fwd_bf16.cu",
+     (("        ldsm_x4(a, qrow + kk * 16);",
+       "        ldsm_x4(a, qrow + (kk ^ 1) * 16);"),), "--checks-only"),
+    ("fp32 flash forward at d-256: V not split into its tf32 halves (the "
+     "one-stage tile keeps K's lo plane)", "flash_attention_fwd.cu",
+     (("      split_tile(Vt, Vlo, TILE);\n      __syncthreads();\n", ""),),
+     "--checks-only"),
+    ("split-KV fp32 at d-256: each lane's second 16-byte slice left out of "
+     "the scores", "decode_split.cuh",
+     (("      for (int i = 0; i < LPL; ++i) {\n"
+       "        const int c = (t + i * TPK) * VEC;  // the slice's first",
+       "      for (int i = 0; i < 1; ++i) {\n"
+       "        const int c = (t + i * TPK) * VEC;  // the slice's first"),),
+     "--checks-only"),
+    ("split-KV merge at d-256: columns past the first 128 never merged",
+     "decode_split.cuh",
+     (("  for (int cb = 0; cb + warp * 32 < D; cb += THREADS) {",
+       "  for (int cb = 0; cb + warp * 32 < D && cb < THREADS; "
+       "cb += THREADS) {"),), "--checks-only"),
+    ("paged at d-256: the grid one chunk short of the table's keys (a "
+     "full row's last chunk never runs)", "paged_attention.cu",
+     (("                                      split::CHUNK);",
+       "                                      split::CHUNK) - (D == 256);"),),
+     "--checks-only"),
+    # phase 12c's served-token gate: a fault that one decode step of one
+    # prompt (slot 0, the logit rung's case) never sees
+    ("12c: int8 pages at head dim 256 read the previous slot's page-table "
+     "row in every slot but the first", "paged_attention.cu",
+     (("    const long long page = ptab[static_cast<long long>(b) * "
+       "max_pages +\n                                logical];",
+       "    const long long page = ptab[static_cast<long long>(\n"
+       "        b - (sizeof(P) == 1 && D == 256 && b > 0)) * max_pages + "
+       "logical];"),), "--gptj-only"),
     # phase 11b's gates against faults in the injection path (Python
     # sources, named relative to the package)
     ("11b: K written to the cache before rotary", "models/layers.py",
@@ -4994,7 +5332,8 @@ def run_planted_faults(only=None):
     """Each fault of ``PLANTED_FAULTS`` (those whose source file name or
     description contains ``only``, when given) made in a copy of the checkout
     (``run_in_copy``) with the fault's flag (``--checks-only``,
-    ``--8c-only``, ``--7a-only`` or ``--11b-only``); each copy must fail.
+    ``--8c-only``, ``--7a-only``, ``--11b-only`` or ``--gptj-only``); each
+    copy must fail.
     Logs each run's failing gate lines (and 8c's and 7a's readings)."""
     faults = [f for f in PLANTED_FAULTS
               if only is None or only in f[1] or only in f[0]]
@@ -5007,7 +5346,7 @@ def run_planted_faults(only=None):
                      or "block_sparse" in ln or "wo_int8" in ln
                      or "decode" in ln or "paged" in ln)
                  or "Error" in ln or "after step" in ln or "losses" in ln
-                 or "11b" in ln or "max_abs_err" in ln]
+                 or "11b" in ln or "max_abs_err" in ln or "deficit" in ln]
         # the gates' failing summaries first, then the failing cases
         worst = [ln for ln in lines
                  if (m := re.search(r"(\d+)/(\d+) cases ok", ln))
@@ -5021,7 +5360,7 @@ def run_planted_faults(only=None):
         for ln in lines[:40]:
             log("    " + ln.strip()[:400])
     log(f"{caught} of {len(faults)} planted faults fail the kernel "
-        "checks, phase 7a, 8c or 11b")
+        "checks, phase 7a, 8c, 11b or 12c")
     if not faults or caught != len(faults):
         raise AssertionError("a planted kernel fault passed the checks")
 
@@ -5055,6 +5394,8 @@ def main():
         f"python {sys.version.split()[0]}")
     log(f"  {torch.cuda.device_count()} device(s); device 0: "
         f"{torch.cuda.get_device_name(0)}")
+    with open("/proc/meminfo") as f:
+        log(f"  host {f.readline().strip()}, {os.cpu_count()} CPUs")
     defaults = gemm_flags()
     set_gemm_flags((False, False, False))
     log(f"  GEMM flags {[n for _, n in GEMM_FLAGS]}: torch's defaults "
@@ -5076,6 +5417,7 @@ def main():
     for line in op_builder.build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
+    check_d256_spills(op_builder.build_log)
 
     if "--8c-only" in sys.argv[1:]:
         phase_ds_bert_parity()
@@ -5098,6 +5440,12 @@ def main():
     if "--11b-only" in sys.argv[1:]:
         phase_inject_parity(card)
         log("phase 11b passed (--11b-only: no other phase, no result)")
+        return 0
+    if "--gptj-only" in sys.argv[1:]:
+        log(f"phase 12: GPT-J-6B (head dim 256) served through checkpoint "
+            "injection")
+        phase_gptj(card, profile="--profile" in sys.argv[1:])
+        log("phase 12 passed (--gptj-only: no other phase, no result)")
         return 0
     if "--7a-only" in sys.argv[1:]:
         set_gemm_flags(defaults)
@@ -5180,6 +5528,23 @@ def main():
     # the fp32 kernels at head_dim 128, the widest (logged only: no main
     # path runs them)
     fp32_d128_t = time_flash_train(dev, gen, d=128, dtype=torch.float32)
+    # phase 12's instances at head_dim 256 with GPT-J-6B's 16 heads: the
+    # forward at a prefill bucket, decode and paged at 16 slots; bf16 and
+    # int8 pages for 12a and 12c, fp32 for 12b; the fp16 forward logged
+    # only (fp16 runs in training, whose d-256 backward is not ported)
+    d256_t = {
+        "flash_attention_d256": time_flash(dev, gen, d=256, h=16),
+        "flash_attention_d256_fp32": time_flash(dev, gen, d=256, h=16,
+                                                dt=torch.float32),
+        "decode_attention_d256": time_decode(dev, gen, d=256, H=16),
+        "decode_attention_d256_fp32": time_decode(dev, gen, d=256, H=16,
+                                                  dt=torch.float32),
+        "paged_attention_d256": time_paged(dev, gen, False, d=256, H=16),
+        "paged_attention_d256_int8": time_paged(dev, gen, True, d=256,
+                                                H=16),
+        "paged_attention_d256_fp32": time_paged(dev, gen, False, d=256,
+                                                H=16, dt=torch.float32)}
+    fp16_d256_t = time_flash(dev, gen, d=256, h=16, dt=torch.float16)
     for name, t in (("flash_attention (serving prefill)", flash_t),
                     ("decode_attention", decode_t), *train_t.items(),
                     *((f"{k} (fp16)", t) for k, t in fp16_flash_t.items()),
@@ -5190,7 +5555,9 @@ def main():
                     *paged_t.items(), *sparse_t.items(),
                     *((f"{k}_fp32 (7a's shape)", t)
                       for k, t in sparse_fp32_7a_t.items()),
-                    *ds_t.items()):
+                    *ds_t.items(), *d256_t.items(),
+                    ("flash_attention_d256_fp16 (logged only)",
+                     fp16_d256_t)):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
         extra = (f" ({t['impl']}; rate 0: {t['ms_rate0']:.4f} ms)"
@@ -5282,6 +5649,10 @@ def main():
         "(rotary attention, the GPT-NeoX policy)")
     inject = phase_inject(card, profile="--profile" in sys.argv[1:])
 
+    log("phase 12: GPT-J-6B (d 4096, 16 heads of 256) served through "
+        "checkpoint injection: the serving kernels at head dim 256")
+    gptj = phase_gptj(card, profile="--profile" in sys.argv[1:])
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -5335,6 +5706,18 @@ def main():
         paged_t[name]["inject_launches"] = inject["11c"][name]
     sparse_t["block_sparse_attention_fwd"]["inject_launches"] = inject[
         "11e"]["block_sparse_attention_fwd"]
+    # phase 12's, each with its counters set to 0 just before: 12a's bf16
+    # paged serving (and the decode launches of its generate() references),
+    # 12c's int8 KV pages, 12b's fp32 contiguous and paged serving
+    for name, run, key in (
+            ("flash_attention_d256", "12a", "flash_attention"),
+            ("decode_attention_d256", "12a", "generate_decode_attention"),
+            ("paged_attention_d256", "12a", "paged_attention"),
+            ("paged_attention_d256_int8", "12c", "paged_attention"),
+            ("flash_attention_d256_fp32", "12b", "flash_attention"),
+            ("decode_attention_d256_fp32", "12b", "decode_attention"),
+            ("paged_attention_d256_fp32", "12b", "paged_attention")):
+        d256_t[name]["launches"] = gptj[run][key]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
@@ -5426,7 +5809,23 @@ def main():
             ("quantize", ds_t["quantize"], csrc + "quantizer.cu",
              pallas + "quantizer.py:67"),
             ("dequantize", ds_t["dequantize"], csrc + "quantizer.cu",
-             pallas + "quantizer.py:141")):
+             pallas + "quantizer.py:141"),
+            *((name, d256_t[name], csrc + src, pallas + replaces)
+              for name, src, replaces in (
+                  ("flash_attention_d256", "flash_attention_fwd_bf16.cu",
+                   "flash_attention.py:662"),
+                  ("flash_attention_d256_fp32", "flash_attention_fwd.cu",
+                   "flash_attention.py:662"),
+                  ("decode_attention_d256", "decode_attention.cu",
+                   "decode_attention.py:118"),
+                  ("decode_attention_d256_fp32", "decode_attention.cu",
+                   "decode_attention.py:118"),
+                  ("paged_attention_d256", "paged_attention.cu",
+                   "paged_attention.py:169"),
+                  ("paged_attention_d256_int8", "paged_attention.cu",
+                   "paged_attention.py:169"),
+                  ("paged_attention_d256_fp32", "paged_attention.cu",
+                   "paged_attention.py:169")))):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": t["launches"],
@@ -5451,10 +5850,12 @@ def main():
                if "inject_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}
                if "fake_quantize_ms" in t else {})})
-    log(f"phase 11a: {inject['serve']['tokens_per_s']:.1f} tokens/s, paged "
-        f"decode {inject['serve']['decode_wall_ms']:.3f} ms an iteration, "
-        f"{inject['serve']['param_bytes']} bytes of parameters on the card, "
-        f"loaded in {inject['serve']['load_s']:.1f} s [{card}]")
+    for phase, r in (("11a", inject["serve"]), ("12a", gptj["serve"])):
+        log(f"phase {phase}: {r['tokens_per_s']:.1f} tokens/s, paged decode "
+            f"{r['decode_wall_ms']:.3f} ms an iteration, {r['param_bytes']} "
+            f"bytes of parameters on the card, loaded in {r['load_s']:.1f} "
+            f"s, KV pool {r['pool_bytes']} bytes, host peak RSS "
+            f"{r['host_peak_rss']} bytes [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,14 @@ from collections.abc import Mapping
 import torch
 
 from ..ops._common import resolve_device
-from ..ops.flash_attention import HEAD_DIMS
+from ..ops.decode_attention import HEAD_DIMS as DECODE_HEAD_DIMS
+from ..ops.flash_attention import FWD_HEAD_DIMS
+from ..ops.paged_attention import HEAD_DIMS as PAGED_HEAD_DIMS
+
+# the head dims every serving kernel takes: the flash forward (prefill),
+# decode and paged attention
+SERVING_HEAD_DIMS = tuple(d for d in FWD_HEAD_DIMS
+                          if d in DECODE_HEAD_DIMS and d in PAGED_HEAD_DIMS)
 
 
 class InferenceEngine:
@@ -40,8 +47,9 @@ class InferenceEngine:
         caller's model is not changed.
     device: None means CUDA (raises without a card); "cpu" runs the
         kernels' plain versions. Keyword only: the port's own argument.
-        On CUDA a head dim no attention kernel takes raises a
-        ``ValueError`` before any weight is built or moved.
+        On CUDA a head dim that a serving kernel does not take
+        (``SERVING_HEAD_DIMS``) raises a ``ValueError`` before any weight
+        is built or moved.
 
     The positional parameters are the JAX engine's, in its order
     (``deepspeed_tpu/inference/engine.py`` ``InferenceEngine.__init__``).
@@ -153,16 +161,18 @@ class InferenceEngine:
 
 
 def check_head_dim(cfg):
-    """A ``ValueError`` naming the head dim when no attention kernel takes
-    it (``ops.flash_attention.HEAD_DIMS``, as every attention kernel)."""
+    """A ``ValueError`` naming the head dim when a serving kernel does not
+    take it (``SERVING_HEAD_DIMS``: the flash forward's, decode's and
+    paged attention's in common)."""
     if not hasattr(cfg, "d_model") or not hasattr(cfg, "n_heads"):
         return
     head_dim = cfg.d_model // cfg.n_heads
-    if head_dim not in HEAD_DIMS:
+    if head_dim not in SERVING_HEAD_DIMS:
         raise ValueError(
             f"head_dim {head_dim} (d_model {cfg.d_model} / {cfg.n_heads} "
-            f"heads): the attention kernels take head dims {HEAD_DIMS} "
-            "(device='cpu' runs their plain versions, which take any)")
+            f"heads): the serving kernels take head dims "
+            f"{SERVING_HEAD_DIMS} (device='cpu' runs their plain versions, "
+            "which take any)")
 
 
 def _model_axis(mesh) -> int:

@@ -66,11 +66,11 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 80, 96, 128} (the wrapper
-// checks). q is [B, H, d] and k/v [B, H, S, d], all with unit stride along
-// d and the given element strides, k/v with 16-byte aligned rows (they are
-// copied 16 bytes at a time); lengths is int32
-// [B]; slopes is fp32 [H] or nullptr; o is contiguous [B, H, d]. partials
+// dtype: 0 = float32, 1 = bfloat16; d in {64, 80, 96, 128, 256} (the
+// wrapper checks). q is [B, H, d] and k/v [B, H, S, d], all with unit
+// stride along d and the given element strides, k/v with 16-byte aligned
+// rows (they are copied 16 bytes at a time); lengths is int32 [B];
+// slopes is fp32 [H] or nullptr; o is contiguous [B, H, d]. partials
 // (ws_floats fp32) and counters (ws_rows int32, zero) are the wrapper's
 // workspace: B * H * ceil(S / 128) * (d + 2) floats and B * H counters.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
@@ -95,10 +95,12 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   if (dtype == 0 && d == 80) return launch<float, 80>(DS_DECODE_ARGS);
   if (dtype == 0 && d == 96) return launch<float, 96>(DS_DECODE_ARGS);
   if (dtype == 0 && d == 128) return launch<float, 128>(DS_DECODE_ARGS);
+  if (dtype == 0 && d == 256) return launch<float, 256>(DS_DECODE_ARGS);
   if (dtype == 1 && d == 64) return launch<bf16, 64>(DS_DECODE_ARGS);
   if (dtype == 1 && d == 80) return launch<bf16, 80>(DS_DECODE_ARGS);
   if (dtype == 1 && d == 96) return launch<bf16, 96>(DS_DECODE_ARGS);
   if (dtype == 1 && d == 128) return launch<bf16, 128>(DS_DECODE_ARGS);
+  if (dtype == 1 && d == 256) return launch<bf16, 256>(DS_DECODE_ARGS);
 #undef DS_DECODE_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,14 +24,19 @@
 // - Loads. A live CTA copies its chunk's K rows, then its V rows (int8
 //   pages: and their scales) into shared memory with 16-byte cp.async
 //   copies, two groups in flight before the first dot product; the
-//   scores run while V is still arriving. Keys past the row's key count
+//   scores run while V is still arriving. Where two tiles would not fit
+//   beside each other (fp32 at d 256: 128 KB each), V is copied into K's
+//   tile once every lane has read K (the scores' barrier). Keys past the
+//   row's key count
 //   are never read (free slots and page tails hold garbage or NaN): their
 //   rows of the tile are zero-filled, so a masked key adds p = 0 times 0
 //   and the loops need no branch for it.
 // - One chunk. A group of d * sizeof(elem) / 16 lanes (rounded up to a
 //   power of two; surplus lanes add zeros) takes keys g, g + GROUPS, ...
 //   of the chunk: each lane FMAs its 16-byte slice of d, the group adds
-//   its lanes by xor shuffles. The chunk's max m comes first, then
+//   its lanes by xor shuffles. A row of more than 32 such slices (fp32 at
+//   d 256: 64) takes the whole warp as its group, each lane two slices,
+//   its own and the one 32 slices on. The chunk's max m comes first, then
 //   p = exp(s - m), l and the lane's slice of acc = sum p v in key order,
 //   then the groups' sums by xor shuffles inside a warp and the warps' in
 //   warp order through shared memory: the chunk's fp32 partial (m, l,
@@ -41,7 +46,8 @@
 //   counter (an acquire-release atomic after a block barrier: the fence
 //   and the count in one); the CTA that counts last takes the max of the
 //   chunks' m and sums l and acc scaled by exp(m_i - max) in ascending
-//   chunk order, whatever order the CTAs arrived in, writes o and resets
+//   chunk order, whatever order the CTAs arrived in (THREADS columns of d
+//   a pass, one a thread), writes o and resets
 //   the counter to 0 for the next launch. A one-chunk row's acc / l is the
 //   bits that merge gives for one chunk (its factor is exp(0) = 1). The
 //   partials and counters persist between launches (the wrapper owns
@@ -88,14 +94,20 @@ struct Layout {
   static constexpr bool QUANT = sizeof(P) == 1;  // int8 rows, fp32 scales
   static constexpr int VEC = 16 / sizeof(P);     // elements a 16-byte load
   static constexpr int LOADS = D / VEC;          // 16-byte loads a row
-  static constexpr int TPK = lanes_for(LOADS);   // lanes a key group
+  // a lane's loads of a row: 2 where a row takes more than 32
+  static constexpr int LPL = LOADS > 32 ? LOADS / 32 : 1;
+  static constexpr int TPK = lanes_for(LOADS / LPL);  // lanes a key group
   static constexpr int GROUPS = WARPS * (32 / TPK);
   // keys a group takes of a chunk
   static constexpr int ROUNDS = (CHUNK + GROUPS - 1) / GROUPS;
   static constexpr int TILE = CHUNK * D * static_cast<int>(sizeof(P));
+  // K and V through one tile where two would not fit (fp32 at d 256)
+  static constexpr int TILES = 2 * TILE > 128 * 1024 ? 1 : 2;
   // K tile, V tile; int8: K and V scales, the current token's K and V
-  static constexpr int SMEM = 2 * TILE + (QUANT ? (2 * CHUNK + 2 * D) * 4 : 0);
-  static_assert(D % VEC == 0 && LOADS <= 32, "bad head_dim");
+  static constexpr int SMEM =
+      TILES * TILE + (QUANT ? (2 * CHUNK + 2 * D) * 4 : 0);
+  static_assert(D % VEC == 0 && LOADS % LPL == 0 && LOADS / LPL <= 32,
+                "bad head_dim");
 };
 
 // One row (batch or slot, and head) as the loader describes it.
@@ -128,6 +140,7 @@ __global__ void __launch_bounds__(THREADS)
 split_kv_kernel(const Args<T> a, const Keys ld) {
   using L = Layout<P, D>;
   constexpr int VEC = L::VEC, TPK = L::TPK, GROUPS = L::GROUPS;
+  constexpr int LPL = L::LPL;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long index_s[CHUNK];  // the chunk's key rows
   __shared__ float max_s[WARPS], l_s[WARPS];
@@ -155,8 +168,8 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
   const int live = (rk.keys + CHUNK - 1) / CHUNK;
 
   P* k_s = reinterpret_cast<P*>(smem);
-  P* v_s = reinterpret_cast<P*>(smem + L::TILE);
-  float* ks_s = reinterpret_cast<float*>(smem + 2 * L::TILE);
+  P* v_s = reinterpret_cast<P*>(smem + (L::TILES - 1) * L::TILE);
+  float* ks_s = reinterpret_cast<float*>(smem + L::TILES * L::TILE);
   float* vs_s = ks_s + CHUNK;
   float* kn_s = vs_s + CHUNK;
   float* vn_s = kn_s + D;
@@ -164,9 +177,8 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
   __syncthreads();  // index_s
 
   // K, then V of the chunk in flight (int8 pages: the current token,
-  // which is no page row, in fp32 from its own rows)
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
+  // which is no page row, in fp32 from its own rows); one tile: V later
+  auto stage = [&](int pass) {
     P* dst = pass == 0 ? k_s : v_s;
     for (int i = tid; i < CHUNK * L::LOADS; i += THREADS) {
       const int r = i / L::LOADS, t = i % L::LOADS;
@@ -191,7 +203,9 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
       }
     }
     cp_async_commit();
-  }
+  };
+  stage(0);
+  if constexpr (L::TILES == 2) stage(1);
   if constexpr (L::QUANT) {
     if (rk.cur >= c0 && rk.cur < c0 + kc) {
       const T* kn = ld.cur_key(b, h);
@@ -206,20 +220,22 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g = warp * (32 / TPK) + lane / TPK;  // this lane's key group
-  const int t = lane % TPK;                      // its 16-byte slice of d
+  const int t = lane % TPK;  // its 16-byte slices of d: t, t + TPK, ...
   // false on the surplus lanes of d 80 and 96
-  const bool active = L::TPK == L::LOADS || t < L::LOADS;
+  const bool active = TPK * LPL == L::LOADS || t < L::LOADS;
   // a group's last round may fall past the tile when GROUPS does not
   // divide CHUNK
   const bool tiled = L::ROUNDS * GROUPS == CHUNK;
   const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
-  float qf[VEC];
+  float qf[LPL][VEC];
   const T* qrow = a.q + b * a.q_sb + h * a.q_sh + t * VEC;
 #pragma unroll
-  for (int e = 0; e < VEC; ++e)
-    qf[e] = active ? to_float(qrow[e]) * a.scale : 0.f;
+  for (int i = 0; i < LPL; ++i)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      qf[i][e] = active ? to_float(qrow[i * TPK * VEC + e]) * a.scale : 0.f;
 
-  cp_async_wait<1>();  // K has landed
+  cp_async_wait<L::TILES - 1>();  // K has landed
   __syncthreads();
 
   // the chunk's scores; every lane runs every round (the shuffles), and
@@ -232,19 +248,23 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
     const int j = c0 + r;
     float part = 0.f;
     if (active && (tiled || r < CHUNK)) {
-      if (L::QUANT && j == rk.cur) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          part = fmaf(qf[e], kn_s[t * VEC + e], part);
-      } else {
-        const Vec16<P> kv =
-            *reinterpret_cast<const Vec16<P>*>(k_s + r * D + t * VEC);
-        const float ksc = L::QUANT ? ks_s[r] : 1.f;
+      for (int i = 0; i < LPL; ++i) {
+        const int c = (t + i * TPK) * VEC;  // the slice's first column
+        if (L::QUANT && j == rk.cur) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const float kf = L::QUANT ? elem_float(kv.x[e]) * ksc
-                                    : elem_float(kv.x[e]);
-          part = fmaf(qf[e], kf, part);
+          for (int e = 0; e < VEC; ++e)
+            part = fmaf(qf[i][e], kn_s[c + e], part);
+        } else {
+          const Vec16<P> kv =
+              *reinterpret_cast<const Vec16<P>*>(k_s + r * D + c);
+          const float ksc = L::QUANT ? ks_s[r] : 1.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float kf = L::QUANT ? elem_float(kv.x[e]) * ksc
+                                      : elem_float(kv.x[e]);
+            part = fmaf(qf[i][e], kf, part);
+          }
         }
       }
     }
@@ -259,6 +279,10 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
   for (int off = 16; off > 0; off >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   if (lane == 0) max_s[warp] = m;
+  if constexpr (L::TILES == 1) {
+    __syncthreads();  // every lane has read K: V into its tile
+    stage(1);
+  }
   cp_async_wait<0>();  // V has landed
   __syncthreads();
 #pragma unroll
@@ -266,9 +290,11 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
 
   // p, l and this lane's slice of acc, in key order (a masked key adds
   // p = 0 times a zero row)
-  float l = 0.f, acc[VEC];
+  float l = 0.f, acc[LPL][VEC];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  for (int i = 0; i < LPL; ++i)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
 #pragma unroll
   for (int u = 0; u < L::ROUNDS; ++u) {
     const int r = u * GROUPS + g;
@@ -276,19 +302,23 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
       const float p = expf(s[u] - m);
       l += p;
       if (active) {
-        if (L::QUANT && c0 + r == rk.cur) {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            acc[e] = fmaf(p, vn_s[t * VEC + e], acc[e]);
-        } else {
-          const Vec16<P> vv =
-              *reinterpret_cast<const Vec16<P>*>(v_s + r * D + t * VEC);
-          const float vsc = L::QUANT ? vs_s[r] : 1.f;
+        for (int i = 0; i < LPL; ++i) {
+          const int c = (t + i * TPK) * VEC;
+          if (L::QUANT && c0 + r == rk.cur) {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            const float vf = L::QUANT ? elem_float(vv.x[e]) * vsc
-                                      : elem_float(vv.x[e]);
-            acc[e] = fmaf(p, vf, acc[e]);
+            for (int e = 0; e < VEC; ++e)
+              acc[i][e] = fmaf(p, vn_s[c + e], acc[i][e]);
+          } else {
+            const Vec16<P> vv =
+                *reinterpret_cast<const Vec16<P>*>(v_s + r * D + c);
+            const float vsc = L::QUANT ? vs_s[r] : 1.f;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              const float vf = L::QUANT ? elem_float(vv.x[e]) * vsc
+                                        : elem_float(vv.x[e]);
+              acc[i][e] = fmaf(p, vf, acc[i][e]);
+            }
           }
         }
       }
@@ -300,12 +330,17 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
   for (int off = TPK; off < 32; off <<= 1) {
     l += __shfl_xor_sync(0xffffffffu, l, off);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
-  }
-  if (lane < L::LOADS) {
+    for (int i = 0; i < LPL; ++i)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc_s[warp][lane * VEC + e] = acc[e];
+      for (int e = 0; e < VEC; ++e)
+        acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], off);
+  }
+  if (lane < L::LOADS / LPL) {
+#pragma unroll
+    for (int i = 0; i < LPL; ++i)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc_s[warp][(lane + i * TPK) * VEC + e] = acc[i][e];
   }
   if (lane == 0) l_s[warp] = l;
   __syncthreads();
@@ -349,59 +384,62 @@ split_kv_kernel(const Args<T> a, const Keys ld) {
     if (last_s) a.counters[row] = 0;  // ready for the next launch
   }
   __syncthreads();
-  if (!last_s || warp * 32 >= D) return;
+  if (!last_s) return;
 
   // the last chunk to arrive merges the row's chunks: the max of their m,
   // then l and acc scaled by exp(m_i - max), summed in ascending chunk
   // order, 32 chunks at a time: thread c loads column c of the batch's
   // acc (the first batch's loads in flight with the m loads), each warp
   // takes the batch's (m, l) one chunk a lane and hands them round by
-  // shuffles.
+  // shuffles; THREADS columns a pass.
   const float* base = a.partials + row_base;
-  const float* col = base + 2 + tid;
-  float av[32];
-  int nb = min(32, live);
+  for (int cb = 0; cb + warp * 32 < D; cb += THREADS) {
+    const int cc = cb + tid;  // this thread's column
+    const float* col = base + 2 + cc;
+    float av[32];
+    int nb = min(32, live);
 #pragma unroll
-  for (int k = 0; k < 32; ++k)
-    av[k] = k < nb && tid < D ? __ldcg(col + k * (D + 2)) : 0.f;
-  float mi = DS_NEG_INF, li = 0.f, mm = DS_NEG_INF;
-  for (int i = lane; i < live; i += 32) {
-    const float x = __ldcg(base + static_cast<long long>(i) * (D + 2));
-    if (i == lane) {
-      mi = x;
-      li = __ldcg(base + static_cast<long long>(i) * (D + 2) + 1);
+    for (int k = 0; k < 32; ++k)
+      av[k] = k < nb && cc < D ? __ldcg(col + k * (D + 2)) : 0.f;
+    float mi = DS_NEG_INF, li = 0.f, mm = DS_NEG_INF;
+    for (int i = lane; i < live; i += 32) {
+      const float x = __ldcg(base + static_cast<long long>(i) * (D + 2));
+      if (i == lane) {
+        mi = x;
+        li = __ldcg(base + static_cast<long long>(i) * (D + 2) + 1);
+      }
+      mm = fmaxf(mm, x);
     }
-    mm = fmaxf(mm, x);
-  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
-  float lsum = 0.f, asum = 0.f;
-  for (int i0 = 0; i0 < live; i0 += 32) {
-    if (i0 > 0) {
-      nb = min(32, live - i0);
-      const float* ci = col + static_cast<long long>(i0) * (D + 2);
+    for (int off = 16; off > 0; off >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
+    float lsum = 0.f, asum = 0.f;
+    for (int i0 = 0; i0 < live; i0 += 32) {
+      if (i0 > 0) {
+        nb = min(32, live - i0);
+        const float* ci = col + static_cast<long long>(i0) * (D + 2);
 #pragma unroll
-      for (int k = 0; k < 32; ++k)
-        av[k] = k < nb && tid < D ? __ldcg(ci + k * (D + 2)) : 0.f;
-      if (lane < nb) {
-        const float* pi = base + static_cast<long long>(i0 + lane) * (D + 2);
-        mi = __ldcg(pi);
-        li = __ldcg(pi + 1);
+        for (int k = 0; k < 32; ++k)
+          av[k] = k < nb && cc < D ? __ldcg(ci + k * (D + 2)) : 0.f;
+        if (lane < nb) {
+          const float* pi = base + static_cast<long long>(i0 + lane) * (D + 2);
+          mi = __ldcg(pi);
+          li = __ldcg(pi + 1);
+        }
+      }
+      const float f = lane < nb ? expf(mi - mm) : 0.f;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        if (k < nb) {
+          const float fk = __shfl_sync(0xffffffffu, f, k);
+          const float lk = __shfl_sync(0xffffffffu, li, k);
+          lsum = fmaf(lk, fk, lsum);
+          asum = fmaf(av[k], fk, asum);
+        }
       }
     }
-    const float f = lane < nb ? expf(mi - mm) : 0.f;
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      if (k < nb) {
-        const float fk = __shfl_sync(0xffffffffu, f, k);
-        const float lk = __shfl_sync(0xffffffffu, li, k);
-        lsum = fmaf(lk, fk, lsum);
-        asum = fmaf(av[k], fk, asum);
-      }
-    }
+    if (cc < D) out[cc] = from_float<T>(asum / lsum);
   }
-  if (tid < D) out[tid] = from_float<T>(asum / lsum);
 }
 
 // Launch the kernel over rows x chunks CTAs; the workspace holds

@@ -29,7 +29,12 @@
 //
 // Design: one CTA of 4 warps per (64-row q tile, head, batch), each warp 16
 // q rows. Q is copied once with cp.async into bf16 shared memory and held
-// as A fragments in registers; the K/V tiles of 64 keys go through a
+// as A fragments in registers up to d 128; at d 256 the accumulator alone
+// takes 128 registers a thread, so Q's fragments (another 64) are read
+// again from shared memory by ldmatrix for every tile, which keeps the
+// kernel inside 255 registers with no spill (shared memory: Q and the
+// 2-stage ring at 264-element rows, 168,960 bytes, one CTA an SM). The
+// K/V tiles of 64 keys go through a
 // 2-stage cp.async ring, rows padded by 16 bytes so every ldmatrix is
 // conflict-free. S = Q K^T runs on mma.sync.m16n8k16 (B from ldmatrix of
 // K rows) with fp32 accumulators; the online softmax stays in registers
@@ -75,6 +80,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int P = D + 8;    // shared row pitch (elements)
   constexpr int KS = D / 16;  // 16-deep steps of Q K^T
   constexpr int NB = D / 8;   // 8-column blocks of O
+  constexpr bool QREG = D <= 128;  // Q's A fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* Ks = Qs + BQ * P;      // two stages
@@ -124,7 +130,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {DS_NEG_INF, DS_NEG_INF};
   float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
   const float scale2 = scale * kLog2e;
-  uint32_t qa[KS][4];       // Q's A fragments, loaded once
+  uint32_t qa[QREG ? KS : 1][4];  // Q's A fragments, loaded once (QREG)
 
   for (int kt = 0; kt < nkb; ++kt) {
     const int k0 = kt * BK;
@@ -144,11 +150,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* Vt = Vs + st * BK * P;
 
     // S = Q K^T: 16 rows x 64 keys a warp, n-block j = keys 8j..8j+7
-    if (kt == 0) {
+    const T* qrow = Qs + (warp * 16 + (lane & 15)) * P + (lane >> 4) * 8;
+    if constexpr (QREG) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * P + kk * 16 +
-                            (lane >> 4) * 8);
+        for (int kk = 0; kk < KS; ++kk) ldsm_x4(qa[kk], qrow + kk * 16);
+      }
     }
     float s[8][4];
 #pragma unroll
@@ -157,13 +164,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];  // Q's A fragment of this 16-deep step
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+      } else {
+        ldsm_x4(a, qrow + kk * 16);
+      }
 #pragma unroll
       for (int j = 0; j < 8; j += 2) {
         uint32_t bk[4];
         ldsm_x4(bk, Kt + (j * 8 + (lane & 7) + (lane >> 4) * 8) * P +
                         kk * 16 + ((lane >> 3) & 1) * 8);
-        mma16<T>(s[j], qa[kk], bk[0], bk[1]);
-        mma16<T>(s[j + 1], qa[kk], bk[2], bk[3]);
+        mma16<T>(s[j], a, bk[0], bk[1]);
+        mma16<T>(s[j + 1], a, bk[2], bk[3]);
       }
     }
 
@@ -280,7 +294,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
 }  // namespace
 
 // flash_attention_fwd_bf16 takes bf16 (dtype 1), flash_attention_fwd_fp16
-// fp16 (dtype 2); d in {64, 80, 96, 128} (the wrapper checks). The
+// fp16 (dtype 2); d in {64, 80, 96, 128, 256} (the wrapper checks). The
 // arguments are flash_attention_fwd's; q/k/v additionally need 16-byte
 // aligned bases and (batch, sequence, head) strides.
 #define DS_FLASH_FWD_BODY(T, CODE)                                          \
@@ -302,7 +316,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   if (d == 64) return launch<T, 64, DROP>(DS_FLASH_ARGS);          \
   if (d == 80) return launch<T, 80, DROP>(DS_FLASH_ARGS);          \
   if (d == 96) return launch<T, 96, DROP>(DS_FLASH_ARGS);          \
-  if (d == 128) return launch<T, 128, DROP>(DS_FLASH_ARGS);
+  if (d == 128) return launch<T, 128, DROP>(DS_FLASH_ARGS);        \
+  if (d == 256) return launch<T, 256, DROP>(DS_FLASH_ARGS);
 #define DS_FLASH_FWD_PARAMS                                                 \
   const void *q, const void *k, const void *v, const void *bias, void *o,  \
       void *lse, int dtype, int b, int h, int sq, int sk, int d,           \

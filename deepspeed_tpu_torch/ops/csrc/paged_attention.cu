@@ -116,8 +116,8 @@ int launch(const void* q, const void* kn, const void* vn, const void* kp,
 
 // dtype (of q, k_new, v_new and o): 0 = float32, 1 = bfloat16; page_dtype:
 // the same code as dtype, or 2 = int8 with fp32 scale planes ks/vs
-// (nullptr otherwise); d in {64, 80, 96, 128} (the wrapper checks). q,
-// k_new and v_new are [B, H, d] with unit stride along d and the given
+// (nullptr otherwise); d in {64, 80, 96, 128, 256} (the wrapper checks).
+// q, k_new and v_new are [B, H, d] with unit stride along d and the given
 // (slot, head) element strides, k_new/v_new with 16-byte aligned rows
 // (copied like page rows); the pools are
 // contiguous [num_pages, H, page_len, d] with a 16-byte aligned base
@@ -157,7 +157,9 @@ extern "C" int paged_attention(
   if (dtype == DT && page_dtype == PT && d == 96)                            \
     return launch<T, P, 96>(DS_PAGED_ARGS);                                  \
   if (dtype == DT && page_dtype == PT && d == 128)                           \
-    return launch<T, P, 128>(DS_PAGED_ARGS);
+    return launch<T, P, 128>(DS_PAGED_ARGS);                                 \
+  if (dtype == DT && page_dtype == PT && d == 256)                           \
+    return launch<T, P, 256>(DS_PAGED_ARGS);
   DS_PAGED_DIMS(float, float, 0, 0)
   DS_PAGED_DIMS(bf16, bf16, 1, 1)
   DS_PAGED_DIMS(float, int8_t, 0, 2)

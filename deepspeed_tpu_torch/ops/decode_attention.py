@@ -21,7 +21,7 @@ import torch
 from . import decode_split
 from ._common import NEG_INF, check_launch, kernel_dtype_code, use_kernel
 
-HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernel is compiled for
+HEAD_DIMS = (64, 80, 96, 128, 256)   # the head dims the kernel takes
 
 
 def decode_attention_reference(q, k, v, lengths, *, softmax_scale=None,

@@ -15,8 +15,11 @@ backward of
 them on the H100 and how they are laid out. Both hold to the same plain
 versions.
 A CUDA tensor launches the kernels, a CPU tensor runs
-``flash_attention_reference`` and ``flash_attention_bwd_reference``. dBias is a dense recompute outside the
-kernels (``_dbias_dense`` :743), run only when the bias requires grad.
+``flash_attention_reference`` and ``flash_attention_bwd_reference``. dBias
+is a dense recompute outside the kernels (``_dbias_dense`` :743), run only
+when the bias requires grad. The forward kernels take head dims
+``FWD_HEAD_DIMS`` (GPT-J-6B's 256 too), the backward kernels
+``BWD_HEAD_DIMS``.
 """
 
 import math
@@ -28,7 +31,11 @@ from ._common import (NEG_INF, check_launch, kernel_dtype_code,
                       use_kernel)
 from .dropout import attention_dropout_keep, keep_threshold
 
-HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernels are compiled for
+# the head dims the kernels are compiled for: the forward's, and the
+# backward's (no d-256 backward kernel yet: a forward on the card that
+# would need one raises)
+FWD_HEAD_DIMS = (64, 80, 96, 128, 256)
+BWD_HEAD_DIMS = (64, 80, 96, 128)
 BLOCK_K = 64            # the forward kernels' online-softmax step (csrc BK)
 
 
@@ -216,14 +223,15 @@ def _kernel_layout(t):
     return t.contiguous()
 
 
-def _kernel_operands(q, k, v, bias):
-    """Check q/k/v for the kernels; returns (dtype code, q, k, v in the
-    kernels' layout, fp32 bias, bias strides)."""
+def _kernel_operands(q, k, v, bias, head_dims=FWD_HEAD_DIMS):
+    """Check q/k/v for the kernels (of the forward, or the backward's
+    ``head_dims``); returns (dtype code, q, k, v in the kernels' layout,
+    fp32 bias, bias strides)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d not in HEAD_DIMS:
+    if d not in head_dims:
         raise ValueError(f"flash_attention: the CUDA kernels take head_dim "
-                         f"in {HEAD_DIMS}, got {d}")
+                         f"in {head_dims}, got {d}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: q/k/v dtypes differ "
                         f"({q.dtype}, {k.dtype}, {v.dtype})")
@@ -308,7 +316,8 @@ class BwdOperands(NamedTuple):
 
 
 def bwd_operands(q, k, v, o, lse, do, bias):
-    code, q, k, v, bias, bstrides = _kernel_operands(q, k, v, bias)
+    code, q, k, v, bias, bstrides = _kernel_operands(q, k, v, bias,
+                                                     BWD_HEAD_DIMS)
     if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
         raise ValueError(f"flash_attention backward: dO {tuple(do.shape)} "
                          f"{do.dtype} / O {tuple(o.shape)} do not match q "
@@ -429,13 +438,24 @@ def flash_attention(q, k, v, *, bias=None, causal=True, softmax_scale=None,
     sharded block come with sequence parallelism; the ``Dropout`` tuple
     carries them). Gradients flow to q, k, v (and to the bias when it
     requires grad) through the backward kernels. A CUDA tensor launches
-    the kernels (head_dim 64, 80, 96 or 128; bfloat16 and float16 on the
-    tensor cores, float32 on 3xTF32 tensor-core products; else it raises);
-    a CPU tensor runs the plain versions.
+    the kernels (bfloat16 and float16 on the tensor cores, float32 on
+    3xTF32 tensor-core products; the forward at head_dim 64, 80, 96, 128
+    or 256, the backward at 64, 80, 96 or 128; else it raises, and a
+    forward that would need a backward the kernels do not take raises
+    before any launch); a CPU tensor runs the plain versions.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D [b, s, h, d] q/k/v")
     d = q.shape[-1]
+    if (not return_lse and d in FWD_HEAD_DIMS and d not in BWD_HEAD_DIMS
+            and use_kernel(q)
+            and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad
+                    for t in (q, k, v, bias))):
+        raise ValueError(
+            f"flash_attention: head_dim {d} runs forward only on the card; "
+            f"the CUDA backward kernels take head_dim in {BWD_HEAD_DIMS} "
+            "(run under torch.no_grad(), or on the CPU's plain versions)")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     bias = _bias_operand(bias, q, k)
     drop = resolve_dropout(dropout_rate, dropout_seed, q.shape[2])

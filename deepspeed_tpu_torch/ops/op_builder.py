@@ -142,11 +142,16 @@ def _signature(extra_flags) -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile and link the kernels; returns the library path. Reuses an
-    existing build of the same sources and flags."""
+    existing build of the same sources and flags, and sets ``build_log``
+    to the nvcc output that build was made with."""
     global build_log
     extra = ["-Xptxas", "-v"] if verbose else []
     lib_path = os.path.join(_BUILD_DIR, f"libkernels-{_signature(extra)}.so")
-    if os.path.exists(lib_path):
+    log_path = lib_path[:-len(".so")] + ".log"
+    if os.path.exists(lib_path) and os.path.exists(log_path):
+        # a reused build keeps the nvcc output it was made with
+        with open(log_path) as f:
+            build_log = f.read()
         return lib_path
     nvcc = find_nvcc()
     os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -175,7 +180,13 @@ def build(verbose: bool = False) -> str:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
-        os.replace(tmp_lib, lib_path)   # atomic: concurrent builders agree
+        tmp_log = os.path.join(tmp, "libkernels.log")
+        with open(tmp_log, "w") as f:
+            f.write(build_log)
+        # the log lands first, so whoever finds the library finds its log;
+        # both moves are atomic, so concurrent builders agree
+        os.replace(tmp_log, log_path)
+        os.replace(tmp_lib, lib_path)
     return lib_path
 
 

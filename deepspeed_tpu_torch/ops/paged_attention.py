@@ -33,7 +33,7 @@ from . import decode_split
 from ._common import NEG_INF, check_launch, kernel_dtype_code, use_kernel
 from .decode_attention import _aligned
 
-HEAD_DIMS = (64, 80, 96, 128)   # the head dims the kernel is compiled for
+HEAD_DIMS = (64, 80, 96, 128, 256)   # the head dims the kernel takes
 _INT8_PAGES = 2         # the C entry point's page-dtype code for int8
 
 

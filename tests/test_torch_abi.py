@@ -225,3 +225,37 @@ def test_bigbird_64_mask_is_all_live_and_block_16_masks_are_not():
     lf = compile_layout(psc.BSLongformerSparsityConfig(4, block=16), 512)
     flags = count_table(lf.kv_cnt, lf.masks)[-len(lf.masks):]
     assert 0 in flags
+
+
+FAKE_NVCC = '''#!{python}
+import os, sys
+out = sys.argv[sys.argv.index("-o") + 1]
+open(out, "w").close()
+with open(os.path.join(os.path.dirname(out), "..", "calls"), "a") as f:
+    f.write("x")
+if "-c" in sys.argv:
+    src = os.path.basename(sys.argv[sys.argv.index("-c") + 1])
+    print(f"ptxas info    : Compiling entry function 'k_{{src}}'")
+    print("ptxas info    : Used 42 registers")
+'''
+
+
+def test_a_reused_build_keeps_its_nvcc_output(tmp_path, monkeypatch):
+    """``build`` reuses a library of the same sources and flags; its
+    ``build_log`` (the ``-Xptxas -v`` report that spill checks read) is
+    the one the library was built with, not empty, on a reuse too."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(op_builder, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(op_builder, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(op_builder, "build_log", "")
+    first = op_builder.build(verbose=True)
+    log = op_builder.build_log
+    calls = (tmp_path / "build" / "calls").read_text()
+    assert len(calls) == len(op_builder.sources()) + 1    # compiles, link
+    assert log.count("Used 42 registers") == len(op_builder.sources())
+    monkeypatch.setattr(op_builder, "build_log", "")
+    assert op_builder.build(verbose=True) == first
+    assert (tmp_path / "build" / "calls").read_text() == calls
+    assert op_builder.build_log == log

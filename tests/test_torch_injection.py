@@ -13,8 +13,9 @@ and paged serving (prefix cache, chunked prefill), fp32. Weight-only
 int8 on an injected BERT (direct mode, and the transform mode of a
 module without QDense kernels) within 1e-5 of JAX's: both quantize to
 the same int8 bytes. ``init_inference`` takes ``checkpoint=``,
-``replace_with_kernel_inject=`` and ``injection_policy=``, and refuses
-GPT-J-6B's head dim 256 on CUDA before building anything.
+``replace_with_kernel_inject=`` and ``injection_policy=``; on CUDA it
+takes GPT-J-6B's head dim 256 and refuses one no serving kernel takes
+(192) before building anything.
 """
 
 import functools
@@ -411,17 +412,40 @@ def test_quantize_weights_after_a_checkpoint_load(tmp_path):
         atol=ATOL, rtol=0)
 
 
-def test_head_dim_256_is_refused_on_cuda_before_building(monkeypatch):
-    """GPT-J-6B's widths (head dim 256): the engine names the head dim
-    and the kernels' head dims before it converts or builds anything."""
+class _Built(Exception):
+    """Raised by a stand-in ``build_model``: the engine got past its
+    head-dim check."""
+
+
+def _on_cuda_without_building(monkeypatch):
     monkeypatch.setattr(engine_mod, "resolve_device",
                         lambda device: torch.device("cuda"))
 
     def no_build(*a, **k):
-        raise AssertionError("built a model before the head-dim check")
+        raise _Built
     monkeypatch.setattr(pmi.replace_module, "build_model", no_build)
-    with pytest.raises(ValueError, match=r"head_dim 256.*\(64, 80, 96, 128\)"):
-        init_inference(T.GPTJConfig(), replace_with_kernel_inject=True,
+
+
+def test_gptj_6b_passes_the_head_dim_check_on_cuda(monkeypatch):
+    """GPT-J-6B's widths (16 heads of 256): every serving kernel takes
+    head dim 256, so the engine goes on to build the model."""
+    _on_cuda_without_building(monkeypatch)
+    cfg = T.GPTJConfig()
+    assert cfg.n_embd // cfg.n_head == 256
+    with pytest.raises(_Built):
+        init_inference(cfg, replace_with_kernel_inject=True,
+                       dtype=torch.bfloat16)
+
+
+def test_untaken_head_dim_is_refused_on_cuda_before_building(monkeypatch):
+    """Head dim 192, which no serving kernel takes: the engine names the
+    head dim and the kernels' head dims before it converts or builds
+    anything."""
+    _on_cuda_without_building(monkeypatch)
+    with pytest.raises(ValueError,
+                       match=r"head_dim 192.*\(64, 80, 96, 128, 256\)"):
+        init_inference(T.GPTJConfig(n_embd=3072, n_head=16),
+                       replace_with_kernel_inject=True,
                        dtype=torch.bfloat16)
 
 
