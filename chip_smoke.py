@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile | --checks-only | --8c-only |
                            --7a-only | --loop-only | --fp16-only |
                            --inject-only | --11b-only | --gptj-only |
-                           --serving-only |
+                           --gptj-train-only | --serving-only |
                            --serving-timing [dir] | --decode-timing [dir] |
                            --serving-ab dir | --chunk-sweep |
                            --planted-faults [name]]
@@ -13,17 +13,22 @@ Phases, each fatal on failure:
 
 1. environment: a CUDA device, its name and power limit (nvidia-smi),
    TF32 and reduced-precision bf16 GEMM reductions switched off for
-   every phase but 5a, 7a, 8a and 8b, which run under torch's defaults;
+   every phase but 5a, 7a, 8a, 8b and 13a, which run under torch's
+   defaults;
 2. build: the kernels of ``deepspeed_tpu_torch/ops/csrc`` with nvcc for
    sm_90a (register and spill counts printed; the bf16 and fp16 flash
-   forward's head-dim-256 instances must not spill);
+   forward's and backward's head-dim-256 instances must not spill, the
+   fp32 backward's are logged);
 3. kernels: every kernel of the serving and training paths against its
    plain PyTorch version on the card (the flash forward with dropout, both
    flash backward kernels and fused Adam over the training grid, the
-   attention kernels at head_dim 64, 80, 96 and 128, the flash forward,
-   decode and paged kernels also at 256 (GPT-J-6B's), the bf16 flash
-   kernels again at phases 5a's and 8a's shapes; bf16 held by the largest
-   error and by the rms error, ``Gate``), then timed at the serving and
+   attention kernels at head_dim 64, 80, 96 and 128, the flash forward and
+   backward, decode and paged kernels also at 256 (GPT-J-6B's; the
+   backward also at GPT-J-6B's attention, b 1, s 2048, 16 heads, causal,
+   dropout 0 and 0.1, in bf16, fp16 and fp32, and 20 repeated launches bit
+   for bit), the bf16 flash kernels again at phases 5a's and 8a's shapes;
+   bf16 held by the largest error and by the rms error, ``Gate``), then
+   timed at the serving and
    training shapes beside the plain version, one PyTorch library call
    computing the same function, and the least time the card could take
    (the flash kernels in bf16 on the tensor cores at dropout 0.1 and 0,
@@ -190,9 +195,9 @@ Phases, each fatal on failure:
    through the cache within 2e-3 of the cache-free forward, contiguous
    and paged serving and a ragged ``generate()`` token-exact against
    ``generate()`` (near-tie rule), decode, paged and flash launches
-   exact; (d) a flash forward at head dim 256 that needs a gradient
-   refused by name, naming the backward kernels' head dims, with no
-   launch and no device allocation; (e) ``BertSparseSelfAttention`` at
+   exact; (d) a flash forward at a head dim no flash kernel takes (160)
+   that needs a gradient refused by name, naming the kernels' head dims,
+   with no launch and no device allocation; (e) ``BertSparseSelfAttention`` at
    BERT-base widths with HF-named query/key/value weights, BigBird-64 at
    4096 tokens, bf16, against its plain version (``Gate``), one
    block-sparse forward launch;
@@ -214,14 +219,30 @@ Phases, each fatal on failure:
    peak bytes; (c) the same model with int8 KV pages (6d's logit rung;
    the greedy agreement classified against 12a's own with
    ``generate()``); (b)
-   fp32 at GPT-J-6B's widths and 2 layers, 11b's gates.
+   fp32 at GPT-J-6B's widths and 2 layers, 11b's gates;
+13. head dim 256 trained: (a) GPT-J-6B's layout (its injection policy's
+   ``GPTConfig``: d 4096, 16 heads of 256, rotary 64, d_ff 16384, vocab
+   50400, parallel residual, shared LayerNorm, no attention biases, an
+   untied head with a bias) at full width and 8 of its 28 layers, seeded
+   weights, through ``initialize(...)`` -> ``train_batch``: bf16 on fp32
+   masters, FusedAdam, micro 2 x gas 2 x 2048 tokens, 6 steps on one
+   seeded batch under torch's default GEMM flags: exact launch counts of
+   the d-256 flash forward and both backward kernels and of fused Adam,
+   finite losses that fall, peak device memory, step time and tokens/s
+   (``--profile`` adds the device-busy share of one step); (b) the same
+   width in fp16 at 2 layers, 4 steps, dynamic loss scale from 2**16: the
+   scale trajectory equal to the host replay of ``update_scale``, at
+   least one step taken, exact launches of the fp16 d-256 instances; (c)
+   the card against the CPU in fp32 at GPT-J-6B's layout cut to d 1024 (4
+   heads of 256), 2 layers, 4 x 256 tokens, 2 steps: phase 5b's gates.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
 ``--8c-only`` builds the kernels and runs phase 8c alone (no result);
 ``--7a-only`` phase 7a likewise, ``--loop-only`` phase 9,
 ``--fp16-only`` phase 10, ``--inject-only`` phase 11, ``--11b-only``
-phase 11b, ``--gptj-only`` phase 12, ``--serving-only`` phases 4b and 6b.
+phase 11b, ``--gptj-only`` phase 12, ``--gptj-train-only`` phase 13,
+``--serving-only`` phases 4b and 6b.
 ``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
 with this checkout's decode and paged ops and with those of the checkout
 ``dir`` in turns (no result).
@@ -232,8 +253,9 @@ it on copies built with each split-KV chunk width of ``SWEEP_CHUNKS``.
 prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (forty faults; ``d-256``
-picks the five of the head-dim-256 instances),
+``--planted-faults [name]`` runs ``--checks-only`` (forty-four faults;
+``d-256`` picks the nine of the head-dim-256 instances, ``bwd-d256`` the
+four of the flash backward's),
 ``--8c-only`` (two), ``--7a-only`` (one), ``--11b-only`` (three: the
 injection path's Python) or ``--gptj-only`` (one, ``12c``: int8 pages at
 head dim 256 in every slot but the first) in copies of the checkout,
@@ -337,21 +359,32 @@ def bound_ms(flops, nbytes, peak_flops):
 # phase 2: the build
 # --------------------------------------------------------------------------
 
-# the tensor-core flash forward's d-256 instances (bf16 and fp16, dropout
-# on and off), whose accumulator alone takes 128 registers a thread
-D256_FWD_ENTRY = r"flash_fwd_kernelI(13__nv_bfloat16|6__half)Li256E"
+# the flash kernels' d-256 instances in nvcc's -Xptxas -v output (dropout
+# off and on each): the tensor-core forward (bf16, fp16), whose accumulator
+# alone takes 128 registers a thread; the tensor-core backward's dK/dV and
+# dQ (bf16, fp16), 128 accumulator registers a thread for dK/dV; the
+# 3xTF32 backward (fp32, the parity mode: spill logged, not gated)
+D256_ENTRIES = (
+    ("flash forward bf16/fp16", r"flash_fwd_kernelI(13__nv_bfloat16|6__half)"
+     r"Li256E", 4, True),
+    ("flash backward dK/dV bf16/fp16", r"flash_bwd_dkv_cols_kernelI"
+     r"(13__nv_bfloat16|6__half)Li256E", 4, True),
+    ("flash backward dQ bf16/fp16", r"flash_bwd_dq_cols_kernelI"
+     r"(13__nv_bfloat16|6__half)Li256E", 4, True),
+    ("flash backward dK/dV fp32", r"flash_bwd_dkv_cols_kernelILi256E", 2,
+     False),
+    ("flash backward dQ fp32", r"flash_bwd_dq_cols_kernelILi256E", 2, False))
 
 
-def check_d256_spills(build_log):
-    """ptxas's registers and spill bytes of every kernel instance
-    matching ``D256_FWD_ENTRY`` in nvcc's ``-Xptxas -v`` output: four
-    instances, none spilling."""
+def d256_spills(build_log, pattern):
+    """{entry: [spill bytes, registers]} of every kernel instance matching
+    ``pattern`` in nvcc's ``-Xptxas -v`` output."""
     name, seen = None, {}
     for line in build_log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
                       r"for )([^' ]+)", line)
         if m:
-            name = m[1] if re.search(D256_FWD_ENTRY, m[1]) else None
+            name = m[1] if re.search(pattern, m[1]) else None
             continue
         if name is None:
             continue
@@ -362,12 +395,26 @@ def check_d256_spills(build_log):
         m = re.search(r"Used (\d+) registers", line)
         if m and name in seen:
             seen[name][1] = int(m[1])
-    log("  flash forward d-256 instances (bf16, fp16; dropout off, on): "
-        + ", ".join(f"{regs} registers / {spill} spill bytes"
-                    for spill, regs in seen.values()))
-    if len(seen) != 4 or any(spill for spill, _ in seen.values()):
-        raise AssertionError("the bf16/fp16 flash forward's d-256 instances "
-                             f"spill or were not found: {seen}")
+    return seen
+
+
+def check_d256_spills(build_log):
+    """Registers and spill bytes of the flash kernels' d-256 instances
+    (``D256_ENTRIES``): each family present with its count of instances,
+    and the bf16/fp16 ones spilling nothing."""
+    bad = []
+    for what, pattern, count, gated in D256_ENTRIES:
+        seen = d256_spills(build_log, pattern)
+        log(f"  {what} d-256 instances (dropout off, on)"
+            f"{'' if gated else ', logged'}: "
+            + ", ".join(f"{regs} registers / {spill} spill bytes"
+                        for spill, regs in seen.values()))
+        if len(seen) != count or gated and any(
+                spill for spill, _ in seen.values()):
+            bad.append((what, seen))
+    if bad:
+        raise AssertionError("flash d-256 instances spill or were not "
+                             f"found: {bad}")
 
 
 # --------------------------------------------------------------------------
@@ -975,6 +1022,55 @@ def check_flash_bwd(dev, gen, sizes=(128, 1024)):
     gate.close()
 
 
+# GPT-J-6B's attention at its context (phase 13's shape: b 1 of 13a's
+# micro batch of 2, 16 heads of 256, 2048 tokens, causal)
+GPTJ_ATTN = dict(b=1, h=16, s=2048, d=256)
+
+
+def check_flash_bwd_d256(dev, gen, launches=20):
+    """The backward's d-256 instances (bf16, fp16, fp32) at GPT-J-6B's
+    attention shape (``GPTJ_ATTN``), dropout 0 and 0.1, against the plain
+    backward (``Gate``); then ``launches`` repeated launches of each kernel
+    at dropout 0.1, bit for bit (one owner per output element)."""
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        Dropout, bwd_operands, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd, launch_bwd_dkv,
+        launch_bwd_dq)
+    b, h, s, d = (GPTJ_ATTN[x] for x in "bhsd")
+    gate = Gate("flash bwd d-256")
+    unequal = []
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
+                                   dtype=dtype) for _ in range(4))
+        for rate in (0.0, 0.1):
+            drop = Dropout(rate, 0x2468, 0x1357, h) if rate else None
+            o, lse = flash_attention_fwd(q, k, v, None, causal=True,
+                                         dropout=drop)
+            grads = flash_attention_bwd(q, k, v, o, lse, do, None,
+                                        causal=True, dropout=drop)
+            refs = flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                                 causal=True, dropout=drop)
+            torch.cuda.synchronize()
+            gate.case(dtype, grads, refs, f"b={b} h={h} s={s} d={d} causal "
+                      f"rate={rate} (dq, dk, dv)", show=True)
+        ops = bwd_operands(q, k, v, o, lse, do, None)
+        first = (*launch_bwd_dkv(ops, True, d ** -0.5, drop),
+                 launch_bwd_dq(ops, True, d ** -0.5, drop))
+        for _ in range(launches - 1):
+            again = (*launch_bwd_dkv(ops, True, d ** -0.5, drop),
+                     launch_bwd_dq(ops, True, d ** -0.5, drop))
+            if not _same_bits(first, again):
+                unequal.append(str(dtype)[6:])
+                break
+        del q, k, v, do, o, lse, grads, refs, ops, first
+    gate.close()
+    log(f"  flash bwd d-256: {launches} launches of dK/dV and dQ at rate "
+        f"0.1 bit-equal: {'all' if not unequal else 'FAIL ' + str(unequal)}")
+    if unequal:
+        raise AssertionError(f"flash bwd d-256 {unequal}: repeated launches "
+                             "differ")
+
+
 def check_flash_train_shapes(dev, gen):
     """The bf16 forward and both backward kernels at the shapes phases 5a
     and 8a give them, grids several waves deep: GPT-2's micro batch (b 8,
@@ -1140,7 +1236,7 @@ def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
                                                      dtype, padded)
     bias_in = _bias_operand(bias, q, k)
     times, plain, lib, errs = {}, {}, {}, {}
-    for r in (rate, 0.0):
+    for r in dict.fromkeys((rate, 0.0)):
         drop = Dropout(r, 0x1234, 0x5678, h) if r else None
         fwd = (lambda drop=drop: flash_attention_fwd(
             q, k, v, bias_in, causal=causal, dropout=drop))
@@ -2552,20 +2648,29 @@ def phase_train_parity():
     """The card against the CPU, fp32, attention dropout on: the same
     weights and seed words give the same keep bits on both devices."""
     import dataclasses
-    from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.models import GPT, GPT2_PRESETS
+    from deepspeed_tpu_torch.models import GPT2_PRESETS
     log("phase 5b: training, card against CPU (fp32, attention dropout "
         "0.1, GPT-2 125M at full width and depth)")
     cfg = dataclasses.replace(GPT2_PRESETS["gpt2-125m"], dtype=torch.float32,
                               attn_dropout_rate=0.1)
-    lr = 1e-4
+    rs = np.random.RandomState(SEED + 5)
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size, size=(4, 128))
+             .astype(np.int32)}
+    return card_vs_cpu_training(cfg, batch)
+
+
+def card_vs_cpu_training(cfg, batch, lr=1e-4):
+    """``GPT(cfg)`` trained 2 steps through ``initialize()`` ->
+    ``train_batch`` (FusedAdam at ``lr``, micro 2 x gas 2, clip 1.0) on the
+    card and on the CPU from the same seed: each step's loss within 1e-4,
+    every parameter within 4 lr after the 2 steps. Returns the card run's
+    flash launch counts."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import GPT
     config = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
               "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
               "optimizer": {"type": "FusedAdam",
                             "params": {"lr": lr, "weight_decay": 0.1}}}
-    rs = np.random.RandomState(SEED + 5)
-    batch = {"input_ids": rs.randint(0, cfg.vocab_size, size=(4, 128))
-             .astype(np.int32)}
     runs = {}
     counters = {k: v for k, v in _ds_counters().items()
                 if k.startswith("flash_attention")}
@@ -4795,17 +4900,23 @@ def phase_inject_parity(card, n_layers=PARITY_LAYERS, write_dir=pythia_dir,
             "paged_attention": paged_counts["paged_attention"]}
 
 
+# 11d's head dim: one that neither flash kernel takes (GPT-J-6B's 256 is
+# taken by both since the backward's d-256 instances)
+UNTAKEN_HEAD_DIM = 160
+
+
 def phase_inject_refusal():
-    """11d: a flash forward at GPT-J-6B's head dim 256 (16 heads, bf16)
-    whose q requires a gradient is refused by name, naming the backward
-    kernels' head dims, before any launch or device allocation: the d-256
-    backward is not ported."""
+    """11d: a flash forward at a head dim no flash kernel takes
+    (``UNTAKEN_HEAD_DIM``; 16 heads, bf16) whose q requires a gradient is
+    refused by name, naming the kernels' head dims, before any launch or
+    device allocation."""
     from deepspeed_tpu_torch.ops import flash_attention
     from deepspeed_tpu_torch.ops.flash_attention import BWD_HEAD_DIMS
-    log("phase 11d: a head-dim-256 flash forward that needs a gradient "
+    d = UNTAKEN_HEAD_DIM
+    log(f"phase 11d: a head-dim-{d} flash forward that needs a gradient "
         "refused")
     g = torch.Generator(device="cuda").manual_seed(SEED + 16)
-    q, k, v = (torch.randn(1, 128, 16, 256, generator=g, device="cuda",
+    q, k, v = (torch.randn(1, 128, 16, d, generator=g, device="cuda",
                            dtype=torch.bfloat16) for _ in range(3))
     q.requires_grad_()
     torch.cuda.synchronize()
@@ -4816,16 +4927,16 @@ def phase_inject_refusal():
     except ValueError as e:
         msg = str(e)
     else:
-        raise AssertionError("11d: a d-256 forward with a gradient was not "
+        raise AssertionError(f"11d: a d-{d} forward with a gradient was not "
                              "refused")
     after = torch.cuda.memory_allocated()
     log(f"  ValueError in {time.perf_counter() - t0:.3f} s: {msg}; device "
         f"memory {before} -> {after} bytes, flash launches "
         f"{flash_attention.launches - launches}")
-    if ("head_dim 256" not in msg or str(BWD_HEAD_DIMS) not in msg
+    if (f"got {d}" not in msg or str(BWD_HEAD_DIMS) not in msg
             or after != before or flash_attention.launches != launches):
         raise AssertionError("11d: the refusal does not name the head dim "
-                             "and the backward's dims, or came after an "
+                             "and the kernels' dims, or came after an "
                              "allocation or a launch")
 
 
@@ -5035,6 +5146,208 @@ def phase_gptj(card, profile=False):
         f"{time.perf_counter() - t2:.1f} s")
     return {"12a": counts_a, "12b": counts_b, "12c": counts_c,
             "serve": serve}
+
+
+# --------------------------------------------------------------------------
+# phase 13: GPT-J-6B's layout trained (head dim 256 in the flash backward)
+# --------------------------------------------------------------------------
+
+# 13a: 8 of GPT-J-6B's 28 layers (2,023,777,504 parameters): 28 layers'
+# fp32 master weights, gradients and Adam moments (16 bytes a parameter,
+# 6,050,882,784 parameters) would take 96.8 GB, over the card's 80 GB
+GPTJ_TRAIN_LAYERS = 8
+GPTJ_TRAIN_STEPS = 6
+GPTJ_FP16_LAYERS, GPTJ_FP16_STEPS = 2, 4      # 13b
+GPTJ_PARITY = dict(d_model=1024, n_heads=4, n_layers=2, seq=256)   # 13c
+# micro 2 x gas 2 sequences of GPT-J-6B's context (n_positions 2048):
+# 8,192 tokens a step; FusedAdam at GPT-J-6B's published peak lr 1.2e-4
+GPTJ_TRAIN_CONFIG = {
+    "train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "FusedAdam",
+                  "params": {"lr": 1.2e-4, "betas": [0.9, 0.95],
+                             "weight_decay": 0.1}},
+    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+}
+# 13b: fp16 masters' loss scale from DeepSpeed's default 2**16
+GPTJ_FP16_CONFIG = {
+    **{k: v for k, v in GPTJ_TRAIN_CONFIG.items() if k != "bf16"},
+    "fp16": {"enabled": True, "initial_scale_power": 16,
+             "loss_scale_window": 2, "hysteresis": 2, "min_loss_scale": 1.0},
+}
+
+
+def gptj_train_config(dtype, **fields):
+    """GPT-J-6B's ``GPTConfig`` as its injection policy builds it from
+    ``GPTJ_6B`` (untied head with a bias, rotary over 64 dims, one shared
+    LayerNorm, no attention biases), with ``fields`` replaced."""
+    import dataclasses
+    import types
+    from deepspeed_tpu_torch.module_inject.replace_policy import \
+        HFGPTJLayerPolicy
+    cfg = HFGPTJLayerPolicy.build_config(types.SimpleNamespace(**GPTJ_6B),
+                                         dtype)
+    return dataclasses.replace(cfg, **fields)
+
+
+def gptj_batch(cfg, rows, seq, seed):
+    rs = np.random.RandomState(seed)
+    return {"input_ids": rs.randint(0, cfg.vocab_size, size=(rows, seq))
+            .astype(np.int32)}
+
+
+def _gptj_want(cfg, config, steps, taken):
+    per_attn = cfg.n_layers * config["gradient_accumulation_steps"]
+    return {"flash_attention": per_attn * steps,
+            "flash_attention_bwd_dkv": per_attn * steps,
+            "flash_attention_bwd_dq": per_attn * steps,
+            "fused_adam": taken, "fused_adam_bf16": 0}
+
+
+def phase_gptj_train_bf16(card, profile=False):
+    """13a: GPT-J-6B's layout at full width and ``GPTJ_TRAIN_LAYERS``
+    layers, bf16 compute on fp32 master weights, FusedAdam, micro 2 x gas
+    2 x 2048 tokens, ``GPTJ_TRAIN_STEPS`` train_batch calls on one seeded
+    batch: exact launch counts of the flash forward and both backward
+    kernels at head dim 256 and of fused Adam, finite losses that fall,
+    peak device memory, step wall ms and tokens/s."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import GPT
+    cfg = gptj_train_config(torch.bfloat16, n_layers=GPTJ_TRAIN_LAYERS)
+    steps, config = GPTJ_TRAIN_STEPS, GPTJ_TRAIN_CONFIG
+    seq = cfg.max_seq_len
+    log(f"phase 13a: GPT-J-6B's layout (d {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.head_dim}, rotary {cfg.rotary_dim}, d_ff {cfg.ffn_dim}, "
+        f"vocab {cfg.vocab_size}, untied head with bias) at "
+        f"{cfg.n_layers} of its 28 layers trained through initialize() -> "
+        f"train_batch (bf16 on fp32 masters, FusedAdam, micro 2 x gas 2 x "
+        f"{seq} tokens, {steps} steps; GEMM flags {list(gemm_flags())})")
+    t0 = time.perf_counter()
+    model = GPT(cfg, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    draw_s = time.perf_counter() - t0
+    engine, _, _, _ = initialize(model=model, config=config,
+                                 loss_fn=gpt_train_loss, seed=SEED)
+    del model
+    batch = gptj_batch(cfg, config["train_batch_size"], seq, SEED + 40)
+    counters = _fp16_counters()
+    torch.cuda.synchronize()
+    log(f"  {n_params} parameters drawn on the host in {draw_s:.1f} s, "
+        f"engine built in {time.perf_counter() - t0 - draw_s:.1f} s; "
+        f"torch.cuda.memory_allocated() {torch.cuda.memory_allocated()} "
+        f"bytes")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    losses, marks = [], []
+    for _ in range(steps):
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    counts = read_counters(counters)
+    peak = torch.cuda.max_memory_allocated()
+    want = _gptj_want(cfg, config, steps, steps)
+    log(f"  launches over the {steps} steps: {counts} (want {want}: "
+        f"{cfg.n_layers} layers x 2 microbatches x {steps} steps; one "
+        f"optimizer launch a step)")
+    log("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    step_ms = (marks[-1] - marks[0]) / (steps - 1) * 1e3
+    tokens = config["train_batch_size"] * seq
+    log(f"  step wall {step_ms:.2f} ms (mean of steps 2-{steps}, each ending "
+        f"in a synchronize), {tokens / step_ms * 1e3:.0f} tokens/s, peak "
+        f"device memory {peak} bytes ({peak / 2 ** 30:.2f} GiB), grad norm "
+        f"{engine.get_global_grad_norm():.4f} [{card}]")
+    if counts != want:
+        raise AssertionError("13a: the training run did not go through every "
+                             "kernel of its path the expected number of "
+                             "times")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("13a: training losses are not finite or did not "
+                             "fall on the repeated batch")
+    if profile:
+        device_profile("gptj train step", lambda: engine.train_batch(batch),
+                       step_ms, card, iters=2, grad=True)
+    del engine
+    torch.cuda.empty_cache()
+    return counts, dict(step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+                        peak_bytes=peak, params=n_params)
+
+
+def phase_gptj_train_fp16(card):
+    """13b: the same width in fp16 (fp32 masters, dynamic loss scale) at
+    ``GPTJ_FP16_LAYERS`` layers, ``GPTJ_FP16_STEPS`` steps: finite losses,
+    the (scale, growth, overflows, hysteresis) trajectory equal to the host
+    replay of ``update_scale`` fed the card's finite flags, at least one
+    step taken, exact launches of the fp16 d-256 forward and backward."""
+    from deepspeed_tpu_torch.models import GPT
+    cfg = gptj_train_config(torch.float16, n_layers=GPTJ_FP16_LAYERS)
+    config, steps = GPTJ_FP16_CONFIG, GPTJ_FP16_STEPS
+    f16 = config["fp16"]
+    log(f"phase 13b: GPT-J-6B's layout at {cfg.n_layers} layers in fp16 "
+        f"(dynamic loss scale from 2**{f16['initial_scale_power']}, "
+        f"hysteresis {f16['hysteresis']}, window "
+        f"{f16['loss_scale_window']}), FusedAdam, micro 2 x gas 2 x "
+        f"{cfg.max_seq_len} tokens, {steps} steps")
+    batch = gptj_batch(cfg, config["train_batch_size"], cfg.max_seq_len,
+                       SEED + 41)
+    rows, counts, peak, engine = fp16_run(
+        GPT(cfg, seed=SEED), [batch] * steps, config, steps,
+        loss_fn=gpt_train_loss)
+    del engine
+    torch.cuda.empty_cache()
+    skipped = rows[-1][2]
+    want = _gptj_want(cfg, config, steps, steps - skipped)
+    replay = replay_scale(rows, f16)
+    losses = [float(r[0]) for r in rows]
+    log("  losses " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"  (scale, growth, overflows, hysteresis) per step "
+        f"{[r[1] for r in rows]} (host replay {replay}); skipped {skipped}")
+    log(f"  launches {counts} (want {want}); step wall ms "
+        f"{[round(r[3], 2) for r in rows]}; peak {peak} bytes [{card}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("13b: a loss is not finite")
+    if [r[1] for r in rows] != replay:
+        raise AssertionError("13b: the loss-scale trajectory differs from "
+                             "the host replay")
+    if counts != want or skipped == steps:
+        raise AssertionError("13b: the launch counts differ, or no step was "
+                             "taken")
+    return counts
+
+
+def phase_gptj_train_parity():
+    """13c: the card against the CPU in fp32 (the 3xTF32 d-256 backward)
+    at GPT-J-6B's layout cut to ``GPTJ_PARITY`` (4 heads of 256, rotary
+    64, 2 layers, 256 tokens), 2 FusedAdam steps: 5b's gates."""
+    par = GPTJ_PARITY
+    cfg = gptj_train_config(torch.float32, d_model=par["d_model"],
+                            n_heads=par["n_heads"], n_layers=par["n_layers"],
+                            d_ff=4 * par["d_model"])
+    log(f"phase 13c: training, card against CPU (fp32, GPT-J-6B's layout at "
+        f"d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, rotary "
+        f"{cfg.rotary_dim}, {cfg.n_layers} layers, vocab {cfg.vocab_size}, "
+        f"4 x {par['seq']} tokens)")
+    return card_vs_cpu_training(
+        cfg, gptj_batch(cfg, 4, par["seq"], SEED + 42))
+
+
+def phase_gptj_train(card, defaults, profile=False):
+    """Phase 13, 13a under torch's GEMM flags ``defaults`` (as phase 5a);
+    returns the launch counts of its runs and 13a's readings."""
+    t0 = time.perf_counter()
+    off = gemm_flags()
+    set_gemm_flags(defaults)
+    try:
+        counts_a, readings = phase_gptj_train_bf16(card, profile)
+    finally:
+        set_gemm_flags(off)
+    t1 = time.perf_counter()
+    counts_b = phase_gptj_train_fp16(card)
+    t2 = time.perf_counter()
+    counts_c = phase_gptj_train_parity()
+    log(f"  phase 13 wall: 13a {t1 - t0:.1f} s, 13b {t2 - t1:.1f} s, 13c "
+        f"{time.perf_counter() - t2:.1f} s")
+    return {"13a": counts_a, "13b": counts_b, "13c": counts_c,
+            "train": readings}
 
 
 # --------------------------------------------------------------------------
@@ -5260,6 +5573,29 @@ PLANTED_FAULTS = (
      (("                                      split::CHUNK);",
        "                                      split::CHUNK) - (D == 256);"),),
      "--checks-only"),
+    # the flash backward's head-dim-256 instances (phase 13's kernels):
+    # ``--planted-faults bwd-d256`` runs these four
+    ("bwd-d256: bf16/fp16 flash dK/dV at d-256: both column halves of dK "
+     "and dV written to the first (the second never written)",
+     "flash_attention_bwd_bf16.cu",
+     (("((static_cast<long long>(b) * a.sk + key) * a.H + h) * D + ch * HC;",
+       "((static_cast<long long>(b) * a.sk + key) * a.H + h) * D;"),),
+     "--checks-only"),
+    ("bwd-d256: bf16/fp16 flash dQ at d-256: the hand-over tile's last 16 "
+     "keys left out of dQ += dS K", "flash_attention_bwd_bf16.cu",
+     (("    for (int kc = 0; kc < BK / 16; ++kc) {\n      uint32_t sa[4];",
+       "    for (int kc = 0; kc < BK / 16 - 1; ++kc) {\n      uint32_t sa[4];"),),
+     "--checks-only"),
+    ("bwd-d256: fp32 flash dK/dV at d-256: dK's second column half takes "
+     "the first half's Q columns", "flash_attention_bwd.cu",
+     (("b_rows_tf32<P>(bh, bl, Qs, r, ch * HC + n * 8 + g);",
+       "b_rows_tf32<P>(bh, bl, Qs, r, n * 8 + g);"),), "--checks-only"),
+    ("bwd-d256: fp32 flash dQ at d-256: the last visible key tile skipped",
+     "flash_attention_bwd.cu",
+     (("  for (int kt = 0; kt < nkb; ++kt) {\n    const int k0 = kt * BK;\n"
+       "    load_tile_f32<D, BK, NT>(Ks, kb",
+       "  for (int kt = 0; kt + 1 < nkb; ++kt) {\n    const int k0 = kt * BK;\n"
+       "    load_tile_f32<D, BK, NT>(Ks, kb"),), "--checks-only"),
     # phase 12c's served-token gate: a fault that one decode step of one
     # prompt (slot 0, the logit rung's case) never sees
     ("12c: int8 pages at head dim 256 read the previous slot's page-table "
@@ -5399,7 +5735,7 @@ def main():
     defaults = gemm_flags()
     set_gemm_flags((False, False, False))
     log(f"  GEMM flags {[n for _, n in GEMM_FLAGS]}: torch's defaults "
-        f"{list(defaults)}; off for every phase but 5a, 7a, 8a and 8b (TF32 "
+        f"{list(defaults)}; off for every phase but 5a, 7a, 8a, 8b and 13a (TF32 "
         f"off for matmul and cuDNN, bf16 GEMM reductions in fp32)")
 
     if "--planted-faults" in sys.argv[1:]:
@@ -5447,6 +5783,11 @@ def main():
         phase_gptj(card, profile="--profile" in sys.argv[1:])
         log("phase 12 passed (--gptj-only: no other phase, no result)")
         return 0
+    if "--gptj-train-only" in sys.argv[1:]:
+        log("phase 13: GPT-J-6B's layout (head dim 256) trained")
+        phase_gptj_train(card, defaults, profile="--profile" in sys.argv[1:])
+        log("phase 13 passed (--gptj-train-only: no other phase, no result)")
+        return 0
     if "--7a-only" in sys.argv[1:]:
         set_gemm_flags(defaults)
         phase_sparse_bert_bf16(card)
@@ -5477,6 +5818,7 @@ def main():
     check_decode(dev, gen)
     check_flash_dropout(dev, gen)
     check_flash_bwd(dev, gen)
+    check_flash_bwd_d256(dev, gen)
     check_flash_train_shapes(dev, gen)
     check_fused_adam(dev, gen)
     check_paged(dev, gen)
@@ -5530,8 +5872,7 @@ def main():
     fp32_d128_t = time_flash_train(dev, gen, d=128, dtype=torch.float32)
     # phase 12's instances at head_dim 256 with GPT-J-6B's 16 heads: the
     # forward at a prefill bucket, decode and paged at 16 slots; bf16 and
-    # int8 pages for 12a and 12c, fp32 for 12b; the fp16 forward logged
-    # only (fp16 runs in training, whose d-256 backward is not ported)
+    # int8 pages for 12a and 12c, fp32 for 12b
     d256_t = {
         "flash_attention_d256": time_flash(dev, gen, d=256, h=16),
         "flash_attention_d256_fp32": time_flash(dev, gen, d=256, h=16,
@@ -5544,7 +5885,12 @@ def main():
                                                 H=16),
         "paged_attention_d256_fp32": time_paged(dev, gen, False, d=256,
                                                 H=16, dt=torch.float32)}
-    fp16_d256_t = time_flash(dev, gen, d=256, h=16, dt=torch.float16)
+    # phase 13's: the flash forward and both backward kernels at GPT-J-6B's
+    # attention shape (dropout 0, as its config), bf16 (13a), fp16 (13b)
+    # and fp32 (13c, which runs them at 4 heads and 256 tokens)
+    gptj_t = {dt: time_flash_train(dev, gen, **GPTJ_ATTN, rate=0.0,
+                                   dtype=dt)
+              for dt in (torch.bfloat16, torch.float16, torch.float32)}
     for name, t in (("flash_attention (serving prefill)", flash_t),
                     ("decode_attention", decode_t), *train_t.items(),
                     *((f"{k} (fp16)", t) for k, t in fp16_flash_t.items()),
@@ -5556,8 +5902,8 @@ def main():
                     *((f"{k}_fp32 (7a's shape)", t)
                       for k, t in sparse_fp32_7a_t.items()),
                     *ds_t.items(), *d256_t.items(),
-                    ("flash_attention_d256_fp16 (logged only)",
-                     fp16_d256_t)):
+                    *((f"{k} (d 256, {str(dt)[6:]})", t)
+                      for dt, ts in gptj_t.items() for k, t in ts.items())):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
         extra = (f" ({t['impl']}; rate 0: {t['ms_rate0']:.4f} ms)"
@@ -5653,6 +5999,12 @@ def main():
         "checkpoint injection: the serving kernels at head dim 256")
     gptj = phase_gptj(card, profile="--profile" in sys.argv[1:])
 
+    log("phase 13: GPT-J-6B's layout (d 4096, 16 heads of 256) trained "
+        "through initialize() -> train_batch: the flash backward at head "
+        "dim 256")
+    gptj_train = phase_gptj_train(card, defaults,
+                                  profile="--profile" in sys.argv[1:])
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -5718,6 +6070,21 @@ def main():
             ("decode_attention_d256_fp32", "12b", "decode_attention"),
             ("paged_attention_d256_fp32", "12b", "paged_attention")):
         d256_t[name]["launches"] = gptj[run][key]
+    # phase 13's, each with its counters set to 0 just before: 13a (bf16),
+    # 13b (fp16), 13c (the card's fp32 run); fused Adam's 13a launches
+    # beside its 5a ones
+    gptj_train_t = {}
+    for dt, run, suffix in ((torch.bfloat16, "13a", ""),
+                            (torch.float16, "13b", "_fp16"),
+                            (torch.float32, "13c", "_fp32")):
+        for key, name in (("flash_attention", "flash_attention_d256_train"),
+                          ("flash_attention_bwd_dkv",
+                           "flash_attention_bwd_dkv_d256"),
+                          ("flash_attention_bwd_dq",
+                           "flash_attention_bwd_dq_d256")):
+            gptj_t[dt][key]["launches"] = gptj_train[run][key]
+            gptj_train_t[name + suffix] = gptj_t[dt][key]
+    train_t["fused_adam"]["gptj_launches"] = gptj_train["13a"]["fused_adam"]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
@@ -5825,7 +6192,13 @@ def main():
                   ("paged_attention_d256_int8", "paged_attention.cu",
                    "paged_attention.py:169"),
                   ("paged_attention_d256_fp32", "paged_attention.cu",
-                   "paged_attention.py:169")))):
+                   "paged_attention.py:169"))),
+            *((name, t, csrc + ("flash_attention_fwd" if "bwd" not in name
+                                else "flash_attention_bwd")
+               + ("" if name.endswith("_fp32") else "_bf16") + ".cu",
+               pallas + ("flash_attention.py:773" if "bwd" in name
+                         else "flash_attention.py:662"))
+              for name, t in gptj_train_t.items())):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": t["launches"],
@@ -5848,8 +6221,14 @@ def main():
                if "loop_launches" in t else {}),
             **({"inject_launches": t["inject_launches"]}
                if "inject_launches" in t else {}),
+            **({"gptj_launches": t["gptj_launches"]}
+               if "gptj_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}
                if "fake_quantize_ms" in t else {})})
+    r = gptj_train["train"]
+    log(f"phase 13a: {r['params']} parameters, step wall "
+        f"{r['step_ms']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s, peak "
+        f"device memory {r['peak_bytes']} bytes [{card}]")
     for phase, r in (("11a", inject["serve"]), ("12a", gptj["serve"])):
         log(f"phase {phase}: {r['tokens_per_s']:.1f} tokens/s, paged decode "
             f"{r['decode_wall_ms']:.3f} ms an iteration, {r['param_bytes']} "

@@ -18,8 +18,11 @@ A CUDA tensor launches the kernels, a CPU tensor runs
 ``flash_attention_reference`` and ``flash_attention_bwd_reference``. dBias
 is a dense recompute outside the kernels (``_dbias_dense`` :743), run only
 when the bias requires grad. The forward kernels take head dims
-``FWD_HEAD_DIMS`` (GPT-J-6B's 256 too), the backward kernels
-``BWD_HEAD_DIMS``.
+``FWD_HEAD_DIMS``, the backward kernels ``BWD_HEAD_DIMS``: the same five,
+GPT-J-6B's 256 included. At 256 both backward kernels run 8 warps a CTA
+that split the output columns in halves (dQ in quarters in fp32) and
+hand P o D and dS to each other through shared memory; the fp32 ones
+take 32-row q tiles in one stage (the headers say why).
 """
 
 import math
@@ -31,11 +34,10 @@ from ._common import (NEG_INF, check_launch, kernel_dtype_code,
                       use_kernel)
 from .dropout import attention_dropout_keep, keep_threshold
 
-# the head dims the kernels are compiled for: the forward's, and the
-# backward's (no d-256 backward kernel yet: a forward on the card that
-# would need one raises)
+# the head dims the kernels are compiled for: the forward's and the
+# backward's (a test holds each equal to its sources' dispatch)
 FWD_HEAD_DIMS = (64, 80, 96, 128, 256)
-BWD_HEAD_DIMS = (64, 80, 96, 128)
+BWD_HEAD_DIMS = (64, 80, 96, 128, 256)
 BLOCK_K = 64            # the forward kernels' online-softmax step (csrc BK)
 
 
@@ -439,23 +441,13 @@ def flash_attention(q, k, v, *, bias=None, causal=True, softmax_scale=None,
     carries them). Gradients flow to q, k, v (and to the bias when it
     requires grad) through the backward kernels. A CUDA tensor launches
     the kernels (bfloat16 and float16 on the tensor cores, float32 on
-    3xTF32 tensor-core products; the forward at head_dim 64, 80, 96, 128
-    or 256, the backward at 64, 80, 96 or 128; else it raises, and a
-    forward that would need a backward the kernels do not take raises
-    before any launch); a CPU tensor runs the plain versions.
+    3xTF32 tensor-core products; forward and backward at head_dim 64, 80,
+    96, 128 or 256; any other head dim raises before any launch); a CPU
+    tensor runs the plain versions.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D [b, s, h, d] q/k/v")
     d = q.shape[-1]
-    if (not return_lse and d in FWD_HEAD_DIMS and d not in BWD_HEAD_DIMS
-            and use_kernel(q)
-            and torch.is_grad_enabled()
-            and any(t is not None and t.requires_grad
-                    for t in (q, k, v, bias))):
-        raise ValueError(
-            f"flash_attention: head_dim {d} runs forward only on the card; "
-            f"the CUDA backward kernels take head_dim in {BWD_HEAD_DIMS} "
-            "(run under torch.no_grad(), or on the CPU's plain versions)")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     bias = _bias_operand(bias, q, k)
     drop = resolve_dropout(dropout_rate, dropout_seed, q.shape[2])

@@ -16,9 +16,10 @@ each head's dims) built from ``transformers``' ``GPTJConfig`` with seeded
 weights, injected by both packages: fp32 logits within 1e-4, greedy
 ``generate()`` and paged serving token for token.
 
-The wrappers' head dims against the CUDA sources' dispatch, and the
-refusals that remain on CUDA: the flash forward at d 256 with a gradient
-(the backward kernels take 64-128), named before any launch.
+The wrappers' head dims against the CUDA sources' dispatch (256 in every
+one, the flash backward's too), and the refusal that remains on CUDA: a
+flash forward at a head dim no kernel takes, with or without a gradient,
+named before any launch.
 """
 
 import functools
@@ -248,7 +249,7 @@ def test_injected_gptj_256_generates_and_serves_jaxs_tokens():
 
 
 # ---------------------------------------------------------------------------
-# the wrappers' head dims and the refusals that remain on CUDA
+# the wrappers' head dims and the refusal that remains on CUDA
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,dims", [
@@ -259,33 +260,45 @@ def test_injected_gptj_256_generates_and_serves_jaxs_tokens():
     ("decode_attention.cu", DECODE_HEAD_DIMS),
     ("paged_attention.cu", PAGED_HEAD_DIMS)])
 def test_wrapper_dims_are_the_cuda_dispatch(name, dims):
-    """256 in the serving kernels' dims and dispatch (the flash forward,
-    decode, paged: what ``init_inference`` checks), not the backward's."""
+    """256 in every flash, decode and paged kernel's dims and dispatch:
+    the serving kernels' (what ``init_inference`` checks) and, since the
+    flash backward's d-256 instances, the backward's."""
     assert _dispatched_dims(name) == dims
-    assert (D in dims) == ("bwd" not in name)
+    assert D in dims
     assert D in engine_mod.SERVING_HEAD_DIMS
+    assert FWD_HEAD_DIMS == BWD_HEAD_DIMS
 
 
 def test_flash_forward_with_grad_at_d256_is_refused_on_cuda(monkeypatch):
-    """A d-256 forward that needs a gradient raises on the kernel route,
-    naming the backward kernels' dims, before any launch; without a
-    gradient it launches the forward."""
-    launches = []
+    """The refusal of a forward that needs a gradient now holds only at a
+    head dim no kernel takes (160): it raises on the kernel route, naming
+    the kernels' dims, before any launch or build. At d 256 the same
+    call runs the forward kernel and, on ``backward()``, the backward
+    kernels, once each."""
     monkeypatch.setattr(FLASH, "use_kernel", lambda t: True)
-    monkeypatch.setattr(FLASH, "_launch",
-                        lambda *a: launches.append(a) or (a[0], None))
-    q, k, v = (torch.zeros(1, 64, 2, D) for _ in range(3))
+    monkeypatch.setattr(op_builder, "load", lambda *a, **k: pytest.fail(
+        "built the kernels for an untaken head dim"))
+    launches = flash_attention.launches
+    q, k, v = (torch.zeros(1, 64, 2, 160) for _ in range(3))
     for t in (q, v):        # a gradient to q, or to v alone
         t.requires_grad_()
-        with pytest.raises(ValueError,
-                           match=r"head_dim 256.*\(64, 80, 96, 128\)"):
+        with pytest.raises(ValueError, match=r"take head_dim in "
+                           r"\(64, 80, 96, 128, 256\), got 160"):
             flash_attention(q, k, v, causal=True)
         t.requires_grad_(False)
-    assert not launches
-    q.requires_grad_()
-    with torch.no_grad():
-        flash_attention(q, k, v, causal=True)
-    assert len(launches) == 1
+    assert flash_attention.launches == launches
+    fwd, bwd = [], []
+    monkeypatch.setattr(FLASH, "_launch", lambda q, *a: fwd.append(q.shape)
+                        or (torch.zeros_like(q),
+                            torch.zeros(q.shape[0], q.shape[2], q.shape[1])))
+    monkeypatch.setattr(FLASH, "_launch_bwd", lambda q, k, v, *a: bwd.append(
+        q.shape) or (torch.zeros_like(q), torch.zeros_like(k),
+                     torch.zeros_like(v)))
+    q, k, v = (torch.zeros(1, 64, 2, D, requires_grad=True)
+               for _ in range(3))
+    flash_attention(q, k, v, causal=True).sum().backward()
+    assert fwd == bwd == [(1, 64, 2, D)]
+    assert all(t.grad is not None for t in (q, k, v))
 
 
 def test_flash_forward_with_grad_at_an_untaken_dim_names_the_forwards(
