@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--profile | --checks-only | --8c-only |
                            --7a-only | --loop-only | --fp16-only |
                            --inject-only | --11b-only | --gptj-only |
-                           --gptj-train-only | --serving-only |
+                           --gptj-train-only | --fp16-serve-only |
+                           --serving-only |
                            --serving-timing [dir] | --decode-timing [dir] |
                            --serving-ab dir | --chunk-sweep |
                            --planted-faults [name]]
@@ -12,8 +13,8 @@
 Phases, each fatal on failure:
 
 1. environment: a CUDA device, its name and power limit (nvidia-smi),
-   TF32 and reduced-precision bf16 GEMM reductions switched off for
-   every phase but 5a, 7a, 8a, 8b and 13a, which run under torch's
+   TF32 and reduced-precision bf16 and fp16 GEMM reductions switched off
+   for every phase but 5a, 7a, 8a, 8b and 13a, which run under torch's
    defaults;
 2. build: the kernels of ``deepspeed_tpu_torch/ops/csrc`` with nvcc for
    sm_90a (register and spill counts printed; the bf16 and fp16 flash
@@ -209,11 +210,11 @@ Phases, each fatal on failure:
    written as a sharded checkpoint and loaded through
    ``init_inference(read_hf_config(dir), checkpoint=dir,
    replace_with_kernel_inject=True, dtype=bf16)`` (read back bit-equal,
-   held as its bf16 rounding); then all 28 layers from weights the
-   policy draws, through ``init_inference(config,
+   held as its bf16 rounding); then ``GPTJ_LAYERS`` (14) of its 28
+   layers from weights the policy draws, through ``init_inference(config,
    replace_with_kernel_inject=True, dtype=bf16)``, serving phase 6's
-   trace paged: launch counts exact (28 flash forward launches a prefill
-   chunk, 28 paged a decode iteration), first tokens exact against
+   trace paged: launch counts exact (14 flash forward launches a prefill
+   chunk, 14 paged a decode iteration), first tokens exact against
    ``generate()`` (11a's tie rule, the rest classified), its decode
    launches exact, tokens/s, decode wall ms, parameter, KV pool and host
    peak bytes; (c) the same model with int8 KV pages (6d's logit rung;
@@ -234,7 +235,25 @@ Phases, each fatal on failure:
    scale trajectory equal to the host replay of ``update_scale``, at
    least one step taken, exact launches of the fp16 d-256 instances; (c)
    the card against the CPU in fp32 at GPT-J-6B's layout cut to d 1024 (4
-   heads of 256), 2 layers, 4 x 256 tokens, 2 steps: phase 5b's gates.
+   heads of 256), 2 layers, 4 x 256 tokens, 2 steps: phase 5b's gates;
+14. serving in fp16, fp16 GEMM reductions in fp32: (a) Pythia-1.4B
+   (``PYTHIA_LAYERS`` layers) from its own fp16 checkpoint (phase 11a's;
+   written as 11a writes it under ``--fp16-serve-only``) through
+   ``init_inference(config, checkpoint=dir, replace_with_kernel_inject=
+   True, dtype=torch.float16)``: every served weight the checkpoint's
+   fp16 tensor bit for bit (LayerNorms widened to fp32), phase 6's trace
+   served paged with launch counts of the fp16 flash, paged and decode
+   instances exact, first tokens exact against ``generate()`` unless the
+   reference top-2 gap is at most ``FP16_TIE_ULPS`` fp16 ulps of the top
+   logit (the rest classified), tokens/s, decode wall ms, its device busy
+   ms and idle share, parameter bytes; (b) the same model with int8
+   weights and int8 KV pages: the int8 launches exact (4 x layers + 1 a
+   program), one decode step's logits within 0.2 of the fp16 pool's,
+   every served token's deficit < 0.4 (12c's gate); (c) GPT-J-6B's config
+   at full width, 2 layers, fp16, served paged through the d-256 fp16
+   instances, (a)'s gates. Phase 3 holds the fp16 decode, paged (fp16
+   and int8 pages) and int8 matmul instances against their plain versions
+   first (the fp16 ``Gate``) and times them at the bf16 rows' shapes.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
@@ -242,7 +261,7 @@ edited kernels build and agree; it prints no result line).
 ``--7a-only`` phase 7a likewise, ``--loop-only`` phase 9,
 ``--fp16-only`` phase 10, ``--inject-only`` phase 11, ``--11b-only``
 phase 11b, ``--gptj-only`` phase 12, ``--gptj-train-only`` phase 13,
-``--serving-only`` phases 4b and 6b.
+``--fp16-serve-only`` phase 14, ``--serving-only`` phases 4b and 6b.
 ``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
 with this checkout's decode and paged ops and with those of the checkout
 ``dir`` in turns (no result).
@@ -253,9 +272,10 @@ it on copies built with each split-KV chunk width of ``SWEEP_CHUNKS``.
 prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (forty-four faults;
+``--planted-faults [name]`` runs ``--checks-only`` (forty-seven faults;
 ``d-256`` picks the nine of the head-dim-256 instances, ``bwd-d256`` the
-four of the flash backward's),
+four of the flash backward's, ``fp16-serving`` the three of the serving
+kernels' fp16 instances),
 ``--8c-only`` (two), ``--7a-only`` (one), ``--11b-only`` (three: the
 injection path's Python) or ``--gptj-only`` (one, ``12c``: int8 pages at
 head dim 256 in every slot but the first) in copies of the checkout,
@@ -331,13 +351,17 @@ def gpu_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-# The GEMM settings that phases 3, 4 and 5b run under (TF32 off, bf16
-# reductions in fp32), so the card's products are the CPU's; phase 5a runs
-# under torch's defaults, as a user's training run does.
+# The GEMM settings that phases 3, 4 and 5b run under (TF32 off, bf16 and
+# fp16 reductions in fp32), so the card's products are the CPU's and
+# fp16 serving is read under the rounding it logs; phase 5a runs under
+# torch's defaults, as a user's training run does.
 GEMM_FLAGS = ((torch.backends.cuda.matmul, "allow_tf32"),
               (torch.backends.cudnn, "allow_tf32"),
               (torch.backends.cuda.matmul,
-               "allow_bf16_reduced_precision_reduction"))
+               "allow_bf16_reduced_precision_reduction"),
+              (torch.backends.cuda.matmul,
+               "allow_fp16_reduced_precision_reduction"))
+GEMM_OFF = (False,) * len(GEMM_FLAGS)
 
 
 def gemm_flags():
@@ -488,7 +512,7 @@ def check_decode(dev, gen):
                            dtype=torch.int32, device=dev)
     B, H = len(lengths), 12
     gate = Gate("decode")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d in HEAD_DIMS:
             for alibi in (False, True):
                 q = torch.randn(B, 1, H, d, generator=gen, device=dev,
@@ -551,17 +575,18 @@ def _paged_case(dev, gen, dtype, quant, page_len, d, lengths, B=8, H=12,
 
 
 def check_paged(dev, gen):
-    """The paged kernel against its plain version over fp32, bf16 and int8
-    pages, page_len 16 and 128, d 64, 80, 96, 128 and 256, ALiBi on and off,
-    lengths 0, 1, ragged, at the chunk boundaries and a full table, with
-    NaN in every unreadable position; with fp32 and bf16 pages also
-    bit-equal to the decode kernel over the same tokens."""
+    """The paged kernel against its plain version in fp32, bf16 and fp16
+    compute over pages of the compute dtype and int8 pages, page_len 16
+    and 128, d 64, 80, 96, 128 and 256, ALiBi on and off, lengths 0, 1,
+    ragged, at the chunk boundaries and a full table, with NaN in every
+    unreadable position; with float pages also bit-equal to the decode
+    kernel over the same tokens."""
     from deepspeed_tpu_torch.models.layers import alibi_slopes
     from deepspeed_tpu_torch.ops.paged_attention import (
         HEAD_DIMS, paged_attention, paged_attention_reference)
     gate = Gate("paged")
     lengths = [0, 1, 77, 1024, 500, 333, 1000, 128, *boundary_lengths(1024)]
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for quant in (False, True):
             for page_len in (16, 128):
                 for d in HEAD_DIMS:
@@ -591,7 +616,7 @@ def check_paged(dev, gen):
                                              lengths, page_len, slopes)
     gate.close()
     log("  paged: bit-equal to the decode kernel over the same tokens "
-        "(fp32 and bf16 pages, every case)")
+        "(fp32, bf16 and fp16 pages, every case)")
 
 
 def _paged_is_decode(q, kn, vn, k, v, table, lens, lengths, page_len,
@@ -621,25 +646,30 @@ def _paged_is_decode(q, kn, vn, k, v, table, lens, lengths, page_len,
 
 def check_repeat(dev, gen, launches=20):
     """``launches`` launches each of the decode kernel and the paged kernel
-    (bf16 and int8 pages) at rows of 4 to 8 live chunks, every output
-    kept alive and bit-equal to the first: the merging chunk reads the
-    partials only after the row's counter says they are written, and
-    leaves the counter at 0 for the next launch."""
+    (pages of the compute dtype and int8 pages), bf16 and fp16, at rows
+    of 4 to 8 live chunks, every output kept alive and bit-equal to the
+    first: the merging chunk reads the partials only after the row's
+    counter says they are written, and leaves the counter at 0 for the
+    next launch."""
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
     from deepspeed_tpu_torch.ops.decode_split import CHUNK
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
-    B, H, S, d, dt = 8, 12, 1024, 64, torch.bfloat16
+    B, H, S, d = 8, 12, 1024, 64
     lengths = [3 * CHUNK + 1 + 80 * i for i in range(B)]
-    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dt)
-               for shape in ((B, 1, H, d), (B, H, S, d), (B, H, S, d)))
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    runs = {"decode": lambda: decode_attention(q, k, v, lens)}
-    for quant in (False, True):
-        qp, kn, vn, kp, vp, ks, vs, table, plens = _paged_case(
-            dev, gen, dt, quant, 128, d, lengths, B=B)
-        runs[f"paged ({'int8' if quant else 'bf16'} pages)"] = (
-            lambda a=(qp, kp, vp, table, plens, kn, vn), kw=dict(
-                k_scale=ks, v_scale=vs): paged_attention(*a, **kw))
+    runs = {}
+    for dt in (torch.bfloat16, torch.float16):
+        name = str(dt)[6:]
+        q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dt)
+                   for shape in ((B, 1, H, d), (B, H, S, d), (B, H, S, d)))
+        runs[f"decode {name}"] = (
+            lambda a=(q, k, v, lens): decode_attention(*a))
+        for quant in (False, True):
+            qp, kn, vn, kp, vp, ks, vs, table, plens = _paged_case(
+                dev, gen, dt, quant, 128, d, lengths, B=B)
+            runs[f"paged {name} ({'int8' if quant else name} pages)"] = (
+                lambda a=(qp, kp, vp, table, plens, kn, vn), kw=dict(
+                    k_scale=ks, v_scale=vs): paged_attention(*a, **kw))
     for name, fn in runs.items():
         outs = [fn() for _ in range(launches)]
         torch.cuda.synchronize()
@@ -656,20 +686,21 @@ def check_repeat(dev, gen, launches=20):
 def check_int8(dev, gen):
     """Both int8 kernels against the plain version over m 1, 8, 16, 256,
     1000, the four GPT-2 125M weight shapes and a ragged k (200: neither
-    a whole segment nor a whole 16-row step), fp32 and bf16 x, and over
-    Pythia-1.4B's and GPT-J-6B's five matrices (GPT-J's head: n 50400,
-    not a multiple of 64) at m 1, 16 and 256, bf16 x; and the
-    summation order, bit for bit: rows of an m = 16 call (small-m kernel)
-    and of an m = 1 call equal the same rows of an m = 1000 call (tiled),
-    rows 5..20 of the m = 1000 call equal an m = 16 call on those rows (so
-    each row sits elsewhere in its 16-row tile), and (bf16) the tiled
-    kernel's m = 256 and m = 1000 calls give the same bits with the k
-    segments split over CTAs as in one CTA a tile."""
+    a whole segment nor a whole 16-row step), fp32, bf16 and fp16 x, and
+    over Pythia-1.4B's and GPT-J-6B's five matrices (GPT-J's head: n
+    50400, not a multiple of 64) at m 1, 16 and 256, bf16 and fp16 x; and
+    the summation order, bit for bit: rows of an m = 16 call (small-m
+    kernel) and of an m = 1 call equal the same rows of an m = 1000 call
+    (tiled), rows 5..20 of the m = 1000 call equal an m = 16 call on
+    those rows (so each row sits elsewhere in its 16-row tile), and
+    (16-bit x) the tiled kernel's m = 256 and m = 1000 calls give the
+    same bits with the k segments split over CTAs as in one CTA a
+    tile."""
     from deepspeed_tpu_torch.ops.wo_int8_matmul import (
         SEG, _launch, tiled_splits, wo_int8_matmul, wo_int8_matmul_reference)
     gate = Gate("wo_int8")
     splits_seen = set()
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for k, n in GPT2_WEIGHTS + INT8_RAGGED:
             q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                               dtype=torch.int8)
@@ -682,7 +713,7 @@ def check_int8(dev, gen):
                 torch.cuda.synchronize()
                 gate.case(dtype, [outs[m]], [ref],
                           f"k={k:4d} n={n:4d} m={m:4d}",
-                          show=m in (16, 256) and dtype == torch.bfloat16)
+                          show=m in (16, 256) and dtype != torch.float32)
             window = wo_int8_matmul(x[5:21], q, scale)
             if not (torch.equal(outs[16], outs[1000][:16])
                     and torch.equal(outs[1], outs[1000][:1])
@@ -692,7 +723,7 @@ def check_int8(dev, gen):
                     f"wo_int8_matmul k={k} n={n} {dtype}: a row's result "
                     "depends on m or on its place in the batch (the "
                     "kernels' summation orders differ)")
-            if dtype != torch.bfloat16:
+            if dtype == torch.float32:
                 continue
             for m in (256, 1000):
                 segs = -(-k // SEG)
@@ -702,44 +733,47 @@ def check_int8(dev, gen):
                 splits_seen.update(s for s in runs if s > 1)
                 if not all(torch.equal(y, outs[m]) for y in runs.values()):
                     raise AssertionError(
-                        f"wo_int8_matmul k={k} n={n} m={m} bf16: the tiled "
-                        f"kernel's bits depend on the k split ({sorted(runs)} "
-                        "CTAs along k)")
-    # phase 11c's shapes: Pythia-1.4B's five int8 matrices (the untied
-    # head too) at m 1 (generate()), 16 (a decode step of 16 slots) and
-    # 256 (a prefill chunk), bf16 x, and GPT-J-6B's; their own generator
-    # leaves the later checks' inputs as they were
+                        f"wo_int8_matmul k={k} n={n} m={m} {dtype}: the "
+                        f"tiled kernel's bits depend on the k split "
+                        f"({sorted(runs)} CTAs along k)")
+    # phase 11c's and 14b's shapes: Pythia-1.4B's five int8 matrices (the
+    # untied head too) at m 1 (generate()), 16 (a decode step of 16 slots)
+    # and 256 (a prefill chunk), bf16 and fp16 x, and GPT-J-6B's; their
+    # own generator leaves the later checks' inputs as they were
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     for model, (k, n) in [("Pythia-1.4B", w) for w in pythia_int8_weights()] \
             + [("GPT-J-6B", w) for w in gptj_int8_weights()]:
         q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                           dtype=torch.int8)
         scale = torch.rand(1, n, generator=gen, device=dev) * 0.01
-        x = torch.randn(256, k, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        outs = {}
-        for m in (1, 16, 256):
-            outs[m] = wo_int8_matmul(x[:m], q, scale)
-            ref = wo_int8_matmul_reference(x[:m], q, scale)
-            torch.cuda.synchronize()
-            gate.case(torch.bfloat16, [outs[m]], [ref],
-                      f"{model} k={k:5d} n={n:5d} m={m:3d}",
-                      show=m != 1)
-        segs = -(-k // SEG)
-        runs = {s: _launch(x, q, scale, torch.bfloat16, splits=s)
-                for s in sorted({1, segs, tiled_splits(256, k, n)})}
-        splits_seen.update(s for s in runs if s > 1)
-        if not (torch.equal(outs[1], outs[256][:1])
-                and torch.equal(outs[16], outs[256][:16])
-                and all(torch.equal(y, outs[256]) for y in runs.values())):
-            raise AssertionError(
-                f"wo_int8_matmul {model} k={k} n={n} bf16: a row's "
-                "result depends on m or on the k split")
-        del q, x, outs, runs
+        x32 = torch.randn(256, k, generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float16):
+            x = x32.to(dtype)
+            outs = {}
+            for m in (1, 16, 256):
+                outs[m] = wo_int8_matmul(x[:m], q, scale)
+                ref = wo_int8_matmul_reference(x[:m], q, scale)
+                torch.cuda.synchronize()
+                gate.case(dtype, [outs[m]], [ref],
+                          f"{model} k={k:5d} n={n:5d} m={m:3d}",
+                          show=m != 1)
+            segs = -(-k // SEG)
+            runs = {s: _launch(x, q, scale, dtype, splits=s)
+                    for s in sorted({1, segs, tiled_splits(256, k, n)})}
+            splits_seen.update(s for s in runs if s > 1)
+            if not (torch.equal(outs[1], outs[256][:1])
+                    and torch.equal(outs[16], outs[256][:16])
+                    and all(torch.equal(y, outs[256])
+                            for y in runs.values())):
+                raise AssertionError(
+                    f"wo_int8_matmul {model} k={k} n={n} {dtype}: a row's "
+                    "result depends on m or on the k split")
+            del x, outs, runs
+        del q, x32
     gate.close()
     log("  wo_int8: rows of m = 1, 16, 256 and 1000 calls and rows 5..20 "
         "bit-equal (one summation order in both kernels, fp32 FMAs and "
-        "bf16 mma.sync); bf16 tiled bit-equal split over "
+        "bf16 and fp16 mma.sync); bf16 and fp16 tiled bit-equal split over "
         f"{sorted(splits_seen)} CTAs along k and unsplit (GPT-2 125M's, "
         "Pythia-1.4B's and GPT-J-6B's matrices)")
 
@@ -825,15 +859,14 @@ def time_paged(dev, gen, quant, d=64, H=12, dt=torch.bfloat16):
                 bound_ms=bound, bound_by=by, max_abs_err=err)
 
 
-def time_int8(dev, gen, m):
+def time_int8(dev, gen, m, dt=torch.bfloat16):
     """One layer's four GPT-2 125M matrices at ``m`` rows (16: a decode
     step of phase 6's slot batch, the small-m kernel; 256: a prefill
-    chunk, the tiled kernel), bf16 x. Library: dequantize + torch.matmul;
-    also the bf16 torch.matmul with the dense weight alone."""
+    chunk, the tiled kernel), bf16 (or fp16) x. Library: dequantize +
+    torch.matmul; also the torch.matmul with the dense weight alone."""
     from deepspeed_tpu_torch.ops.wo_int8_matmul import (
         SMALL_M, _launch, tiled_splits, wo_int8_matmul,
         wo_int8_matmul_reference)
-    dt = torch.bfloat16
     mats = []
     for k, n in GPT2_WEIGHTS:
         q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
@@ -860,9 +893,10 @@ def time_int8(dev, gen, m):
              "; k split over " + "/".join(str(tiled_splits(m, k, n))
                                           for k, n in GPT2_WEIGHTS)
              + f" CTAs, unsplit {unsplit:.4f} ms")
+    name = str(dt)[6:]
     return dict(shape=f"m={m}, one layer's four matrices "
-                "768x2304, 768x768, 768x3072, 3072x768, bf16 x; library = "
-                f"dequantize + matmul; dense bf16 matmul {dense:.4f} ms"
+                f"768x2304, 768x768, 768x3072, 3072x768, {name} x; library "
+                f"= dequantize + matmul; dense {name} matmul {dense:.4f} ms"
                 + split, ms=kernel, plain_ms=plain, library_ms=library,
                 dense_matmul_ms=dense, bound_ms=bound, bound_by=by,
                 max_abs_err=err,
@@ -2241,6 +2275,12 @@ def bf16_ulp(x):
                    - 7)
 
 
+def fp16_ulp(x):
+    """The fp16 spacing at |x| (11 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -14)))
+                   - 10)
+
+
 def phase_fp32(model_fp32, prompts, outs, config,
                label="phase 4a: fp32 serving"):
     from deepspeed_tpu_torch import init_inference
@@ -2535,6 +2575,7 @@ def device_profile(name, fn, wall, card, iters=10, grad=False):
         log(f"    LayerNorm kernels {sum(ln.values()) / iters / 1e3:.4f} ms "
             "per call: " + ", ".join(f"{k} {v / iters / 1e3:.4f}"
                                      for k, v in sorted(ln.items())))
+    return busy_ms
 
 
 def phase_cpu_parity(model_fp32):
@@ -2794,7 +2835,8 @@ def serve_paged(engine, prompts, outs, config):
 
 
 def check_against_generate(engine, reqs, prompts, outs, gap_stop, what,
-                           first_token_only=False, first_tie_ulps=0):
+                           first_token_only=False, first_tie_ulps=0,
+                           ulp=bf16_ulp):
     """Every request token-exact against ``engine.generate()`` up to its
     first near-tie step (reference top-2 logit gap < ``gap_stop``). With
     ``first_token_only`` (bf16 serving, exempt from that rule: cuBLAS
@@ -2803,9 +2845,11 @@ def check_against_generate(engine, reqs, prompts, outs, gap_stop, what,
     and the rest is classified. ``first_tie_ulps`` (11a's 24 bf16 layers,
     whose prefill GEMMs also round by m: chunks of 256 against the whole
     prompt) exempts a first token whose reference top-2 gap is at most
-    that many bf16 ulps of the top logit. Every request that differs is
-    logged with its first differing step and the reference gap there
-    before the phase fails. Returns the share of tokens that agree."""
+    that many ulps of the top logit (``ulp``: ``bf16_ulp`` or
+    ``fp16_ulp``). Every request that differs is logged with its first
+    differing step and the reference gap there before the phase fails.
+    Returns the share of tokens that agree."""
+    unit = ulp.__name__[:4]
     stops = compared = agree = 0
     early, bad, tied = [], [], []
     for i, (req, p, o) in enumerate(zip(reqs, prompts, outs)):
@@ -2829,7 +2873,7 @@ def check_against_generate(engine, reqs, prompts, outs, gap_stop, what,
             if j < upto:
                 early.append(i)
             if (first_tie_ulps and j == 0
-                    and gaps[0] <= first_tie_ulps * bf16_ulp(tops[0])):
+                    and gaps[0] <= first_tie_ulps * ulp(tops[0])):
                 tied.append(i)
             elif (j == 0) if first_token_only else (j < upto):
                 bad.append(i)
@@ -2841,7 +2885,7 @@ def check_against_generate(engine, reqs, prompts, outs, gap_stop, what,
             f"; first tokens {len(reqs) - len(bad) - len(tied)}/{len(reqs)} "
             f"exact (the gate; requests {early} differ before a near tie, "
             f"exempt" + (f"; requests {tied} in the first token at a "
-                         f"reference gap <= {first_tie_ulps} bf16 ulps of "
+                         f"reference gap <= {first_tie_ulps} {unit} ulps of "
                          "the top logit, exempt" if first_tie_ulps else "")
             + ")" if first_token_only else ""))
     if bad:
@@ -4474,6 +4518,11 @@ CACHE_STEPS = 8             # 11b: decode steps against the cache-free forward
 # reference top-2 gap is within this many bf16 ulps of the top logit
 # (the chip runs' first tokens: one of 24 requests, at 2 ulps)
 BF16_TIE_ULPS = 2
+# 14a, 14c: the same rule in fp16 ulps. The dense GEMMs still round a
+# row by the batch's m, by a few output ulps, and an fp16 ulp is 8x finer
+# than a bf16 one: 4 fp16 ulps is half a bf16 ulp, still below 11a's 2
+# bf16 ulps in absolute terms
+FP16_TIE_ULPS = 4
 BERT_BASE = (768, 12)       # 11e: BERT-base's width and heads
 
 
@@ -4531,18 +4580,11 @@ def _ln_key(key):
     return "layernorm" in key or "layer_norm" in key
 
 
-def load_written_checkpoint(card, tmp, ns, written, phase):
+def write_checkpoint(tmp, ns, written):
     """The model of the configuration ``ns`` drawn from SEED, exported to
-    HuggingFace's layout in fp16, written to ``tmp`` as a sharded torch
-    checkpoint beside its config.json (the non-default fields
-    ``written``), loaded through ``init_inference(config, checkpoint=dir,
-    replace_with_kernel_inject=True, dtype=bf16)``: the checkpoint must
-    read back bit-equal and the model hold its bf16 rounding (LayerNorms
-    fp32). Returns (engine, load seconds, parameter bytes on the card)."""
-    from deepspeed_tpu_torch import init_inference
+    HuggingFace's layout in fp16 and written to ``tmp`` as a sharded torch
+    checkpoint beside its config.json; returns the fp16 tensors."""
     from deepspeed_tpu_torch.module_inject import export_hf_state_dict
-    from deepspeed_tpu_torch.module_inject.load_checkpoint import \
-        load_state_dict_from_checkpoint
     t0 = time.perf_counter()
     model, cfg = draw_model(ns, torch.bfloat16)
     t1 = time.perf_counter()
@@ -4555,6 +4597,22 @@ def load_written_checkpoint(card, tmp, ns, written, phase):
     log(f"  drew the model in {t1 - t0:.1f} s; exported and wrote "
         f"{len(fp16)} fp16 tensors, {nbytes} bytes in 2 shards in "
         f"{t2 - t1:.1f} s")
+    return fp16
+
+
+def load_written_checkpoint(card, tmp, ns, written, phase):
+    """The model of the configuration ``ns`` drawn from SEED, exported to
+    HuggingFace's layout in fp16, written to ``tmp`` as a sharded torch
+    checkpoint beside its config.json (the non-default fields
+    ``written``), loaded through ``init_inference(config, checkpoint=dir,
+    replace_with_kernel_inject=True, dtype=bf16)``: the checkpoint must
+    read back bit-equal and the model hold its bf16 rounding (LayerNorms
+    fp32). Returns (engine, load seconds, parameter bytes on the card)."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.module_inject import export_hf_state_dict
+    from deepspeed_tpu_torch.module_inject.load_checkpoint import \
+        load_state_dict_from_checkpoint
+    fp16 = write_checkpoint(tmp, ns, written)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -4588,22 +4646,26 @@ def load_written_checkpoint(card, tmp, ns, written, phase):
 
 
 def serve_injected(engine, card, phase, profile=False):
-    """Phase 6's trace served paged on an injected bf16 engine, launch
-    counts exact; first tokens against ``generate()`` (the
-    ``BF16_TIE_ULPS`` rule, the rest classified), with the decode
-    launches of those ``generate()`` calls exact; tokens/s, KV pool bytes
-    and the paged decode wall ms at 16 slots. Returns (launch counts,
+    """Phase 6's trace served paged on an injected bf16 (or fp16) engine,
+    launch counts exact; first tokens against ``generate()`` (the
+    ``BF16_TIE_ULPS`` rule, fp16: ``FP16_TIE_ULPS``; the rest
+    classified), with the decode launches of those ``generate()`` calls
+    exact; tokens/s, KV pool bytes and the paged decode wall ms at 16
+    slots (``profile``: and its device busy ms). Returns (launch counts,
     readings, the served tokens)."""
     from deepspeed_tpu_torch.ops import decode_attention
     cfg = engine.module.config
+    fp16 = cfg.dtype == torch.float16
     prompts, outs = paged_traffic(cfg.vocab_size)
     reqs, srv, counts, wall = serve_paged(engine, prompts, outs,
                                           PAGED_CONFIG)
     torch.cuda.synchronize()
     decode_attention.launches = 0
-    agree = check_against_generate(engine, reqs, prompts, outs, GAP_STOP,
-                                   f"{phase} bf16", first_token_only=True,
-                                   first_tie_ulps=BF16_TIE_ULPS)
+    agree = check_against_generate(
+        engine, reqs, prompts, outs, GAP_STOP,
+        f"{phase} {str(cfg.dtype)[6:]}", first_token_only=True,
+        first_tie_ulps=FP16_TIE_ULPS if fp16 else BF16_TIE_ULPS,
+        ulp=fp16_ulp if fp16 else bf16_ulp)
     torch.cuda.synchronize()
     counts["generate_decode_attention"] = decode_attention.launches
     want = cfg.n_layers * sum(o - 1 for o in outs)
@@ -4624,10 +4686,11 @@ def serve_injected(engine, card, phase, profile=False):
     decode = wall_ms(run_decode, iters=20)
     log(f"  paged decode wall ms per iteration (16 slots): {decode:.3f} "
         f"[{card}]")
-    if profile:
-        device_profile(f"{phase} paged decode", run_decode, decode, card)
+    busy = (device_profile(f"{phase} paged decode", run_decode, decode, card)
+            if profile else None)
     return counts, {"tokens_per_s": tokens / wall, "decode_wall_ms": decode,
-                    "pool_bytes": pool, "generate_agreement": agree}, [
+                    "pool_bytes": pool, "generate_agreement": agree,
+                    "decode_busy_ms": busy}, [
                         list(r.output_tokens) for r in reqs]
 
 
@@ -4988,11 +5051,15 @@ def phase_bert_sparse_hf(card):
     return {"block_sparse_attention_fwd": launches}
 
 
-def phase_inject(card, profile=False):
-    """Phase 11; returns the launch counts of its serving runs."""
+def phase_inject(card, profile=False, ckpt_dir=None):
+    """Phase 11; returns the launch counts of its serving runs. 11a's
+    checkpoint is written to ``ckpt_dir`` when given (phase 14a serves
+    it in fp16), else to a directory deleted after 11a."""
+    import contextlib
     import tempfile
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(ckpt_dir) if ckpt_dir else
+          tempfile.TemporaryDirectory()) as tmp:
         engine, counts_a, serve = phase_inject_serve(card, tmp, profile)
     t1 = time.perf_counter()
     counts_c = phase_inject_int8(engine, card)
@@ -5022,7 +5089,11 @@ GPTJ_6B = {
     "n_head": 16, "rotary_dim": 64, "n_inner": None,
     "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
     "tie_word_embeddings": False, "torch_dtype": "float16"}
-GPTJ_LAYERS = 28          # 12a serves full depth, weights drawn by the policy
+# 12a serves 14 of the 28 layers, weights drawn by the policy: at 28 the
+# whole script took 842 s of its 1,200 s limit with phase 14 (NVIDIA H100
+# 80GB HBM3, 700 W), and the host-bound phases run ~45% slower on a
+# slower host
+GPTJ_LAYERS = 14
 # 12a's checkpoint round trip, at full width: 28 layers through the fp32
 # host loader would take ~8 minutes and 70-90 GB of host memory
 GPTJ_CKPT_LAYERS = 4
@@ -5351,6 +5422,196 @@ def phase_gptj_train(card, defaults, profile=False):
 
 
 # --------------------------------------------------------------------------
+# phase 14: serving in fp16 (the serving kernels' fp16 instances)
+# --------------------------------------------------------------------------
+
+GPTJ_FP16_SERVE_LAYERS = 2    # 14c: GPT-J-6B's widths in fp16, 2 layers
+
+
+def _is_ln(name):
+    return ".ln_" in name or name.startswith("ln_f")
+
+
+def phase_fp16_serve_pythia(card, ckpt_dir):
+    """14a: Pythia-1.4B's fp16 HuggingFace checkpoint in ``ckpt_dir``
+    (phase 11a's, or written here as 11a writes it) loaded through
+    ``init_inference(config, checkpoint=dir, replace_with_kernel_inject=
+    True, dtype=torch.float16)``: every served weight is the checkpoint's
+    fp16 tensor bit for bit (LayerNorms widened to fp32, which is exact);
+    served paged (``serve_injected``: phase 6's trace, launch counts of
+    the fp16 flash, paged and decode instances exact, first tokens by the
+    ``FP16_TIE_ULPS`` rule) with the decode iteration's device profile.
+    Returns (engine, launch counts, readings)."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.module_inject import (export_hf_state_dict,
+                                                   read_hf_config)
+    from deepspeed_tpu_torch.module_inject.load_checkpoint import \
+        load_state_dict_from_checkpoint
+    log(f"phase 14a: Pythia-1.4B ({PYTHIA_LAYERS} layers) served in fp16 "
+        "from its own fp16 checkpoint")
+    if torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction:
+        raise AssertionError("14a: fp16 GEMM reductions are not in fp32")
+    if os.path.exists(os.path.join(ckpt_dir, "config.json")):
+        ns = read_hf_config(ckpt_dir)
+        log(f"  phase 11a's fp16 checkpoint ({ns.num_hidden_layers} layers)")
+    else:
+        ns, written = pythia_dir(ckpt_dir, PYTHIA_LAYERS)
+        write_checkpoint(ckpt_dir, ns, written)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = init_inference(ns, checkpoint=ckpt_dir,
+                            replace_with_kernel_inject=True,
+                            dtype=torch.float16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    log(f"  init_inference(config, checkpoint=dir, replace_with_kernel_"
+        f"inject=True, dtype=fp16): {load_s:.1f} s; {n_params} parameters, "
+        f"torch.cuda.memory_allocated() {held} bytes after the load [{card}]")
+    icfg = engine.module.config
+    wrong = [n for n, p in engine.module.named_parameters()
+             if p.dtype != (torch.float32 if _is_ln(n) else torch.float16)]
+    if not (engine.injected and icfg.rotary and icfg.dtype == torch.float16
+            and icfg.n_layers == PYTHIA_LAYERS) or wrong:
+        raise AssertionError(f"14a: not the injected fp16 Pythia-1.4B "
+                             f"(parameters of another dtype: {wrong[:5]})")
+    # the reader widens fp16 to fp32 exactly; the served weights, exported,
+    # are the same fp16 bits
+    read = load_state_dict_from_checkpoint(ckpt_dir)
+    back = export_hf_state_dict(ns.model_type, engine.module, icfg)
+
+    def bits(a):
+        h = np.asarray(a).astype(np.float16)
+        if not np.array_equal(h.astype(np.float32), a):
+            return None                      # not an fp16 value
+        return h.view(np.uint16)
+    bad = [k for k in read if k not in back or bits(back[k]) is None
+           or not np.array_equal(bits(back[k]), bits(read[k]))]
+    log(f"  the served model's weights bit-equal to the checkpoint's fp16 "
+        f"tensors: {len(read) - len(bad)}/{len(read)} (every non-LayerNorm "
+        f"parameter held in fp16, LayerNorms in fp32)")
+    if bad or set(back) != set(read):
+        raise AssertionError(f"14a: served weights differ from the fp16 "
+                             f"checkpoint: {bad[:5]}")
+    del read, back
+    counts, readings, _ = serve_injected(engine, card, "14a", profile=True)
+    readings.update(load_s=load_s, param_bytes=held,
+                    host_peak_rss=host_peak_rss())
+    return engine, counts, readings
+
+
+def phase_fp16_serve_int8(engine, card):
+    """14b: the same model with int8 weights and int8 KV pages under fp16
+    compute, served paged: launch counts exact (``serve_paged``: the int8
+    matmuls 4 x n_layers + 1 a program, the untied head too); one decode
+    step's logits over the int8 pool within ``INT8_KV_LOGIT_ERR`` of the
+    fp16 pool's; every served token's deficit against the int8-weight
+    model's cache-free fp16 forward below ``2 * INT8_KV_LOGIT_ERR`` (12c's
+    gate). Returns (launch counts, readings)."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.module_inject.module_quantize import \
+        quantized_nbytes
+    log("phase 14b: the fp16 model with int8 weights and int8 KV pages, "
+        "served paged")
+    engine_int8 = init_inference(engine.module, quantize_weights=True)
+    model = engine_int8.module
+    prompts, outs = paged_traffic(model.config.vocab_size)
+    config = {**PAGED_CONFIG, "quantize": {"weights": "int8", "kv": "int8"}}
+    reqs, srv, counts, wall = serve_paged(engine_int8, prompts, outs, config)
+    if srv.module is not model or model.config.dtype != torch.float16:
+        raise AssertionError("14b: the server re-quantized the model or "
+                             "left fp16")
+    nb = quantized_nbytes(model)
+    err = decode_logit_err(model, prompts[0])
+    deficit = served_deficits(model, prompts,
+                              [r.output_tokens for r in reqs], outs)
+    tokens = srv.metrics.tokens_generated
+    log(f"  weights {nb['quantized']} bytes int8 against "
+        f"{nb['dense_equivalent']} fp16-equivalent; KV pool "
+        f"{srv._paged.pool_bytes()} bytes (int8 pages + fp32 scales); one "
+        f"decode step's logit max abs err against the fp16 pool {err:.4f} "
+        f"(gate < {INT8_KV_LOGIT_ERR}); served tokens' deficit against the "
+        f"int8 model's cache-free fp16 forward: max {deficit.max():.4f}, "
+        f"mean {deficit.mean():.4f} over {deficit.size} tokens (gate < "
+        f"{2 * INT8_KV_LOGIT_ERR}); {tokens} tokens in {wall:.3f} s, "
+        f"{tokens / wall:.1f} tokens/s [{card}]")
+    if not err < INT8_KV_LOGIT_ERR:
+        raise AssertionError("14b: int8 KV pages outside the bounded-error "
+                             "rung")
+    if not deficit.max() < 2 * INT8_KV_LOGIT_ERR:
+        worst = int(deficit.argmax())
+        raise AssertionError(f"14b: served token {worst} (of all requests' "
+                             f"tokens in order) is {deficit[worst]:.4f} "
+                             "below the reference's top logit")
+    return counts, {"tokens_per_s": tokens / wall, "logit_err": err,
+                    "max_deficit": float(deficit.max())}
+
+
+def phase_fp16_serve_gptj(card):
+    """14c: GPT-J-6B's config at full width and
+    ``GPTJ_FP16_SERVE_LAYERS`` layers, weights the policy draws from SEED,
+    ``init_inference(config, replace_with_kernel_inject=True,
+    dtype=torch.float16)``, served paged through the head-dim-256 fp16
+    instances (``serve_injected``: exact counts, 14a's first-token rule).
+    Returns (launch counts, readings)."""
+    import tempfile
+    from deepspeed_tpu_torch import init_inference
+    log(f"phase 14c: GPT-J-6B (16 heads of 256) at {GPTJ_FP16_SERVE_LAYERS} "
+        "layers served paged in fp16")
+    with tempfile.TemporaryDirectory() as tmp:
+        ns, _ = gptj_dir(tmp, GPTJ_FP16_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    engine = init_inference(ns, replace_with_kernel_inject=True,
+                            dtype=torch.float16)
+    torch.cuda.synchronize()
+    cfg = engine.module.config
+    log(f"  init_inference(config, replace_with_kernel_inject=True, "
+        f"dtype=fp16), weights drawn by the policy: "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in engine.module.parameters())} parameters")
+    if not (cfg.head_dim == 256 and cfg.dtype == torch.float16
+            and cfg.d_model == GPTJ_6B["n_embd"]
+            and cfg.n_layers == GPTJ_FP16_SERVE_LAYERS):
+        raise AssertionError("14c: not GPT-J-6B's widths in fp16")
+    counts, readings, _ = serve_injected(engine, card, "14c")
+    return counts, readings
+
+
+def phase_fp16_serve(card, ckpt_dir=None):
+    """Phase 14; ``ckpt_dir``: phase 11a's checkpoint (a full run), else a
+    directory it is written to and deleted after 14a. Returns the launch
+    counts of its runs and their readings."""
+    import contextlib
+    import tempfile
+    t0 = time.perf_counter()
+    with (contextlib.nullcontext(ckpt_dir) if ckpt_dir else
+          tempfile.TemporaryDirectory()) as tmp:
+        engine, counts_a, serve = phase_fp16_serve_pythia(card, tmp)
+    t1 = time.perf_counter()
+    counts_b, int8 = phase_fp16_serve_int8(engine, card)
+    del engine
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    counts_c, gptj = phase_fp16_serve_gptj(card)
+    torch.cuda.empty_cache()
+    r = serve
+    idle = 1 - r["decode_busy_ms"] / r["decode_wall_ms"]
+    log(f"phase 14a: {r['tokens_per_s']:.1f} tokens/s, paged decode "
+        f"{r['decode_wall_ms']:.3f} ms an iteration (device busy "
+        f"{r['decode_busy_ms']:.4f} ms, {100 * idle:.1f}% idle), "
+        f"{r['param_bytes']} bytes of parameters on the card, loaded in "
+        f"{r['load_s']:.1f} s; 14b {int8['tokens_per_s']:.1f} tokens/s; 14c "
+        f"{gptj['tokens_per_s']:.1f} tokens/s, paged decode "
+        f"{gptj['decode_wall_ms']:.3f} ms an iteration [{card}]")
+    log(f"  phase 14 wall: 14a {t1 - t0:.1f} s, 14b {t2 - t1:.1f} s, 14c "
+        f"{time.perf_counter() - t2:.1f} s")
+    return {"14a": counts_a, "14b": counts_b, "14c": counts_c,
+            "serve": serve}
+
+
+# --------------------------------------------------------------------------
 # planted faults: each edits a copy of the kernel sources and must fail
 # ``--checks-only`` there
 # --------------------------------------------------------------------------
@@ -5596,6 +5857,35 @@ PLANTED_FAULTS = (
        "    load_tile_f32<D, BK, NT>(Ks, kb",
        "  for (int kt = 0; kt + 1 < nkb; ++kt) {\n    const int k0 = kt * BK;\n"
        "    load_tile_f32<D, BK, NT>(Ks, kb"),), "--checks-only"),
+    # the serving kernels' fp16 instances (phase 14's), each caught by
+    # phase 3's fp16 checks: ``--planted-faults fp16-serving``
+    ("fp16-serving: an fp16 pool read through the int8-page instance (the "
+     "page code of int8 pages equal to fp16's)", "paged_attention.cu",
+     (("  DS_PAGED_DIMS(f16, f16, 2, 2)\n",
+       "  DS_PAGED_DIMS(f16, int8_t, 2, 2)\n"),), "--checks-only"),
+    ("fp16-serving: int8 B fragments packed as bf16 for fp16 x",
+     "wo_int8_matmul.cu",
+     (("    b[j][0] = pack_rn<T>(f[0], f[1]);",
+       "    b[j][0] = pack_bf16_rn(f[0], f[1]);"),
+      ("    b[j][1] = pack_rn<T>(f[2], f[3]);",
+       "    b[j][1] = pack_bf16_rn(f[2], f[3]);")), "--checks-only"),
+    ("fp16-serving: a decode instance stores bf16 bits into its fp16 output",
+     "decode_split.cuh",
+     (("namespace split {\n",
+       "namespace split {\n"
+       "template <typename T>\n"
+       "__device__ __forceinline__ T store_bf16_bits(float x) {\n"
+       "  if constexpr (sizeof(T) == 2) {\n"
+       "    const __nv_bfloat16 b = __float2bfloat16(x);\n"
+       "    return *reinterpret_cast<const T*>(&b);\n"
+       "  } else {\n"
+       "    return from_float<T>(x);\n"
+       "  }\n"
+       "}\n"),
+      ("out[c] = from_float<T>(at / lt);",
+       "out[c] = store_bf16_bits<T>(at / lt);"),
+      ("out[cc] = from_float<T>(asum / lsum);",
+       "out[cc] = store_bf16_bits<T>(asum / lsum);")), "--checks-only"),
     # phase 12c's served-token gate: a fault that one decode step of one
     # prompt (slot 0, the logit rung's case) never sees
     ("12c: int8 pages at head dim 256 read the previous slot's page-table "
@@ -5733,10 +6023,11 @@ def main():
     with open("/proc/meminfo") as f:
         log(f"  host {f.readline().strip()}, {os.cpu_count()} CPUs")
     defaults = gemm_flags()
-    set_gemm_flags((False, False, False))
+    set_gemm_flags(GEMM_OFF)
     log(f"  GEMM flags {[n for _, n in GEMM_FLAGS]}: torch's defaults "
-        f"{list(defaults)}; off for every phase but 5a, 7a, 8a, 8b and 13a (TF32 "
-        f"off for matmul and cuDNN, bf16 GEMM reductions in fp32)")
+        f"{list(defaults)}; off for every phase but 5a, 7a, 8a, 8b and 13a "
+        f"(TF32 off for matmul and cuDNN, bf16 and fp16 GEMM reductions in "
+        f"fp32)")
 
     if "--planted-faults" in sys.argv[1:]:
         run_planted_faults(rest[0] if rest else None)
@@ -5782,6 +6073,11 @@ def main():
             "injection")
         phase_gptj(card, profile="--profile" in sys.argv[1:])
         log("phase 12 passed (--gptj-only: no other phase, no result)")
+        return 0
+    if "--fp16-serve-only" in sys.argv[1:]:
+        log("phase 14: serving in fp16")
+        phase_fp16_serve(card)
+        log("phase 14 passed (--fp16-serve-only: no other phase, no result)")
         return 0
     if "--gptj-train-only" in sys.argv[1:]:
         log("phase 13: GPT-J-6B's layout (head dim 256) trained")
@@ -5891,6 +6187,27 @@ def main():
     gptj_t = {dt: time_flash_train(dev, gen, **GPTJ_ATTN, rate=0.0,
                                    dtype=dt)
               for dt in (torch.bfloat16, torch.float16, torch.float32)}
+    # phase 14's fp16 instances at the bf16 rows' shapes: decode, paged
+    # (fp16 and int8 pages) and the int8 matmuls at GPT-2's, the flash
+    # forward at a prefill bucket; decode, paged and flash at GPT-J-6B's
+    # d 256 (14c)
+    fp16_t = {
+        "flash_attention_prefill_fp16": time_flash(dev, gen,
+                                                   dt=torch.float16),
+        "decode_attention_fp16": time_decode(dev, gen, dt=torch.float16),
+        "paged_attention_fp16": time_paged(dev, gen, False,
+                                           dt=torch.float16),
+        "paged_attention_int8_fp16": time_paged(dev, gen, True,
+                                                dt=torch.float16),
+        "wo_int8_matmul_small_m_fp16": time_int8(dev, gen, 16,
+                                                 torch.float16),
+        "wo_int8_matmul_fp16": time_int8(dev, gen, 256, torch.float16),
+        "flash_attention_d256_fp16": time_flash(dev, gen, d=256, h=16,
+                                                dt=torch.float16),
+        "decode_attention_d256_fp16": time_decode(dev, gen, d=256, H=16,
+                                                  dt=torch.float16),
+        "paged_attention_d256_fp16": time_paged(dev, gen, False, d=256,
+                                                H=16, dt=torch.float16)}
     for name, t in (("flash_attention (serving prefill)", flash_t),
                     ("decode_attention", decode_t), *train_t.items(),
                     *((f"{k} (fp16)", t) for k, t in fp16_flash_t.items()),
@@ -5903,7 +6220,8 @@ def main():
                       for k, t in sparse_fp32_7a_t.items()),
                     *ds_t.items(), *d256_t.items(),
                     *((f"{k} (d 256, {str(dt)[6:]})", t)
-                      for dt, ts in gptj_t.items() for k, t in ts.items())):
+                      for dt, ts in gptj_t.items() for k, t in ts.items()),
+                    *fp16_t.items()):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
         extra = (f" ({t['impl']}; rate 0: {t['ms_rate0']:.4f} ms)"
@@ -5935,7 +6253,7 @@ def main():
     set_gemm_flags(defaults)
     train_counts, _ = phase_train_bf16(card,
                                        profile="--profile" in sys.argv[1:])
-    set_gemm_flags((False, False, False))
+    set_gemm_flags(GEMM_OFF)
     fp32_train_counts = phase_train_parity()
 
     log("phase 6: GPT-2 125M served from a paged pool (prefix cache, "
@@ -5960,7 +6278,7 @@ def main():
     set_gemm_flags(defaults)
     sparse_counts, _ = phase_sparse_bert_bf16(
         card, profile="--profile" in sys.argv[1:])
-    set_gemm_flags((False, False, False))
+    set_gemm_flags(GEMM_OFF)
     fp32_sparse_counts = phase_sparse_bert_parity()
 
     log("phase 8: a BERT-large stack of DeepSpeedTransformerLayers with "
@@ -5978,7 +6296,7 @@ def main():
         "symmetric) on every matrix")
     phase_ds_bert(card, "moq")
     torch.cuda.empty_cache()
-    set_gemm_flags((False, False, False))
+    set_gemm_flags(GEMM_OFF)
     phase_ds_bert_parity()
 
     log("phase 9: GPT-2 125M through the engine's own loop, checkpoints, "
@@ -5993,7 +6311,11 @@ def main():
     log(f"phase 11: {PYTHIA_LAYERS}-layer Pythia-1.4B served from a "
         "HuggingFace-layout checkpoint through checkpoint injection "
         "(rotary attention, the GPT-NeoX policy)")
-    inject = phase_inject(card, profile="--profile" in sys.argv[1:])
+    import tempfile
+    # 11a's fp16 checkpoint, kept on disk for phase 14a
+    pythia_ckpt = tempfile.TemporaryDirectory()
+    inject = phase_inject(card, profile="--profile" in sys.argv[1:],
+                          ckpt_dir=pythia_ckpt.name)
 
     log("phase 12: GPT-J-6B (d 4096, 16 heads of 256) served through "
         "checkpoint injection: the serving kernels at head dim 256")
@@ -6004,6 +6326,11 @@ def main():
         "dim 256")
     gptj_train = phase_gptj_train(card, defaults,
                                   profile="--profile" in sys.argv[1:])
+
+    log("phase 14: serving in fp16 (Pythia-1.4B from its own fp16 "
+        "checkpoint; int8 weights and KV pages; GPT-J-6B at head dim 256)")
+    fp16_serve = phase_fp16_serve(card, ckpt_dir=pythia_ckpt.name)
+    pythia_ckpt.cleanup()
 
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
@@ -6085,6 +6412,21 @@ def main():
             gptj_t[dt][key]["launches"] = gptj_train[run][key]
             gptj_train_t[name + suffix] = gptj_t[dt][key]
     train_t["fused_adam"]["gptj_launches"] = gptj_train["13a"]["fused_adam"]
+    # phase 14's, each with its counters set to 0 just before: 14a's fp16
+    # paged serving (and the decode launches of its generate()
+    # references), 14b's int8 weights and KV pages, 14c's GPT-J-6B
+    for name, run, key in (
+            ("flash_attention_prefill_fp16", "14a", "flash_attention"),
+            ("decode_attention_fp16", "14a", "generate_decode_attention"),
+            ("paged_attention_fp16", "14a", "paged_attention"),
+            ("paged_attention_int8_fp16", "14b", "paged_attention"),
+            ("wo_int8_matmul_small_m_fp16", "14b", "wo_int8_matmul_small_m"),
+            ("wo_int8_matmul_fp16", "14b", "wo_int8_matmul"),
+            ("flash_attention_d256_fp16", "14c", "flash_attention"),
+            ("decode_attention_d256_fp16", "14c",
+             "generate_decode_attention"),
+            ("paged_attention_d256_fp16", "14c", "paged_attention")):
+        fp16_t[name]["launches"] = fp16_serve[run][key]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
@@ -6198,7 +6540,27 @@ def main():
                + ("" if name.endswith("_fp32") else "_bf16") + ".cu",
                pallas + ("flash_attention.py:773" if "bwd" in name
                          else "flash_attention.py:662"))
-              for name, t in gptj_train_t.items())):
+              for name, t in gptj_train_t.items()),
+            *((name, fp16_t[name], csrc + src, pallas + replaces)
+              for name, src, replaces in (
+                  ("flash_attention_prefill_fp16",
+                   "flash_attention_fwd_bf16.cu", "flash_attention.py:662"),
+                  ("decode_attention_fp16", "decode_attention.cu",
+                   "decode_attention.py:118"),
+                  ("paged_attention_fp16", "paged_attention.cu",
+                   "paged_attention.py:169"),
+                  ("paged_attention_int8_fp16", "paged_attention.cu",
+                   "paged_attention.py:169"),
+                  ("wo_int8_matmul_small_m_fp16", "wo_int8_matmul.cu",
+                   "wo_int8_matmul.py:138"),
+                  ("wo_int8_matmul_fp16", "wo_int8_matmul.cu",
+                   "wo_int8_matmul.py:167"),
+                  ("flash_attention_d256_fp16", "flash_attention_fwd_bf16.cu",
+                   "flash_attention.py:662"),
+                  ("decode_attention_d256_fp16", "decode_attention.cu",
+                   "decode_attention.py:118"),
+                  ("paged_attention_d256_fp16", "paged_attention.cu",
+                   "paged_attention.py:169")))):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": t["launches"],
@@ -6229,7 +6591,8 @@ def main():
     log(f"phase 13a: {r['params']} parameters, step wall "
         f"{r['step_ms']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s, peak "
         f"device memory {r['peak_bytes']} bytes [{card}]")
-    for phase, r in (("11a", inject["serve"]), ("12a", gptj["serve"])):
+    for phase, r in (("11a", inject["serve"]), ("12a", gptj["serve"]),
+                     ("14a", fp16_serve["serve"])):
         log(f"phase {phase}: {r['tokens_per_s']:.1f} tokens/s, paged decode "
             f"{r['decode_wall_ms']:.3f} ms an iteration, {r['param_bytes']} "
             f"bytes of parameters on the card, loaded in {r['load_s']:.1f} "

@@ -18,6 +18,9 @@ from ..ops.paged_attention import HEAD_DIMS as PAGED_HEAD_DIMS
 # decode and paged attention
 SERVING_HEAD_DIMS = tuple(d for d in FWD_HEAD_DIMS
                           if d in DECODE_HEAD_DIMS and d in PAGED_HEAD_DIMS)
+# the compute dtypes every serving kernel has an instance of: the flash
+# forward, decode and paged attention and the int8 matmul
+SERVING_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 class InferenceEngine:
@@ -48,8 +51,10 @@ class InferenceEngine:
     device: None means CUDA (raises without a card); "cpu" runs the
         kernels' plain versions. Keyword only: the port's own argument.
         On CUDA a head dim that a serving kernel does not take
-        (``SERVING_HEAD_DIMS``) raises a ``ValueError`` before any weight
-        is built or moved.
+        (``SERVING_HEAD_DIMS``) raises a ``ValueError``, and a compute
+        dtype that one has no instance of (``SERVING_DTYPES``: fp32,
+        bf16, fp16) a ``TypeError``, before any weight is built or
+        moved.
 
     The positional parameters are the JAX engine's, in its order
     (``deepspeed_tpu/inference/engine.py`` ``InferenceEngine.__init__``).
@@ -95,6 +100,8 @@ class InferenceEngine:
             cfg = model.config
         if self.device.type == "cuda":
             check_head_dim(cfg)
+            check_dtype(dtype if dtype is not None
+                        else getattr(cfg, "dtype", None))
         if inject:
             model, params = replace_transformer_layer(
                 model, params=params, policy=injection_policy,
@@ -173,6 +180,16 @@ def check_head_dim(cfg):
             f"heads): the serving kernels take head dims "
             f"{SERVING_HEAD_DIMS} (device='cpu' runs their plain versions, "
             "which take any)")
+
+
+def check_dtype(dtype):
+    """A ``TypeError`` naming ``dtype`` when a serving kernel has no
+    instance of it (``SERVING_DTYPES``); None (no compute dtype) passes."""
+    if dtype is not None and dtype not in SERVING_DTYPES:
+        raise TypeError(
+            f"compute dtype {dtype}: the serving kernels take "
+            f"{[str(d).replace('torch.', '') for d in SERVING_DTYPES]} "
+            "(device='cpu' runs their plain versions)")
 
 
 def _model_axis(mesh) -> int:

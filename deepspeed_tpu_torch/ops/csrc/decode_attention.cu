@@ -66,8 +66,8 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 80, 96, 128, 256} (the
-// wrapper checks). q is [B, H, d] and k/v [B, H, S, d], all with unit
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (ops/_common.py
+// kernel_dtype_code); d in {64, 80, 96, 128, 256} (the wrapper checks). q is [B, H, d] and k/v [B, H, S, d], all with unit
 // stride along d and the given element strides, k/v with 16-byte aligned
 // rows (they are copied 16 bytes at a time); lengths is int32 [B];
 // slopes is fp32 [H] or nullptr; o is contiguous [B, H, d]. partials
@@ -90,7 +90,6 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
 #define DS_DECODE_ARGS                                                     \
   q, k, v, ln, sl, o, pt, ct, ws_floats, ws_rows, B, H, S, q_sb, q_sh,     \
       k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, st
-  using bf16 = __nv_bfloat16;
   if (dtype == 0 && d == 64) return launch<float, 64>(DS_DECODE_ARGS);
   if (dtype == 0 && d == 80) return launch<float, 80>(DS_DECODE_ARGS);
   if (dtype == 0 && d == 96) return launch<float, 96>(DS_DECODE_ARGS);
@@ -101,6 +100,11 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   if (dtype == 1 && d == 96) return launch<bf16, 96>(DS_DECODE_ARGS);
   if (dtype == 1 && d == 128) return launch<bf16, 128>(DS_DECODE_ARGS);
   if (dtype == 1 && d == 256) return launch<bf16, 256>(DS_DECODE_ARGS);
+  if (dtype == 2 && d == 64) return launch<f16, 64>(DS_DECODE_ARGS);
+  if (dtype == 2 && d == 80) return launch<f16, 80>(DS_DECODE_ARGS);
+  if (dtype == 2 && d == 96) return launch<f16, 96>(DS_DECODE_ARGS);
+  if (dtype == 2 && d == 128) return launch<f16, 128>(DS_DECODE_ARGS);
+  if (dtype == 2 && d == 256) return launch<f16, 256>(DS_DECODE_ARGS);
 #undef DS_DECODE_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -83,6 +83,9 @@ __device__ __forceinline__ float elem_float(float x) { return x; }
 __device__ __forceinline__ float elem_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float elem_float(__half x) {
+  return __half2float(x);
+}
 __device__ __forceinline__ float elem_float(int8_t x) {
   return static_cast<float>(x);
 }

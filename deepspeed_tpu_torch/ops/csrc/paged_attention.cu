@@ -13,8 +13,8 @@
 // cast to q's dtype.
 //
 // Layout (the port's; the TPU kept K^T pages only for Mosaic's lane rule):
-// pool [num_pages, H, page_len, d] per layer (bf16/fp32, or int8 with fp32
-// scale planes [num_pages, H, page_len]); page table [slots, max_pages]
+// pool [num_pages, H, page_len, d] per layer (fp32/bf16/fp16, or int8 with
+// fp32 scale planes [num_pages, H, page_len]); page table [slots, max_pages]
 // int32; lengths [slots] = tokens already in the pool.
 //
 // What bounds it on the H100: every valid pool key and value is read once
@@ -28,8 +28,8 @@
 // j / page_len, clamped to max_pages - 1 as the TPU kernel does (:113), at
 // offset j % page_len, so a chunk may span several pages (and their
 // scales). The current token is key n of the row (n = the slot's pool
-// tokens, at most the table's capacity): with bf16/fp32 pages its K and V
-// rows are copied from k_new / v_new into the chunk's tile like any key,
+// tokens, at most the table's capacity): with float pages its K and V rows
+// are copied from k_new / v_new into the chunk's tile like any key,
 // so the chunks, their order and every operation are decode_attention.cu's
 // for a cache holding the same n + 1 tokens (a token decoded from the pool
 // is the bits of one decoded from a contiguous cache: serving against
@@ -68,7 +68,7 @@ struct PageKeys {
                                 logical];
     return (page * H + h) * page_len + j % page_len;
   }
-  // index -1 is the current token: with bf16/fp32 pages its rows are read
+  // index -1 is the current token: with float pages its rows are read
   // like any key's
   __device__ const P* key(int b, int h, long long tok) const {
     return tok < 0 ? reinterpret_cast<const P*>(cur_key(b, h))
@@ -114,9 +114,12 @@ int launch(const void* q, const void* kn, const void* vn, const void* kp,
 
 }  // namespace
 
-// dtype (of q, k_new, v_new and o): 0 = float32, 1 = bfloat16; page_dtype:
-// the same code as dtype, or 2 = int8 with fp32 scale planes ks/vs
-// (nullptr otherwise); d in {64, 80, 96, 128, 256} (the wrapper checks).
+// dtype (of q, k_new, v_new and o): 0 = float32, 1 = bfloat16, 2 = float16
+// (ops/_common.py kernel_dtype_code); page_dtype: the same code as dtype,
+// or 3 = int8 with fp32 scale planes ks/vs (nullptr otherwise), a code no
+// element dtype uses (ops/paged_attention.py INT8_PAGES), so an fp16 pool
+// never reaches an int8-page instance; d in {64, 80, 96, 128, 256} (the
+// wrapper checks).
 // q, k_new and v_new are [B, H, d] with unit stride along d and the given
 // (slot, head) element strides, k_new/v_new with 16-byte aligned rows
 // (copied like page rows); the pools are
@@ -148,7 +151,6 @@ extern "C" int paged_attention(
   q, kn, vn, kp, vp, ksf, vsf, pt, ln, sl, o, part, ct, ws_floats, ws_rows, \
       B, H, page_len, max_pages, q_sb, q_sh, kn_sb, kn_sh, vn_sb, vn_sh,    \
       scale, st
-  using bf16 = __nv_bfloat16;
 #define DS_PAGED_DIMS(T, P, DT, PT)                                          \
   if (dtype == DT && page_dtype == PT && d == 64)                            \
     return launch<T, P, 64>(DS_PAGED_ARGS);                                  \
@@ -162,8 +164,10 @@ extern "C" int paged_attention(
     return launch<T, P, 256>(DS_PAGED_ARGS);
   DS_PAGED_DIMS(float, float, 0, 0)
   DS_PAGED_DIMS(bf16, bf16, 1, 1)
-  DS_PAGED_DIMS(float, int8_t, 0, 2)
-  DS_PAGED_DIMS(bf16, int8_t, 1, 2)
+  DS_PAGED_DIMS(f16, f16, 2, 2)
+  DS_PAGED_DIMS(float, int8_t, 0, 3)
+  DS_PAGED_DIMS(bf16, int8_t, 1, 3)
+  DS_PAGED_DIMS(f16, int8_t, 2, 3)
 #undef DS_PAGED_DIMS
 #undef DS_PAGED_ARGS
   return static_cast<int>(cudaErrorInvalidValue);

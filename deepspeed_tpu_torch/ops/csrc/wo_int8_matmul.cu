@@ -6,14 +6,16 @@
 // Replaces the TPU kernels _gemv_kernel (deepspeed_tpu/ops/pallas/
 // wo_int8_matmul.py:112, reached through _wo_int8_gemv :138) and _kernel
 // (:95, reached through _wo_int8_2d :167). Same function as their
-// preferred_element_type=f32 dot: int8 -> bf16 is exact, and so is a bf16
-// x times it in fp32, so only the order of the sums differs.
+// preferred_element_type=f32 dot: int8 -> bf16 and int8 -> fp16 are exact
+// (|q| <= 128), and so is a 16-bit x times it in fp32, so only the order
+// of the sums differs.
 //
 // What bounds it on the H100: for small m (decode: m = the slot batch) the
 // k * n int8 weight bytes, read once, over 3.35 TB/s (2 * m FLOPs a byte);
 // at prefill widths (m in the hundreds) the products, which run on the
-// tensor cores for bf16 x (mma.sync.m16n8k16, the int8 weights converted
-// to bf16 B fragments in registers) and on fp32 FMAs for fp32 x.
+// tensor cores for bf16 and fp16 x (mma.sync.m16n8k16, the int8 weights
+// converted to B fragments of x's type in registers) and on fp32 FMAs for
+// fp32 x.
 //
 // One summation order for every m (the canonical order), so that a row's
 // result depends neither on m nor on the row's place in the batch, and a
@@ -23,8 +25,8 @@
 // when k is ragged); the output is the sum of the segment partials in
 // increasing segment order, starting from 0, with __fadd_rn, then
 // __fmul_rn by scale[n]. A segment's partial is
-//  - bf16 x: a chain of mma.sync.m16n8k16 bf16 -> fp32 over its 16-row
-//    steps in increasing k, starting from zero accumulators; a ragged last
+//  - bf16 or fp16 x (T): a chain of mma.sync.m16n8k16 T -> fp32 over its
+//    16-row steps in increasing k, starting from zero accumulators; a ragged last
 //    step has its x columns and weight rows past k zero-filled. Both
 //    kernels below issue exactly these instructions on exactly these
 //    operands for every output element (an output element of an mma
@@ -40,11 +42,11 @@
 //     into shared memory beside the m rows of x, and the CTA writes its
 //     fp32 segment partial to part [segments, m, n]; a second launch sums
 //     the partials in segment order and applies the scale (with one
-//     segment the first launch writes y). bf16 x: the m rows are one m16
+//     segment the first launch writes y). 16-bit x: the m rows are one m16
 //     A tile (rows past m zero), each warp 16 columns as two n8 tiles;
 //     fp32 x: each thread runs the fma chains of the (row, column) outputs
 //     it owns.
-// (b) any m (prefill chunks), bf16 x: 32 x 64 output tiles of 4 warps (32 x
+// (b) any m (prefill chunks), 16-bit x: 32 x 64 output tiles of 4 warps (32 x
 //     16 each), x and int8 weight tiles a k segment at a time through a
 //     3-stage cp.async ring (the weights copied as int8), A fragments by
 //     ldmatrix, B fragments converted from int8 in registers. A CTA walks
@@ -62,8 +64,10 @@
 //     threads, 4 x 4 outputs a thread, x and the int8 weights staged in
 //     32-row k tiles as fp32, fp32 FMAs, partials and the reduction launch.
 // Ragged m, n and k are masked. The host checks n % 16 == 0 and a 16-byte
-// aligned q; bf16 x also needs a 16-byte aligned base and a row stride
+// aligned q; 16-bit x also needs a 16-byte aligned base and a row stride
 // that is a multiple of 8 elements (the wrapper copies otherwise).
+#include <type_traits>
+
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -75,7 +79,7 @@ constexpr int S_COLS = 64;        // small-m: output columns of a CTA
 constexpr int S_THREADS = 128;
 
 // ----------------------------------------------------------------------
-// bf16 x on the tensor cores
+// 16-bit x (T: bf16 or fp16) on the tensor cores
 // ----------------------------------------------------------------------
 
 // Row pitch (bytes) of an int8 [k][64] weight tile in shared memory: the
@@ -90,14 +94,14 @@ __device__ __forceinline__ float biased_i8_to_float(uint32_t w, int j) {
          8388736.f;
 }
 
-// The bf16 B fragments of NJ n8 tiles of one 16-deep step from an int8
+// The B fragments (T, exact) of NJ n8 tiles of one 16-deep step from an int8
 // [k][n] tile in shared memory (row pitch W_PITCH, w at the step's first
 // row), for the warp's columns [c0, c0 + 8 * NJ). The columns are
 // permuted: thread (g, t) supplies mma column g of n tile j from physical
 // column c0 + NJ * g + j, so one NJ-byte load a k row covers all its
 // tiles, and holds the results of physical columns c0 + 2 * NJ * t +
 // [0, 2 * NJ) (see frag_row).
-template <int NJ>
+template <typename T, int NJ>
 __device__ __forceinline__ void int8_b_frags(uint32_t (&b)[NJ][2],
                                              const int8_t* w, int c0) {
   const int lane = threadIdx.x & 31;
@@ -116,8 +120,8 @@ __device__ __forceinline__ void int8_b_frags(uint32_t (&b)[NJ][2],
     float f[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) f[i] = biased_i8_to_float(r[i], j);
-    b[j][0] = pack_bf16_rn(f[0], f[1]);  // k 2t (low half), 2t + 1
-    b[j][1] = pack_bf16_rn(f[2], f[3]);  // k 2t + 8, 2t + 9
+    b[j][0] = pack_rn<T>(f[0], f[1]);  // k 2t (low half), 2t + 1
+    b[j][1] = pack_rn<T>(f[2], f[3]);  // k 2t + 8, 2t + 9
   }
 }
 
@@ -134,7 +138,7 @@ __device__ __forceinline__ void frag_row(float (&v)[2 * NJ],
 }
 
 // N consecutive values (N % 4 == 0; 16-byte aligned for fp32, 8-byte for
-// bf16) stored in out's dtype
+// bf16 and fp16) stored in out's dtype
 template <int N>
 __device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
 #pragma unroll
@@ -149,19 +153,26 @@ __device__ __forceinline__ void store_vec(bf16* p, const float (&v)[N]) {
     *reinterpret_cast<uint2*>(p + i) =
         make_uint2(pack_bf16_rn(v[i], v[i + 1]), pack_bf16_rn(v[i + 2], v[i + 3]));
 }
+template <int N>
+__device__ __forceinline__ void store_vec(f16* p, const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4)
+    *reinterpret_cast<uint2*>(p + i) =
+        make_uint2(pack_f16_rn(v[i], v[i + 1]), pack_f16_rn(v[i + 2], v[i + 3]));
+}
 
-// (a) bf16: one k segment of one 64-column strip, m <= 16 rows
-constexpr int XS_PITCH = SEG + 8;  // bf16 elements a row of the x tile
+// (a) 16-bit x: one k segment of one 64-column strip, m <= 16 rows
+constexpr int XS_PITCH = SEG + 8;  // T elements a row of the x tile
 
-template <typename O>
+template <typename T, typename O>
 __global__ void __launch_bounds__(S_THREADS)
-wo_int8_small_m_mma_kernel(const bf16* __restrict__ x,
+wo_int8_small_m_mma_kernel(const T* __restrict__ x,
                            const int8_t* __restrict__ q,
                            const float* __restrict__ scale,
                            O* __restrict__ y, float* __restrict__ part,
                            int m, int k, int n, long long x_sm) {
   __shared__ __align__(16) int8_t w_s[SEG * W_PITCH];
-  __shared__ __align__(16) bf16 x_s[SMALL_M * XS_PITCH];
+  __shared__ __align__(16) T x_s[SMALL_M * XS_PITCH];
   const int col0 = blockIdx.x * S_COLS;
   const int seg = blockIdx.y;
   const int k0 = seg * SEG;
@@ -196,9 +207,9 @@ wo_int8_small_m_mma_kernel(const bf16* __restrict__ x,
   for (int kk = 0; kk < steps; ++kk) {
     uint32_t a[4], b[2][2];
     ldsm_x4(a, x_s + (lane & 15) * XS_PITCH + kk * 16 + (lane >> 4) * 8);
-    int8_b_frags<2>(b, w_s + kk * 16 * W_PITCH, warp * 16);
-    mma_bf16(acc[0], a, b[0][0], b[0][1]);
-    mma_bf16(acc[1], a, b[1][0], b[1][1]);
+    int8_b_frags<T, 2>(b, w_s + kk * 16 * W_PITCH, warp * 16);
+    mma16<T>(acc[0], a, b[0][0], b[0][1]);
+    mma16<T>(acc[1], a, b[1][0], b[1][1]);
   }
 
   const int g = lane >> 2, t = lane & 3;
@@ -222,17 +233,17 @@ wo_int8_small_m_mma_kernel(const bf16* __restrict__ x,
   }
 }
 
-// (b) bf16: one 32 x 64 output tile over the k segments of grid z's share,
+// (b) 16-bit x: one 32 x 64 output tile over the k segments of grid z's share,
 // a segment a stage; 4 warps of 32 rows x 16 columns
 constexpr int TM = 32, TN = 64, T_STAGES = 3, TM_THREADS = 128;
 constexpr int WN = 2;              // n8 tiles of a warp
-constexpr int XT_PITCH = SEG + 8;  // bf16 elements a row of an x stage
+constexpr int XT_PITCH = SEG + 8;  // T elements a row of an x stage
 constexpr int XT_BYTES = TM * XT_PITCH * 2;
 constexpr int T_SMEM = T_STAGES * (XT_BYTES + SEG * W_PITCH);
 
-template <typename O>
+template <typename T, typename O>
 __global__ void __launch_bounds__(TM_THREADS)
-wo_int8_tiled_mma_kernel(const bf16* __restrict__ x,
+wo_int8_tiled_mma_kernel(const T* __restrict__ x,
                          const int8_t* __restrict__ q,
                          const float* __restrict__ scale, O* __restrict__ y,
                          float* __restrict__ part, int m, int k, int n,
@@ -240,7 +251,7 @@ wo_int8_tiled_mma_kernel(const bf16* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // stage s: x at smem_raw + s * XT_BYTES, w after the T_STAGES x stages
   auto x_s = [&](int s) {
-    return reinterpret_cast<bf16*>(smem_raw + s * XT_BYTES);
+    return reinterpret_cast<T*>(smem_raw + s * XT_BYTES);
   };
   auto w_s = [&](int s) {
     return reinterpret_cast<int8_t*>(smem_raw + T_STAGES * XT_BYTES +
@@ -293,7 +304,7 @@ wo_int8_tiled_mma_kernel(const bf16* __restrict__ x,
       load((it + T_STAGES - 1) % T_STAGES, seg0 + it + T_STAGES - 1);
     cp_async_commit();
     const int seg = seg0 + it;
-    const bf16* xs = x_s(it % T_STAGES);
+    const T* xs = x_s(it % T_STAGES);
     const int8_t* ws = w_s(it % T_STAGES);
     auto step = [&](int kk) {  // one 16-deep step of this warp's products
       uint32_t a[2][4], b[WN][2];
@@ -301,12 +312,12 @@ wo_int8_tiled_mma_kernel(const bf16* __restrict__ x,
       for (int i = 0; i < 2; ++i)
         ldsm_x4(a[i], xs + (i * 16 + (lane & 15)) * XT_PITCH + kk * 16 +
                           (lane >> 4) * 8);
-      int8_b_frags<WN>(b, ws + kk * 16 * W_PITCH, warp * 16);
+      int8_b_frags<T, WN>(b, ws + kk * 16 * W_PITCH, warp * 16);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < WN; ++j)
-          mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+          mma16<T>(acc[i][j], a[i], b[j][0], b[j][1]);
     };
     const int steps = (min(SEG, k - seg * SEG) + 15) / 16;
     if (steps == SEG / 16) {  // a whole segment: unrolled, loads run ahead
@@ -524,22 +535,22 @@ int reduce(const float* part, const float* scale, O* y, int m, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename O>
-int launch_bf16(const bf16* x, const int8_t* q, const float* scale, O* y,
+template <typename T, typename O>
+int launch_mma(const T* x, const int8_t* q, const float* scale, O* y,
                 float* part, int m, int k, int n, long long x_sm, int small,
                 int splits, cudaStream_t stream) {
   const int segs = (k + SEG - 1) / SEG;
   if (small) {
     dim3 grid((n + S_COLS - 1) / S_COLS, segs);
-    wo_int8_small_m_mma_kernel<O><<<grid, S_THREADS, 0, stream>>>(
+    wo_int8_small_m_mma_kernel<T, O><<<grid, S_THREADS, 0, stream>>>(
         x, q, scale, y, part, m, k, n, x_sm);
   } else {
     const int per = (segs + splits - 1) / splits;  // segments a CTA
     splits = (segs + per - 1) / per;
     dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM, splits);
-    cudaFuncSetAttribute(wo_int8_tiled_mma_kernel<O>,
+    cudaFuncSetAttribute(wo_int8_tiled_mma_kernel<T, O>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
-    wo_int8_tiled_mma_kernel<O><<<grid, TM_THREADS, T_SMEM, stream>>>(
+    wo_int8_tiled_mma_kernel<T, O><<<grid, TM_THREADS, T_SMEM, stream>>>(
         x, q, scale, y, part, m, k, n, x_sm, per);
     if (splits == 1) return static_cast<int>(cudaGetLastError());
   }
@@ -565,16 +576,45 @@ int launch_fp32(const float* x, const int8_t* q, const float* scale, O* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x of type X (float: the FMA kernels; bf16 or fp16: the tensor-core ones)
+template <typename X, typename O>
+int launch_typed(const X* x, const int8_t* q, const float* scale, O* y,
+                 float* part, int m, int k, int n, long long x_sm, int small,
+                 int splits, cudaStream_t stream) {
+  if constexpr (std::is_same_v<X, float>)
+    return launch_fp32<O>(x, q, scale, y, part, m, k, n, x_sm, small, stream);
+  else
+    return launch_mma<X, O>(x, q, scale, y, part, m, k, n, x_sm, small,
+                            splits, stream);
+}
+
+// ... into y of out's code (0 float32, 1 bfloat16, 2 float16)
+template <typename X>
+int launch_x(const void* x, const int8_t* q, const float* scale, void* y,
+             float* part, int out_dtype, int m, int k, int n, long long x_sm,
+             int small, int splits, cudaStream_t stream) {
+  const X* xp = static_cast<const X*>(x);
+#define DS_TYPED(O)                                                        \
+  launch_typed<X, O>(xp, q, scale, static_cast<O*>(y), part, m, k, n, x_sm, \
+                     small, splits, stream)
+  if (out_dtype == 0) return DS_TYPED(float);
+  if (out_dtype == 1) return DS_TYPED(bf16);
+  if (out_dtype == 2) return DS_TYPED(f16);
+#undef DS_TYPED
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // x: [m, k] with unit stride along k and row stride x_sm, dtype 0 = fp32,
-// 1 = bf16 (bf16: 16-byte aligned base, x_sm % 8 == 0); q: contiguous int8
-// [k, n] with n % 16 == 0 and a 16-byte aligned base; scale: fp32 [n]; y:
-// contiguous [m, n] of out_dtype (same codes). small = 1 runs kernel (a)
-// (m <= 16), small = 0 kernel (b) (bf16) or (b') (fp32); splits (>= 1) is
-// (b)'s number of CTAs along k (fp32 and small m ignore it). part is fp32
-// [ceil(k / 128), m, n] scratch, read when k > 128 and the kernel writes
-// partials: always for (a) and (b'), for (b) only when splits > 1.
+// 1 = bf16, 2 = fp16 (16-bit x: 16-byte aligned base, x_sm % 8 == 0); q:
+// contiguous int8 [k, n] with n % 16 == 0 and a 16-byte aligned base;
+// scale: fp32 [n]; y: contiguous [m, n] of out_dtype (same codes). small =
+// 1 runs kernel (a) (m <= 16), small = 0 kernel (b) (16-bit x) or (b')
+// (fp32); splits (>= 1) is (b)'s number of CTAs along k (fp32 and small m
+// ignore it). part is fp32 [ceil(k / 128), m, n] scratch, read when k > 128
+// and the kernel writes partials: always for (a) and (b'), for (b) only
+// when splits > 1.
 extern "C" int wo_int8_matmul(const void* x, const void* q, const void* scale,
                               void* y, void* part, int dtype, int out_dtype,
                               int m, int k, int n, long long x_sm, int small,
@@ -584,24 +624,12 @@ extern "C" int wo_int8_matmul(const void* x, const void* q, const void* scale,
   const float* sc = static_cast<const float*>(scale);
   float* pt = static_cast<float*>(part);
   if (m < 1 || k < 1 || n < 1 || n % 16 != 0 || splits < 1 ||
-      (small && m > SMALL_M) || (dtype == 1 && x_sm % 8 != 0))
+      (small && m > SMALL_M) || (dtype != 0 && x_sm % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) {
-    const bf16* xb = static_cast<const bf16*>(x);
-    if (out_dtype == 0)
-      return launch_bf16<float>(xb, qi, sc, static_cast<float*>(y), pt, m, k,
-                                n, x_sm, small, splits, st);
-    if (out_dtype == 1)
-      return launch_bf16<bf16>(xb, qi, sc, static_cast<bf16*>(y), pt, m, k,
-                               n, x_sm, small, splits, st);
-  } else if (dtype == 0) {
-    const float* xf = static_cast<const float*>(x);
-    if (out_dtype == 0)
-      return launch_fp32<float>(xf, qi, sc, static_cast<float*>(y), pt, m, k,
-                                n, x_sm, small, st);
-    if (out_dtype == 1)
-      return launch_fp32<bf16>(xf, qi, sc, static_cast<bf16*>(y), pt, m, k,
-                               n, x_sm, small, st);
-  }
+#define DS_INT8_ARGS x, qi, sc, y, pt, out_dtype, m, k, n, x_sm, small, splits, st
+  if (dtype == 0) return launch_x<float>(DS_INT8_ARGS);
+  if (dtype == 1) return launch_x<bf16>(DS_INT8_ARGS);
+  if (dtype == 2) return launch_x<f16>(DS_INT8_ARGS);
+#undef DS_INT8_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

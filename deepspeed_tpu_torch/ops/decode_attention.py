@@ -70,7 +70,7 @@ def _launch(q, k, v, lengths, slopes, scale):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"decode_attention: q/k/v dtypes differ "
                         f"({q.dtype}, {k.dtype}, {v.dtype})")
-    code = kernel_dtype_code(q.dtype)
+    code = kernel_dtype_code(q.dtype, fp16=True)
     dev = q.device
     if k.shape != v.shape or k.dim() != 4 or k.shape[:2] != (B, H) \
             or k.shape[3] != d or k.device != dev or v.device != dev:

@@ -8,8 +8,9 @@ bounds it on the H100 and how it is laid out. The port's layout:
 
 - pools ``[num_pages, H, page_len, d]`` for one layer (the port's
   ``[B, H, S, d]`` with B -> pages, S -> page_len; the JAX package keeps
-  K^T pages only for Mosaic's lane rule), bf16/fp32, or int8 with fp32
-  scale planes ``[num_pages, H, page_len]``;
+  K^T pages only for Mosaic's lane rule), in the compute dtype (fp32,
+  bf16, fp16), or int8 with fp32 scale planes ``[num_pages, H,
+  page_len]`` under any of them;
 - page table ``[slots, max_pages]`` int32 (unowned entries hold the null
   page, always safe to address);
 - ``lengths [slots]``: tokens already in the pool, the current token
@@ -34,7 +35,10 @@ from ._common import NEG_INF, check_launch, kernel_dtype_code, use_kernel
 from .decode_attention import _aligned
 
 HEAD_DIMS = (64, 80, 96, 128, 256)   # the head dims the kernel takes
-_INT8_PAGES = 2         # the C entry point's page-dtype code for int8
+# the C entry point's page-dtype code for int8 pages: a code that no
+# element dtype of kernel_dtype_code uses (2 is fp16), so a float pool
+# never reaches an int8-page instance
+INT8_PAGES = 3
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
@@ -103,10 +107,10 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, slopes,
     if d not in HEAD_DIMS:
         raise ValueError(f"paged_attention: the CUDA kernel takes head_dim "
                          f"in {HEAD_DIMS}, got {d}")
-    code = kernel_dtype_code(q.dtype)
+    code = kernel_dtype_code(q.dtype, fp16=True)
     dev = q.device
     quant = k_scale is not None
-    page_code = _INT8_PAGES if quant else code
+    page_code = INT8_PAGES if quant else code
     tail = (H, k_pages.shape[2], d)
     for name, pool in (("k", k_pages), ("v", v_pages)):
         _check_pool(name, pool, tail, torch.int8 if quant else q.dtype, dev)

@@ -10,7 +10,9 @@ its entry. The block-sparse wrappers must pick the bf16 entry points for
 bf16 and the fp32 ones (the 3xTF32 forward, the FMA dQ and dK/dV) for
 fp32, with exactly the bound arguments; and the plan's count tables (``count_table``) must give the
 kernels a deterministic heaviest-first launch order and the all-live
-flag of every fine mask.
+flag of every fine mask. The serving wrappers pass fp16's element code
+(2) for fp16 tensors, and paged attention a page code for int8 pages
+that no element dtype uses, on both sides of the interface.
 """
 
 import os
@@ -259,3 +261,69 @@ def test_a_reused_build_keeps_its_nvcc_output(tmp_path, monkeypatch):
     assert op_builder.build(verbose=True) == first
     assert (tmp_path / "build" / "calls").read_text() == calls
     assert op_builder.build_log == log
+
+
+# --------------------------------------------------------------------------
+# the serving kernels' dtype codes in fp16, through a stand-in library
+# --------------------------------------------------------------------------
+
+def _paged_pool(quant, B=2, H=2, d=64, page_len=16, max_pages=4):
+    pool = torch.zeros(5, H, page_len, d,
+                       dtype=torch.int8 if quant else torch.float16)
+    scale = torch.zeros(5, H, page_len) if quant else None
+    return (torch.zeros(B, H, d, dtype=torch.float16), pool, pool,
+            torch.zeros(B, max_pages, dtype=torch.int32),
+            torch.tensor([3, 40], dtype=torch.int32), scale)
+
+
+def test_fp16_codes_the_serving_wrappers_pass(fake_lib):
+    """decode: dtype 2; paged: (2, 2) over fp16 pages and (2,
+    ``INT8_PAGES``) over int8 pages; the int8 matmul: (2, 2), both
+    kernels; each launch counted as a bf16 one is."""
+    from deepspeed_tpu_torch.ops import (decode_attention, paged_attention,
+                                         wo_int8_matmul)
+    from deepspeed_tpu_torch.ops.decode_attention import _launch as decode
+    from deepspeed_tpu_torch.ops.paged_attention import (INT8_PAGES,
+                                                         _launch as paged)
+    from deepspeed_tpu_torch.ops.wo_int8_matmul import _launch as int8
+    before = (decode_attention.launches, paged_attention.launches,
+              wo_int8_matmul.small_m_launches, wo_int8_matmul.tiled_launches)
+    q = torch.zeros(2, 2, 64, dtype=torch.float16)
+    cache = torch.zeros(2, 2, 300, 64, dtype=torch.float16)
+    decode(q, cache, cache, torch.tensor([5, 300], dtype=torch.int32), None,
+           0.125)
+    for quant in (False, True):
+        q, kp, vp, table, lengths, scale = _paged_pool(quant)
+        paged(q, kp, vp, table, lengths, q, q, None, scale, scale, 0.125)
+    w = torch.zeros(256, 128, dtype=torch.int8)
+    for m in (4, 40):
+        int8(torch.zeros(m, 256, dtype=torch.float16), w, torch.ones(128),
+             torch.float16)
+    names = [c[0] for c in fake_lib]
+    assert names == ["decode_attention", "paged_attention",
+                     "paged_attention", "wo_int8_matmul", "wo_int8_matmul"]
+    assert fake_lib[0][1][10] == 2                          # dtype
+    assert fake_lib[1][1][15:17] == (2, 2)                  # dtype, pages
+    assert fake_lib[2][1][15:17] == (2, INT8_PAGES)
+    assert [c[1][5:7] for c in fake_lib[3:]] == [(2, 2), (2, 2)]
+    assert [c[1][11] for c in fake_lib[3:]] == [1, 0]       # small-m, tiled
+    after = (decode_attention.launches, paged_attention.launches,
+             wo_int8_matmul.small_m_launches, wo_int8_matmul.tiled_launches)
+    assert np.subtract(after, before).tolist() == [1, 2, 1, 1]
+
+
+def test_int8_page_code_is_no_dtype_code():
+    """``INT8_PAGES`` equals no element code of ``kernel_dtype_code``, and
+    ``paged_attention.cu`` dispatches every int8-page instance on it and
+    every float-page instance on its own element code."""
+    from deepspeed_tpu_torch.ops._common import _KERNEL_DTYPES
+    from deepspeed_tpu_torch.ops.paged_attention import INT8_PAGES
+    assert INT8_PAGES not in _KERNEL_DTYPES.values()
+    inst = re.findall(r"^  DS_PAGED_DIMS\((\w+), (\w+), (\d), (\d)\)",
+                      _read("paged_attention.cu"), re.M)
+    codes = {"float": 0, "bf16": 1, "f16": 2}
+    assert {(t, p) for t, p, _, _ in inst} == {
+        (t, p) for t in codes for p in (t, "int8_t")}
+    for t, p, dt, pt in inst:
+        assert int(dt) == codes[t]
+        assert int(pt) == (INT8_PAGES if p == "int8_t" else codes[t])

@@ -209,9 +209,11 @@ def test_gradient_dtype_picks_the_optimizer_instance(fake_lib, gdtype, adam,
         int(not bf16), int(bf16), int(not bf16), int(bf16), 1]
 
 
-def test_only_the_flash_kernels_take_fp16():
+def test_only_the_flash_and_serving_kernels_take_fp16():
     assert kernel_dtype_code(torch.float16, fp16=True) == 2
-    with pytest.raises(TypeError, match="fp16-serving slice"):
+    with pytest.raises(TypeError, match="LayerNorm, quantizer and "
+                       "block-sparse attention kernels' fp16 instances come "
+                       "in a later slice"):
         kernel_dtype_code(torch.float16)
     ops = os.path.dirname(op_builder.__file__)
     takers = set()
@@ -225,4 +227,5 @@ def test_only_the_flash_kernels_take_fp16():
                     and getattr(node.func, "id", "") == "kernel_dtype_code"
                     and any(kw.arg == "fp16" for kw in node.keywords)):
                 takers.add(name)
-    assert takers == {"flash_attention.py"}
+    assert takers == {"flash_attention.py", "decode_attention.py",
+                      "paged_attention.py", "wo_int8_matmul.py"}
