@@ -5,7 +5,7 @@
                            --7a-only | --loop-only | --fp16-only |
                            --inject-only | --11b-only | --gptj-only |
                            --gptj-train-only | --fp16-serve-only |
-                           --serving-only |
+                           --published-only | --serving-only |
                            --serving-timing [dir] | --decode-timing [dir] |
                            --serving-ab dir | --chunk-sweep |
                            --planted-faults [name]]
@@ -14,7 +14,7 @@ Phases, each fatal on failure:
 
 1. environment: a CUDA device, its name and power limit (nvidia-smi),
    TF32 and reduced-precision bf16 and fp16 GEMM reductions switched off
-   for every phase but 5a, 7a, 8a, 8b and 13a, which run under torch's
+   for every phase but 5a, 7a, 8a, 8b, 13a and 15a, which run under torch's
    defaults;
 2. build: the kernels of ``deepspeed_tpu_torch/ops/csrc`` with nvcc for
    sm_90a (register and spill counts printed; the bf16 and fp16 flash
@@ -253,7 +253,32 @@ Phases, each fatal on failure:
    at full width, 2 layers, fp16, served paged through the d-256 fp16
    instances, (a)'s gates. Phase 3 holds the fp16 decode, paged (fp16
    and int8 pages) and int8 matmul instances against their plain versions
-   first (the fp16 ``Gate``) and times them at the bf16 rows' shapes.
+   first (the fp16 ``Gate``) and times them at the bf16 rows' shapes;
+15. sparse BERT at its published settings: (a) phase 7a's BERT-base made
+   sparse (BigBird-64, 4096 tokens, micro 2 x gas 2, FusedLamb, 7a's
+   batch) in fp16 on fp32 masters with bing_bert's dynamic loss scaling
+   (``PUBLISHED_FP16``) and attention, MLP and embedding dropout 0.1 (BERT's
+   ``bert_config.json``), 8 ``train_batch`` calls under torch's default
+   GEMM flags: exact launch counts of the block-sparse kernels through
+   their ``_fp16`` entry points (12 layers x 2 microbatches x 8 steps) and
+   of the dropout kernel (13 sites x 2 microbatches x 8 steps each way),
+   LAMB twice a step taken, no flash or Adam launch; finite losses that
+   fall over whole periods (``LOSS_FALL``); the loss-scale record equal to
+   the host replay of ``update_scale``; step wall, tokens/s, peak device
+   memory, skipped steps and the device-busy share of a step; (b) fp32,
+   card against CPU, every dropout at 0.1: sparse BERT (d 128, 2 layers,
+   512 tokens) and two ``DeepSpeedTransformerLayer``s at BERT-large's
+   widths with hidden dropout: every dropout map's zeros equal on both
+   sides, outputs within 1e-5 and gradients within 1e-5 of the largest,
+   every activation site's words distinct and none a layer's; (c) GPT-2
+   125M's widths at 2 layers, bf16, every dropout 0.1: loss and gradients
+   under remat ``full`` and ``attn_out`` bit-equal to ``none``. Phase 3
+   holds the fp16 block-sparse instances (the grid of the bf16 ones:
+   every layout at 256 tokens and head dims 64-128, and at 4096 tokens;
+   fp16 ``Gate``) and the dropout kernel (bit-equal: fp32, bf16, fp16,
+   rates 0.1 and 0.5, 15a's activation, an odd shape, a misaligned base,
+   forward and backward) against their plain versions first, and times
+   them at 7a's shape (beside the bf16 twins) and 15a's activation.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
@@ -261,7 +286,8 @@ edited kernels build and agree; it prints no result line).
 ``--7a-only`` phase 7a likewise, ``--loop-only`` phase 9,
 ``--fp16-only`` phase 10, ``--inject-only`` phase 11, ``--11b-only``
 phase 11b, ``--gptj-only`` phase 12, ``--gptj-train-only`` phase 13,
-``--fp16-serve-only`` phase 14, ``--serving-only`` phases 4b and 6b.
+``--fp16-serve-only`` phase 14, ``--published-only`` phase 15,
+``--serving-only`` phases 4b and 6b.
 ``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
 with this checkout's decode and paged ops and with those of the checkout
 ``dir`` in turns (no result).
@@ -272,13 +298,15 @@ it on copies built with each split-KV chunk width of ``SWEEP_CHUNKS``.
 prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (forty-seven faults;
+``--planted-faults [name]`` runs ``--checks-only`` (forty-nine faults;
 ``d-256`` picks the nine of the head-dim-256 instances, ``bwd-d256`` the
 four of the flash backward's, ``fp16-serving`` the three of the serving
 kernels' fp16 instances),
 ``--8c-only`` (two), ``--7a-only`` (one), ``--11b-only`` (three: the
-injection path's Python) or ``--gptj-only`` (one, ``12c``: int8 pages at
-head dim 256 in every slot but the first) in copies of the checkout,
+injection path's Python), ``--gptj-only`` (one, ``12c``: int8 pages at
+head dim 256 in every slot but the first) or ``--published-only`` (one:
+the MLP dropout site on its layer's words; ``published:`` picks it and
+phase 15's two kernel faults) in copies of the checkout,
 each with one kernel fault planted (``PLANTED_FAULTS``; only those
 whose source file name or description contains ``name``, when given;
 ``instance:`` picks the four of the fp16 and bf16-gradient instances),
@@ -1608,14 +1636,16 @@ def _without_rows(plan, every=3):
         plan.kv_cnt.shape))
 
 
-def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
+def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12,
+                       dtypes=(torch.float32, torch.bfloat16)):
     """The three block-sparse kernels against their plain versions: every
-    config of ``sparse_configs`` at each size, fp32 and bf16, dropout off
+    config of ``sparse_configs`` at each size, in each of ``dtypes``
+    (fp32 and bf16; the fp16 instances in a second call), dropout off
     and 0.1, head_dim 64 (and 80, 96, 128 at the smaller size). Both
-    backward versions take the kernel forward's (o, m, l). bf16 reaches
-    the tensor-core kernels, fp32 the 3xTF32 ones; every case launches
-    the forward, dQ and dK/dV twice, and each pair must give the same
-    bits. Then the
+    backward versions take the kernel forward's (o, m, l). bf16 and fp16
+    reach the tensor-core kernels, fp32 the 3xTF32 ones; every case
+    launches the forward, dQ and dK/dV twice, and each pair must give the
+    same bits. Then the
     forward alone on BigBird-64 plans with a third of the q tiles' lists
     cut to nothing (``_without_rows``): those rows must write O = 0,
     m = NEG_INF and l = 1."""
@@ -1626,7 +1656,9 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     from deepspeed_tpu_torch.ops.flash_attention import Dropout
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
         device_plan
-    gates = {k: Gate(f"block_sparse {k}") for k in ("fwd", "dq", "dkv")}
+    names = " and ".join(str(dt)[6:] for dt in dtypes)
+    gates = {k: Gate(f"block_sparse {k} ({names})")
+             for k in ("fwd", "dq", "dkv")}
     repeats = {"fwd": [0, []], "bwd": [0, []]}   # cases, labels that differ
 
     def repeat(which, label, first, again):
@@ -1642,7 +1674,7 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
             plan = device_plan(cfg, s, dev)
             if plan is None:
                 raise AssertionError(f"{name} does not tile at S={s}")
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes:
                 for rate in (0.0, 0.1):
                     q, k, v, do = (torch.randn(b, s, h, d, generator=gen,
                                                device=dev, dtype=dtype)
@@ -1682,7 +1714,7 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
     plan = _without_rows(device_plan(bigbird_64(h), s, dev))
     empty = (plan.kv_cnt == 0)[None, :, :, None].expand(
         b, h, -1, 64).reshape(b, h, s)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for rate in (0.0, 0.1):
             q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev,
                                    dtype=dtype) for _ in range(3))
@@ -1707,8 +1739,8 @@ def check_block_sparse(dev, gen, sizes=(256, 4096), b=2, h=12):
                                      "tile disagree with the contract")
     for g in gates.values():
         g.close()
-    for which, what in (("fwd", "fwd (fp32 and bf16)"),
-                        ("bwd", "dq, dkv (fp32 and bf16)")):
+    for which, what in (("fwd", f"fwd ({names})"),
+                        ("bwd", f"dq, dkv ({names})")):
         n, differ = repeats[which]
         log(f"  block_sparse {what}: two launches bit-equal in "
             f"{n - len(differ)}/{n} cases")
@@ -1791,6 +1823,10 @@ SPARSE_IMPL = {
     ("fwd", torch.float32): "3xTF32 tensor cores (mma.sync), K and V split "
     "once a CTA, count-table order, fresh accumulators per tile",
     ("bwd", torch.bfloat16): "tensor-core bf16 (mma.sync)",
+    ("fwd", torch.float16): "tensor-core fp16 (mma.sync), the bf16 "
+    "kernel's fp16 instance",
+    ("bwd", torch.float16): "tensor-core fp16 (mma.sync), the bf16 "
+    "kernels' fp16 instances",
     ("bwd", torch.float32): "3xTF32 tensor cores (mma.sync), operands "
     "split at fragment load, count-table order, fresh accumulators per "
     "tile"}
@@ -1886,7 +1922,7 @@ def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1,
         kernel, plain = runs[name]
         fwd = name.endswith("fwd")
         flops = 2 * products * pairs * d
-        peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+        peak = (PEAK_BF16_FLOPS if dtype in (torch.bfloat16, torch.float16)
                 else PEAK_TF32_FLOPS / 3)
         bound, by = bound_ms(flops, nbytes, peak)
         fma = ""
@@ -1913,6 +1949,71 @@ def time_block_sparse(dev, gen, b=2, h=12, s=4096, d=64, rate=0.1,
     del q, k, v, do, o, qt, kt, vt
     torch.cuda.empty_cache()
     return out
+
+
+# phase 15a's activation: BERT-base's micro batch at 4096 tokens
+DROPOUT_SHAPE = (2, 4096, 768)
+DROPOUT_SHAPES = (DROPOUT_SHAPE, (3, 5, 7), (2, 128, 1024))
+
+
+def _dropout_input(shape, dtype, dev, gen, offset=0):
+    """A [b, s, d] tensor whose first element sits ``offset`` elements
+    into its storage (1: a base that no 16-byte vector load may take)."""
+    n = int(np.prod(shape))
+    buf = torch.randn(n + offset, generator=gen, device=dev).to(dtype)
+    return buf[offset:].view(shape)
+
+
+def check_dropout(dev, gen):
+    """The dropout kernel against its plain version, bit for bit: fp32,
+    bf16 and fp16, rates 0.1 and 0.5, at phase 15a's activation, an odd
+    shape (the one-element path) and a misaligned base (likewise), as a
+    forward and as a backward launch (the same map)."""
+    from deepspeed_tpu_torch.ops import dropout
+    n, differ = 0, []
+    for shape in DROPOUT_SHAPES:
+        for offset in ((0, 1) if shape == DROPOUT_SHAPES[-1] else (0,)):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                for rate in (0.1, 0.5):
+                    x = _dropout_input(shape, dtype, dev, gen, offset)
+                    words = (0x51ED + n, 0x9E3779B9 ^ n)
+                    ref = dropout.dropout_reference(x, words, rate)
+                    for backward in (False, True):
+                        got = dropout._launch(x, words, rate, backward)
+                        n += 1
+                        if not torch.equal(_bits(got), _bits(ref)):
+                            differ.append(f"{shape} +{offset} "
+                                          f"{str(dtype)[6:]} rate {rate}")
+    torch.cuda.synchronize()
+    log(f"  dropout: kernel bit-equal to its plain version in "
+        f"{n - len(differ)}/{n} launches (fp32, bf16, fp16; rates 0.1 and "
+        f"0.5; {DROPOUT_SHAPES}, a misaligned base; forward and backward)")
+    if differ:
+        raise AssertionError(f"dropout: the kernel differs from its plain "
+                             f"version in {differ}")
+
+
+def time_dropout(dev, gen):
+    """One site's dropout kernel at phase 15a's activation (fp16): its
+    time, the plain version's and the bound of reading and writing each
+    element once. No PyTorch call computes this function (F.dropout
+    draws Philox bits, not the counter hash), so library_ms is null."""
+    from deepspeed_tpu_torch.ops import dropout
+    shape, dtype, rate = DROPOUT_SHAPE, torch.float16, PUBLISHED_DROPOUT
+    x = _dropout_input(shape, dtype, dev, gen)
+    words = (0x1234, 0x5678)
+    got = dropout._launch(x, words, rate, False)
+    ref = dropout.dropout_reference(x, words, rate)
+    err = (got.float() - ref.float()).abs().max().item()
+    bound, by = bound_ms(0, 2 * x.numel() * x.element_size(), PEAK_BF16_FLOPS)
+    return dict(
+        shape=f"{list(shape)} {str(dtype)[6:]} rate {rate} (phase 15a: one "
+        f"site of BERT-base at 4096 tokens, micro 2); library: none, no "
+        f"PyTorch call draws the counter hash",
+        ms=gpu_ms(lambda: dropout._launch(x, words, rate, False)),
+        plain_ms=gpu_ms(lambda: dropout.dropout_reference(x, words, rate),
+                        iters=5),
+        library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=err)
 
 
 def time_fused_lamb(dev, gen, grad_dtype=torch.float32):
@@ -3309,11 +3410,13 @@ class DSBertMLM(torch.nn.Module):
         return h @ self.word_embeddings.to(h.dtype).t()
 
 
-def ds_bert_config(n_layers=None, dtype_fp16=True, attn_dropout=0.1):
+def ds_bert_config(n_layers=None, dtype_fp16=True, attn_dropout=0.1,
+                   hidden_dropout=0.0):
     """BERT-large's widths (``BERT_PRESETS["bert-large"]``: d 1024, 16
     heads, d_ff 4096, 24 layers) as a DeepSpeedTransformerConfig, pre-LN,
-    eps 1e-12, attention dropout 0.1, hidden dropout 0 (it raises until
-    its slice), bf16 compute (``fp16=True``)."""
+    eps 1e-12, attention dropout 0.1, hidden dropout 0 unless asked (phase
+    8's runs keep it off, as they did before it was ported), bf16 compute
+    (``fp16=True``)."""
     from deepspeed_tpu_torch.models import BERT_PRESETS
     from deepspeed_tpu_torch.ops.transformer import \
         DeepSpeedTransformerConfig
@@ -3321,7 +3424,7 @@ def ds_bert_config(n_layers=None, dtype_fp16=True, attn_dropout=0.1):
     return DeepSpeedTransformerConfig(
         hidden_size=p.d_model, intermediate_size=p.ffn_dim, heads=p.n_heads,
         num_hidden_layers=n_layers or p.n_layers, initializer_range=0.02,
-        attn_dropout_ratio=attn_dropout, hidden_dropout_ratio=0.0,
+        attn_dropout_ratio=attn_dropout, hidden_dropout_ratio=hidden_dropout,
         layer_norm_eps=1e-12, pre_layer_norm=True, fp16=dtype_fp16,
         training=True)
 
@@ -5612,6 +5715,347 @@ def phase_fp16_serve(card, ckpt_dir=None):
 
 
 # --------------------------------------------------------------------------
+# phase 15: sparse BERT pretrained at its published settings (fp16, every
+# dropout at 0.1)
+# --------------------------------------------------------------------------
+
+# bing_bert's fp16 block (DeepSpeed's BERT pretraining configs: "fp16":
+# {"enabled": true, "loss_scale": 0}), DeepSpeed's dynamic-scale defaults
+# written out, so the host replay reads the same fields
+PUBLISHED_FP16 = {"enabled": True, "loss_scale": 0, "initial_scale_power": 16,
+                  "loss_scale_window": 1000, "hysteresis": 2,
+                  "min_loss_scale": 1}
+PUBLISHED_CONFIG = {**{k: v for k, v in BERT_TRAIN_CONFIG.items()
+                       if k != "bf16"}, "fp16": PUBLISHED_FP16}
+# BERT's bert_config.json (google-research/bert): hidden_dropout_prob and
+# attention_probs_dropout_prob
+PUBLISHED_DROPOUT = 0.1
+
+
+def _sparse_entry_counter(bsa):
+    """Wrap the block-sparse module's C entry lookup: counts launches by
+    the entry point they reach (``_bf16``, ``_fp16`` or fp32). Returns
+    (counts, restore)."""
+    seen, real = {}, bsa._entry
+
+    def counting(lib, name, code):
+        fn = real(lib, name, code)
+        key = name + ("", "_bf16", "_fp16")[code]
+        seen[key] = seen.get(key, 0) + 1
+        return fn
+    bsa._entry = counting
+    return seen, lambda: setattr(bsa, "_entry", real)
+
+
+def phase_published_bert(card, steps=8):
+    """15a: 7a's sparse BERT-base at 4096 tokens in fp16 on fp32 masters
+    with dynamic loss scaling, attention, MLP and embedding dropout 0.1,
+    FusedLamb, micro 2 x gas 2, ``steps`` train_batch calls on 7a's batch.
+    Gates: exact launch counts through the fp16 block-sparse entries and
+    the dropout kernel, finite losses that fall over whole periods, the
+    loss-scale record replayed exactly on the host. Returns the launch
+    counts and the step readings."""
+    import dataclasses
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import BERT_PRESETS
+    from deepspeed_tpu_torch.ops import (block_sparse_attention,
+                                         dropout_apply, flash_attention,
+                                         flash_attention_bwd, fused_adam,
+                                         fused_lamb)
+    bsa = sys.modules["deepspeed_tpu_torch.ops.block_sparse_attention"]
+    f16 = PUBLISHED_FP16
+    log(f"phase 15a: BERT-base with BigBird-64 block-sparse attention at "
+        f"{SPARSE_SEQ} tokens at its published settings through "
+        f"initialize() -> train_batch: fp16 on fp32 masters (dynamic loss "
+        f"scale from 2**{f16['initial_scale_power']}), attention, MLP and "
+        f"embedding dropout {PUBLISHED_DROPOUT}, FusedLamb, micro 2 x gas 2 "
+        f"(GEMM flags {list(gemm_flags())})")
+    base = dataclasses.replace(BERT_PRESETS["bert-base"], dtype=torch.float16,
+                               attn_dropout_rate=PUBLISHED_DROPOUT,
+                               dropout_rate=PUBLISHED_DROPOUT)
+    model, cfg = sparse_bert(base, SPARSE_SEQ)
+    engine, _, _, _ = initialize(model=model, config=PUBLISHED_CONFIG,
+                                 loss_fn=bert_train_loss, seed=SEED)
+    n = PUBLISHED_CONFIG["train_batch_size"]
+    batch = bert_batch(n, SPARSE_SEQ, cfg.vocab_size, SEED + 8)
+    counters = {**{k: v for k, v in _ds_counters().items() if k in (
+        "block_sparse_attention_fwd", "block_sparse_attention_dq",
+        "block_sparse_attention_dkv", "fused_lamb", "fused_lamb_apply",
+        "flash_attention", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq", "fused_adam")},
+        "dropout_fwd": (dropout_apply, "fwd_launches"),
+        "dropout_bwd": (dropout_apply, "bwd_launches")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    entries, restore = _sparse_entry_counter(bsa)
+    reset_counters(counters)
+    rows, marks = [], [time.perf_counter()]
+    try:
+        for _ in range(steps):
+            loss = engine.train_batch(batch)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            rows.append((loss, _scale_fields(engine), engine.skipped_steps,
+                         (marks[-1] - marks[-2]) * 1e3))
+    finally:
+        restore()
+    counts = read_counters(counters)
+    peak = torch.cuda.max_memory_allocated()
+    skipped = rows[-1][2]
+    per_attn = cfg.n_layers * PUBLISHED_CONFIG["gradient_accumulation_steps"]
+    sites = cfg.n_layers + 1                  # each layer's MLP, embeddings
+    want = {name: 0 for name in counts}
+    want.update({"block_sparse_attention_fwd": per_attn * steps,
+                 "block_sparse_attention_dq": per_attn * steps,
+                 "block_sparse_attention_dkv": per_attn * steps,
+                 "dropout_fwd": sites * 2 * steps,
+                 "dropout_bwd": sites * 2 * steps,
+                 "fused_lamb": steps - skipped,
+                 "fused_lamb_apply": steps - skipped})
+    want_entries = {f"block_sparse_attention_{k}_fp16": per_attn * steps
+                    for k in ("fwd", "dq", "dkv")}
+    log(f"  launches over the {steps} steps: {counts} (want {want}: "
+        f"{cfg.n_layers} layers x 2 microbatches x {steps} steps of each "
+        f"block-sparse kernel, {sites} dropout sites x 2 microbatches x "
+        f"{steps} steps each way, two LAMB launches a step taken, no flash "
+        f"or Adam launch); block-sparse entry points {entries} (want "
+        f"{want_entries})")
+    if counts != want or entries != want_entries:
+        raise AssertionError("15a: the published sparse BERT run did not go "
+                             "through every kernel of its path the expected "
+                             "number of times")
+    losses = [float(r[0]) for r in rows]
+    replay = replay_scale(rows, f16)
+    log("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"  (scale, growth, overflows, hysteresis) per step "
+        f"{[r[1] for r in rows]}; skipped {skipped}; host replay {replay}")
+    fall = np.mean(losses[:2]) - np.mean(losses[-2:])
+    log(f"  mean of the first two losses - mean of the last two: "
+        f"{fall:.4f} (gate >= {LOSS_FALL})")
+    if not all(np.isfinite(losses)) or not fall >= LOSS_FALL:
+        raise AssertionError("15a: losses not finite or did not fall over a "
+                             "period on the repeated batch")
+    if [r[1] for r in rows] != replay:
+        raise AssertionError("15a: the loss-scale record differs from the "
+                             "host replay")
+    if skipped == steps:
+        raise AssertionError("15a: every step overflowed")
+    step_ms = (marks[-1] - marks[1]) / (steps - 1) * 1e3
+    tokens = n * SPARSE_SEQ
+    out = dict(step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               peak_bytes=peak, skipped=skipped)
+    out["busy_ms"] = device_profile(
+        "published sparse bert train step", lambda: engine.train_batch(batch),
+        step_ms, card, iters=3, grad=True)
+    log(f"  step wall {step_ms:.2f} ms (mean of steps 2-{steps}, each ending "
+        f"in a synchronize), {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"device memory {peak} bytes ({peak / 2 ** 30:.2f} GiB), skipped "
+        f"steps {skipped}, device busy {out['busy_ms']:.2f} ms a step "
+        f"({100 * (1 - out['busy_ms'] / step_ms):.1f}% idle) [{card}]")
+    del engine, model
+    torch.cuda.empty_cache()
+    # a control, logged only: the same run with the MLP and embedding
+    # dropout off (attention dropout on), which splits the step's cost
+    # between fp16 and the activation dropout sites
+    model, _ = sparse_bert(dataclasses.replace(base, dropout_rate=0.0),
+                           SPARSE_SEQ)
+    engine, _, _, _ = initialize(model=model, config=PUBLISHED_CONFIG,
+                                 loss_fn=bert_train_loss, seed=SEED)
+    marks = []
+    for _ in range(4):
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    ms = (marks[-1] - marks[0]) / 3 * 1e3
+    busy = device_profile("published sparse bert, activation dropout off",
+                          lambda: engine.train_batch(batch), ms, card,
+                          iters=2, grad=True)
+    out["control_step_ms"], out["control_busy_ms"] = ms, busy
+    log(f"  control, MLP and embedding dropout off: step wall {ms:.2f} ms "
+        f"(steps 2-4), device busy {busy:.2f} ms [{card}]")
+    del engine, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+class DropoutRecorder:
+    """Records every activation dropout map (``ops.dropout.dropout_map``:
+    its words, and which elements it zeroed where its input was not 0) and
+    the words each layer's forward takes (a forward pre-hook on every
+    ``Block`` and ``DeepSpeedTransformerLayer``: its attention's words)."""
+
+    def __init__(self, model):
+        from deepspeed_tpu_torch.ops import dropout
+        self.mod, self.real = dropout, dropout.dropout_map
+        self.maps, self.layer_words = [], []
+        self.hooks = [m.register_forward_pre_hook(self._hook,
+                                                  with_kwargs=True)
+                      for m in model.modules()
+                      if type(m).__name__ in ("Block",
+                                              "DeepSpeedTransformerLayer")]
+        dropout.dropout_map = self._map
+
+    def _hook(self, module, args, kwargs):
+        self.layer_words.append(tuple(kwargs["dropout_seed"]))
+
+    def _map(self, x, words, rate, backward=False):
+        y = self.real(x, words, rate, backward)
+        self.maps.append((tuple(words), backward,
+                          ((y == 0) & (x != 0)).cpu()))
+        return y
+
+    def close(self):
+        self.mod.dropout_map = self.real
+        for h in self.hooks:
+            h.remove()
+
+
+def _fwd_bwd(model, run, dev):
+    """One forward and backward of ``run(model)`` (a loss) under a
+    recorder; returns (loss, outputs, grads by name, recorder)."""
+    rec = DropoutRecorder(model)
+    try:
+        loss, outs = run(model, dev)
+        loss.backward()
+    finally:
+        rec.close()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             .detach().cpu() for k, p in model.named_parameters()}
+    return loss.item(), [o.detach().cpu() for o in outs], grads, rec
+
+
+def phase_published_parity():
+    """15b: fp32, card against CPU, every dropout on (0.1): sparse BERT
+    (BigBird-64, d 128, 2 heads of 64, 2 layers, 512 tokens; attention,
+    MLP and embedding dropout) and a stack of two
+    ``DeepSpeedTransformerLayer``s at BERT-large's widths (attention and
+    hidden dropout). Gates: every activation dropout map's zeros equal on
+    both sides; outputs within 1e-5 and gradients within 1e-5 of the
+    largest (the fp32 parity rule of the DS layer and BERT); on the card
+    every activation site's words distinct and none of them a layer's
+    (attention's) words."""
+    import dataclasses
+    from deepspeed_tpu_torch.models import BERT_PRESETS, bert_pretrain_loss
+    from deepspeed_tpu_torch.ops.dropout import seed_words
+    log("phase 15b: card against CPU, fp32, every dropout at 0.1: sparse "
+        "BERT (BigBird-64, d 128, 2 layers, 512 tokens) and two "
+        "DeepSpeedTransformerLayers at BERT-large's widths (hidden dropout)")
+    seq, words = 512, seed_words(SEED + 15)
+    base = dataclasses.replace(
+        BERT_PRESETS["bert-base"], d_model=128, n_heads=2, n_layers=2,
+        max_seq_len=seq // 2, dtype=torch.float32,
+        attn_dropout_rate=PUBLISHED_DROPOUT, dropout_rate=PUBLISHED_DROPOUT)
+    bt = bert_batch(2, seq, base.vocab_size, SEED + 15)
+
+    def bert_run(model, dev):
+        t = {k: torch.from_numpy(v).to(dev).long() for k, v in bt.items()}
+        mlm, nsp = model(t["input_ids"], token_type_ids=t["token_type_ids"],
+                         dropout_seed=words)
+        return bert_pretrain_loss(mlm, nsp, t["mlm_labels"],
+                                  t["nsp_labels"]), (mlm, nsp)
+    ds_cfg = ds_bert_config(n_layers=2, dtype_fp16=False,
+                            attn_dropout=PUBLISHED_DROPOUT,
+                            hidden_dropout=PUBLISHED_DROPOUT)
+    mb = mlm_batch(2, DS_SEQ, 30522, SEED + 15)
+
+    def ds_run(model, dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in mb.items()}
+        logits = model(t["input_ids"].long(), t["attention_mask"],
+                       dropout_seed=words)
+        return mlm_loss(logits, t["mlm_labels"]), (logits,)
+    for name, make, run in (
+            ("sparse BERT", lambda: sparse_bert(base, seq)[0], bert_run),
+            ("DS layer stack", lambda: DSBertMLM(ds_cfg), ds_run)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            model = make().to(dev).train()
+            res[dev] = _fwd_bwd(model, run, dev)
+            del model
+        card, cpu = res["cuda"], res["cpu"]
+        out_err = max((a - b).abs().max().item()
+                      for a, b in zip(card[1], cpu[1]))
+        top = max(g.abs().max().item() for g in cpu[2].values())
+        grad_err = max((card[2][k] - g).abs().max().item()
+                       for k, g in cpu[2].items()) / top
+        rec, rec_cpu = card[3], cpu[3]
+        same_masks = (len(rec.maps) == len(rec_cpu.maps) and all(
+            a[:2] == b[:2] and torch.equal(a[2], b[2])
+            for a, b in zip(rec.maps, rec_cpu.maps)))
+        fwd_words = [w for w, backward, _ in rec.maps if not backward]
+        distinct = (len(set(fwd_words)) == len(fwd_words)
+                    and not set(fwd_words) & set(rec.layer_words))
+        dropped = sum(int(m.sum()) for _, _, m in rec.maps)
+        total = sum(m.numel() for _, _, m in rec.maps)
+        ok = (out_err <= 1e-5 and grad_err <= 1e-5 and same_masks
+              and distinct and len(fwd_words) > 0)
+        log(f"  {name}: loss card {card[0]:.6f} cpu {cpu[0]:.6f}; outputs "
+            f"max diff {out_err:.3e} (tol 1e-5); gradients max diff "
+            f"{grad_err:.3e} of the largest (tol 1e-5); {len(rec.maps)} "
+            f"dropout maps ({len(fwd_words)} forward), zeros equal on both "
+            f"sides: {same_masks} ({dropped} of {total} elements dropped, "
+            f"{dropped / max(total, 1):.4f}); site words distinct and no "
+            f"layer's: {distinct} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"15b: {name}, card and CPU disagree or a "
+                                 "dropout site reuses words")
+
+
+def phase_published_remat():
+    """15c: GPT-2 125M's widths at 2 layers (bf16, attention, MLP and
+    embedding dropout 0.1) on the card: the loss and every gradient under
+    remat ``full`` and ``attn_out`` bit-equal to ``none``."""
+    import dataclasses
+    from deepspeed_tpu_torch.models import GPT, GPT2_PRESETS, gpt_loss_fn
+    from deepspeed_tpu_torch.ops.dropout import seed_words
+    log("phase 15c: remat with dropout on the card: GPT-2 125M's widths at "
+        "2 layers, bf16, attention, MLP and embedding dropout 0.1, 4 x 512 "
+        "tokens; 'full' and 'attn_out' against 'none'")
+    vocab = GPT2_PRESETS["gpt2-125m"].vocab_size
+    ids = torch.from_numpy(np.random.RandomState(SEED + 16).randint(
+        0, vocab, size=(4, 513))).cuda()
+    words = seed_words(SEED + 16)
+    runs = {}
+    for policy in ("none", "full", "attn_out"):
+        cfg = dataclasses.replace(
+            GPT2_PRESETS["gpt2-125m"], n_layers=2,
+            attn_dropout_rate=PUBLISHED_DROPOUT,
+            dropout_rate=PUBLISHED_DROPOUT, remat=policy)
+        model = GPT(cfg, seed=SEED).cuda().train()
+        loss = gpt_loss_fn(model(ids[:, :-1], dropout_seed=words),
+                           ids[:, 1:])
+        loss.backward()
+        runs[policy] = [loss.detach()] + [p.grad for p in model.parameters()]
+        del model
+    torch.cuda.synchronize()
+    for policy in ("full", "attn_out"):
+        same = _same_bits(runs[policy], runs["none"])
+        log(f"  {policy}: loss {runs[policy][0].item():.6f} (none "
+            f"{runs['none'][0].item():.6f}); loss and "
+            f"{len(runs['none']) - 1} gradients bit-equal to none: {same}")
+        if not same:
+            raise AssertionError(f"15c: remat {policy!r} with dropout on "
+                                 "differs from none")
+
+
+def phase_published(card, defaults):
+    """Phase 15: 15a under torch's default GEMM flags, 15b and 15c with
+    them off. Returns 15a's launch counts and readings."""
+    t0 = time.perf_counter()
+    set_gemm_flags(defaults)
+    try:
+        counts, out = phase_published_bert(card)
+    finally:
+        set_gemm_flags(GEMM_OFF)
+    t1 = time.perf_counter()
+    phase_published_parity()
+    t2 = time.perf_counter()
+    phase_published_remat()
+    log(f"  phase 15 wall: 15a {t1 - t0:.1f} s, 15b {t2 - t1:.1f} s, 15c "
+        f"{time.perf_counter() - t2:.1f} s")
+    return counts, out
+
+
+# --------------------------------------------------------------------------
 # planted faults: each edits a copy of the kernel sources and must fail
 # ``--checks-only`` there
 # --------------------------------------------------------------------------
@@ -5714,7 +6158,7 @@ PLANTED_FAULTS = (
        "const bool full = true;"),), "--checks-only"),
     ("bf16 block-sparse dK/dV: P o D truncated to bf16 (round toward zero), "
      "not rounded to nearest, before dV", "block_sparse_attention_bwd_bf16.cu",
-     (("c_to_a(pa, sT[2 * kc], sT[2 * kc + 1]);    // P o D rounded to bf16",
+     (("c_to_a16<T>(pa, sT[2 * kc], sT[2 * kc + 1]);    // P o D rounded to T",
        "for (int e2 = 0; e2 < 4; ++e2) pa[e2] = __byte_perm("
        "__float_as_uint(sT[2 * kc + (e2 >> 1)][(e2 & 1) * 2]), "
        "__float_as_uint(sT[2 * kc + (e2 >> 1)][(e2 & 1) * 2 + 1]), "
@@ -5727,7 +6171,7 @@ PLANTED_FAULTS = (
     # the block-sparse forward: bf16 on the tensor cores, fp32 on 3xTF32
     ("bf16 block-sparse forward: p' truncated to bf16 (round toward zero), "
      "not rounded to nearest, before PV", "block_sparse_attention_fwd_bf16.cu",
-     (("c_to_a(pa[kc], s[2 * kc], s[2 * kc + 1]);  // p' rounded to bf16",
+     (("c_to_a16<T>(pa[kc], s[2 * kc], s[2 * kc + 1]);  // p' rounded to T",
        "for (int e2 = 0; e2 < 4; ++e2) pa[kc][e2] = __byte_perm("
        "__float_as_uint(s[2 * kc + (e2 >> 1)][(e2 & 1) * 2]), "
        "__float_as_uint(s[2 * kc + (e2 >> 1)][(e2 & 1) * 2 + 1]), "
@@ -5914,6 +6358,25 @@ PLANTED_FAULTS = (
      "serving/paging/manager.py",
      (("    positions = idx_w[:, None]\n",
        "    positions = (idx_w + 1)[:, None]\n"),), "--11b-only"),
+    # the fp16 block-sparse instances and the dropout kernel (phase 3),
+    # and phase 15b's site-words gate
+    ("published: fp16 block-sparse forward: P' packed as bf16 before P V "
+     "(the fp16 instance only)", "block_sparse_attention_fwd_bf16.cu",
+     (("c_to_a16<T>(pa[kc], s[2 * kc], s[2 * kc + 1]);  // p' rounded to T",
+       "c_to_a(pa[kc], s[2 * kc], s[2 * kc + 1]);  // p' rounded to T"),),
+     "--checks-only"),
+    ("published: dropout: a kept element divided by the fp32 1 - rate, not "
+     "by dtype(1 - rate)", "dropout.cu",
+     (("const float div = round_to<T>(keep);", "const float div = keep;"),),
+     "--checks-only"),
+    ("published: 15b: the MLP dropout site takes its layer's (attention's) "
+     "words",
+     "ops/dropout.py",
+     (("    return _ActivationDropout.apply(x, site_words(words, site), "
+       "float(rate))",
+       "    return _ActivationDropout.apply(\n"
+       "        x, words if site == MLP_SITE else site_words(words, site),\n"
+       "        float(rate))"),), "--published-only"),
     # phase 7a's loss gate against a run whose parameters never move
     ("7a: the LAMB apply launch skipped (parameters unchanged)",
      "fused_lamb.cu",
@@ -5958,8 +6421,8 @@ def run_planted_faults(only=None):
     """Each fault of ``PLANTED_FAULTS`` (those whose source file name or
     description contains ``only``, when given) made in a copy of the checkout
     (``run_in_copy``) with the fault's flag (``--checks-only``,
-    ``--8c-only``, ``--7a-only``, ``--11b-only`` or ``--gptj-only``); each
-    copy must fail.
+    ``--8c-only``, ``--7a-only``, ``--11b-only``, ``--gptj-only`` or
+    ``--published-only``); each copy must fail.
     Logs each run's failing gate lines (and 8c's and 7a's readings)."""
     faults = [f for f in PLANTED_FAULTS
               if only is None or only in f[1] or only in f[0]]
@@ -5972,7 +6435,8 @@ def run_planted_faults(only=None):
                      or "block_sparse" in ln or "wo_int8" in ln
                      or "decode" in ln or "paged" in ln)
                  or "Error" in ln or "after step" in ln or "losses" in ln
-                 or "11b" in ln or "max_abs_err" in ln or "deficit" in ln]
+                 or "11b" in ln or "max_abs_err" in ln or "deficit" in ln
+                 or "dropout" in ln]
         # the gates' failing summaries first, then the failing cases
         worst = [ln for ln in lines
                  if (m := re.search(r"(\d+)/(\d+) cases ok", ln))
@@ -5986,7 +6450,7 @@ def run_planted_faults(only=None):
         for ln in lines[:40]:
             log("    " + ln.strip()[:400])
     log(f"{caught} of {len(faults)} planted faults fail the kernel "
-        "checks, phase 7a, 8c, 11b or 12c")
+        "checks, phase 7a, 8c, 11b, 12c or 15")
     if not faults or caught != len(faults):
         raise AssertionError("a planted kernel fault passed the checks")
 
@@ -6025,9 +6489,9 @@ def main():
     defaults = gemm_flags()
     set_gemm_flags(GEMM_OFF)
     log(f"  GEMM flags {[n for _, n in GEMM_FLAGS]}: torch's defaults "
-        f"{list(defaults)}; off for every phase but 5a, 7a, 8a, 8b and 13a "
-        f"(TF32 off for matmul and cuDNN, bf16 and fp16 GEMM reductions in "
-        f"fp32)")
+        f"{list(defaults)}; off for every phase but 5a, 7a, 8a, 8b, 13a "
+        f"and 15a (TF32 off for matmul and cuDNN, bf16 and fp16 GEMM "
+        f"reductions in fp32)")
 
     if "--planted-faults" in sys.argv[1:]:
         run_planted_faults(rest[0] if rest else None)
@@ -6079,6 +6543,11 @@ def main():
         phase_fp16_serve(card)
         log("phase 14 passed (--fp16-serve-only: no other phase, no result)")
         return 0
+    if "--published-only" in sys.argv[1:]:
+        log("phase 15: sparse BERT pretrained at its published settings")
+        phase_published(card, defaults)
+        log("phase 15 passed (--published-only: no other phase, no result)")
+        return 0
     if "--gptj-train-only" in sys.argv[1:]:
         log("phase 13: GPT-J-6B's layout (head dim 256) trained")
         phase_gptj_train(card, defaults, profile="--profile" in sys.argv[1:])
@@ -6121,6 +6590,8 @@ def main():
     check_repeat(dev, gen)
     check_int8(dev, gen)
     check_block_sparse(dev, gen)
+    check_block_sparse(dev, gen, dtypes=(torch.float16,))
+    check_dropout(dev, gen)
     check_fused_lamb(dev, gen)
     check_layernorm(dev, gen)
     check_quantizer(dev, gen)
@@ -6153,6 +6624,13 @@ def main():
         dev, gen, b=1, s=1024, dtype=torch.float32).items()})
     sparse_fp32_7a_t = time_block_sparse(dev, gen, dtype=torch.float32)
     sparse_t["fused_lamb"] = time_fused_lamb(dev, gen)
+    # phase 15a's: the fp16 instances at 7a's shape, beside their bf16
+    # twins' times of this run, and one dropout site at 15a's activation
+    published_t = {name + "_fp16": t for name, t in time_block_sparse(
+        dev, gen, dtype=torch.float16).items()}
+    for name, t in published_t.items():
+        t["bf16_ms"] = sparse_t[name[:-5]]["ms"]
+    published_t["dropout"] = time_dropout(dev, gen)
     ds_t = {**time_layernorm(dev, gen), **time_quantizer(dev, gen)}
     # the decode and paged kernels at long rows (logged, and in the
     # kernels line beside their phase 3 times)
@@ -6218,13 +6696,17 @@ def main():
                     *paged_t.items(), *sparse_t.items(),
                     *((f"{k}_fp32 (7a's shape)", t)
                       for k, t in sparse_fp32_7a_t.items()),
-                    *ds_t.items(), *d256_t.items(),
+                    *ds_t.items(), *published_t.items(), *d256_t.items(),
                     *((f"{k} (d 256, {str(dt)[6:]})", t)
                       for dt, ts in gptj_t.items() for k, t in ts.items()),
                     *fp16_t.items()):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        extra = (f" ({t['impl']}; rate 0: {t['ms_rate0']:.4f} ms)"
+        extra = (f" ({t['impl']}; rows in their own order: "
+                 f"{t['ms_natural_order']:.4f} ms; the longest rows alone: "
+                 f"{t['ms_heaviest_rows']:.4f} ms; bf16 twin "
+                 f"{t['bf16_ms']:.4f} ms)" if "bf16_ms" in t else
+                 f" ({t['impl']}; rate 0: {t['ms_rate0']:.4f} ms)"
                  if "ms_rate0" in t else
                  f" ({t['impl']}; rows in their own order: "
                  f"{t['ms_natural_order']:.4f} ms; the longest rows "
@@ -6332,6 +6814,11 @@ def main():
     fp16_serve = phase_fp16_serve(card, ckpt_dir=pythia_ckpt.name)
     pythia_ckpt.cleanup()
 
+    log("phase 15: sparse BERT-base pretrained at its published settings "
+        "(fp16, attention, MLP and embedding dropout 0.1): the fp16 "
+        "block-sparse instances and the dropout kernel")
+    published_counts, published = phase_published(card, defaults)
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -6427,6 +6914,14 @@ def main():
              "generate_decode_attention"),
             ("paged_attention_d256_fp16", "14c", "paged_attention")):
         fp16_t[name]["launches"] = fp16_serve[run][key]
+    # phase 15a's, with its counters set to 0 just before: the fp16
+    # block-sparse instances and both directions of the dropout kernel
+    for name, t in published_t.items():
+        if name == "dropout":
+            t["launches"] = published_counts["dropout_fwd"]
+            t["bwd_launches"] = published_counts["dropout_bwd"]
+        else:
+            t["launches"] = published_counts[name[:-5]]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
@@ -6519,6 +7014,19 @@ def main():
              pallas + "quantizer.py:67"),
             ("dequantize", ds_t["dequantize"], csrc + "quantizer.cu",
              pallas + "quantizer.py:141"),
+            ("block_sparse_attention_fwd_fp16",
+             published_t["block_sparse_attention_fwd_fp16"],
+             csrc + "block_sparse_attention_fwd_bf16.cu", sparse + ":355"),
+            ("block_sparse_attention_dq_fp16",
+             published_t["block_sparse_attention_dq_fp16"],
+             csrc + "block_sparse_attention_bwd_bf16.cu", sparse + ":379"),
+            ("block_sparse_attention_dkv_fp16",
+             published_t["block_sparse_attention_dkv_fp16"],
+             csrc + "block_sparse_attention_bwd_bf16.cu", sparse + ":402"),
+            # no TPU kernel: flax's nn.Dropout (models/layers.py:618), which
+            # XLA fuses
+            ("dropout", published_t["dropout"], csrc + "dropout.cu",
+             "deepspeed_tpu/models/layers.py:618"),
             *((name, d256_t[name], csrc + src, pallas + replaces)
               for name, src, replaces in (
                   ("flash_attention_d256", "flash_attention_fwd_bf16.cu",
@@ -6566,7 +7074,7 @@ def main():
             "replaces": replaces, "launches": t["launches"],
             "max_abs_err": t["max_abs_err"], "max_err": t["max_abs_err"],
             "tol": (ADAM_TOL if name.startswith(("fused_adam", "fused_lamb"))
-                    else 0.0 if name in ("quantize", "dequantize")
+                    else 0.0 if name in ("quantize", "dequantize", "dropout")
                     else TOL[torch.float32] if name.endswith("_fp32")
                     else TOL[torch.float16] if name.endswith("_fp16")
                     else TOL[torch.bfloat16]),
@@ -6575,7 +7083,8 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **{key: t[key] for key in ("impl", "ms_rate0", "ms_natural_order",
-                                       "ms_heaviest_rows", "ms_long_rows")
+                                       "ms_heaviest_rows", "ms_long_rows",
+                                       "bf16_ms", "bwd_launches")
                if key in t},
             **({"apply_launches": t["apply_launches"]}
                if "apply_launches" in t else {}),
@@ -6587,6 +7096,12 @@ def main():
                if "gptj_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}
                if "fake_quantize_ms" in t else {})})
+    r = published
+    log(f"phase 15a: step wall {r['step_ms']:.2f} ms, "
+        f"{r['tokens_per_s']:.0f} tokens/s, peak device memory "
+        f"{r['peak_bytes']} bytes, device busy {r['busy_ms']:.2f} ms a step "
+        f"({100 * (1 - r['busy_ms'] / r['step_ms']):.1f}% idle), skipped "
+        f"steps {r['skipped']} [{card}]")
     r = gptj_train["train"]
     log(f"phase 13a: {r['params']} parameters, step wall "
         f"{r['step_ms']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s, peak "

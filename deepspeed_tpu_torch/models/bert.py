@@ -16,8 +16,11 @@ checkpoints every layer under a ``models.layers.REMAT_POLICIES`` policy and
 encoder (bert.py:63-119); ``BertForPreTraining.forward`` also takes
 ``layer_keep_prob`` and hands it to the encoder (the JAX pretraining
 module does not take it, so PLD there reaches only a loss that calls the
-encoder itself). Residual and embedding dropout (``dropout_rate``) come
-with a later slice and raise.
+encoder itself). Embedding and MLP dropout (``dropout_rate``, JAX
+bert.py:83-84 and layers.py:618-619) are live in training mode on the
+same counter hash (``ops.dropout.dropout_apply``): the embeddings after
+``embeddings_ln`` at ``EMBED_SITE`` of the forward's words, each layer's
+MLP output at ``MLP_SITE`` of the layer's.
 """
 
 from dataclasses import dataclass
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dropout import fold_seed
+from ..ops.dropout import EMBED_SITE, dropout_apply, fold_seed
 from .layers import Block, LayerNorm, QDense, remat_policy
 
 
@@ -40,7 +43,7 @@ class BertConfig:
     n_layers: int = 12
     n_heads: int = 12
     d_ff: Optional[int] = None
-    dropout_rate: float = 0.0            # residual/embedding: later slice
+    dropout_rate: float = 0.0            # MLP output and embeddings
     attn_dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16  # compute dtype (params are fp32)
     ln_epsilon: float = 1e-12
@@ -107,7 +110,8 @@ class BertEncoder(nn.Module):
         self.layer = nn.ModuleList(
             Block(cfg.n_heads, d, cfg.ffn_dim, dtype=cfg.dtype,
                   ln_epsilon=cfg.ln_epsilon,
-                  attn_dropout_rate=cfg.attn_dropout_rate, causal=False,
+                  attn_dropout_rate=cfg.attn_dropout_rate,
+                  dropout_rate=cfg.dropout_rate, causal=False,
                   pre_ln=cfg.pre_ln, activation=cfg.activation,
                   sparsity_config=cfg.sparsity_config,
                   sparsity_pattern_len=cfg.max_seq_len)
@@ -127,6 +131,8 @@ class BertEncoder(nn.Module):
              + self.position_embeddings[pos][None]
              + self.token_type_embeddings[token_type_ids]).to(cfg.dtype)
         h = self.embeddings_ln(h)
+        if cfg.dropout_rate > 0.0 and self.training:
+            h = dropout_apply(h, dropout_seed, cfg.dropout_rate, EMBED_SITE)
         mask = (attention_mask[:, None, None, :].bool()
                 if attention_mask is not None else None)
         for i, block in enumerate(self.layer):
@@ -147,11 +153,6 @@ class BertForPreTraining(nn.Module):
 
     def __init__(self, config: BertConfig, seed: Optional[int] = 0):
         super().__init__()
-        if config.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "BertConfig.dropout_rate > 0 (residual and embedding "
-                "dropout) comes with the residual-dropout slice of the "
-                "port; attn_dropout_rate is supported")
         self.config = cfg = config
         self.bert = BertEncoder(cfg, seed=None)
         self.mlm_transform = QDense(cfg.d_model, cfg.d_model, True, cfg.dtype)

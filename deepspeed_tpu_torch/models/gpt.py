@@ -18,9 +18,13 @@ Attention dropout (``attn_dropout_rate``) is live in training mode only.
 The forward takes the step's seed words and gives layer ``i`` the words
 ``ops.dropout.fold_seed(dropout_seed, i)``: the port's own derivation,
 since flax's ``make_rng`` folding cannot be reproduced without JAX.
-Residual, MLP and embedding dropout (``dropout_rate``) are flax Bernoulli
-samples no port reproduces bit for bit; they come with a later slice and
-raise here.
+MLP and embedding dropout (``dropout_rate``, JAX gpt.py:151-152 and
+layers.py:618-619) are live in training mode too, on the same counter
+hash (``ops.dropout.dropout_apply``): the embeddings after the optional
+``emb_ln`` at ``EMBED_SITE`` of the forward's words, each layer's MLP
+output at ``MLP_SITE`` of the layer's. JAX's flax Bernoulli bits are not
+reproduced; the JAX package reproduces the port's when fed its masks
+(``tests/test_torch_dropout.py``).
 """
 
 from dataclasses import dataclass
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..inference.cache import PagedView
-from ..ops.dropout import fold_seed
+from ..ops.dropout import EMBED_SITE, dropout_apply, fold_seed
 from ..ops.transformer.rotary import rotary_tables
 from .layers import REMAT_POLICIES, Block, LayerNorm, QDense, remat_policy
 
@@ -44,7 +48,7 @@ class GPTConfig:
     n_layers: int = 12
     n_heads: int = 12
     d_ff: Optional[int] = None           # default 4*d_model
-    dropout_rate: float = 0.0            # residual/MLP/embedding: later slice
+    dropout_rate: float = 0.0            # MLP output and embeddings
     attn_dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32  # embeddings and dense layers
@@ -96,11 +100,6 @@ class GPT(nn.Module):
 
     def __init__(self, config: GPTConfig, seed: Optional[int] = 0):
         super().__init__()
-        if config.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "GPTConfig.dropout_rate > 0 (residual, MLP and embedding "
-                "dropout) comes with the residual-dropout slice of the "
-                "port; attn_dropout_rate is supported")
         remat_policy(config.remat)
         self.config = cfg = config
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
@@ -115,7 +114,7 @@ class GPT(nn.Module):
                   shared_parallel_ln=cfg.shared_parallel_ln,
                   attn_use_bias=cfg.attn_use_bias, alibi=cfg.alibi,
                   attn_dropout_rate=cfg.attn_dropout_rate,
-                  activation=cfg.activation,
+                  dropout_rate=cfg.dropout_rate, activation=cfg.activation,
                   rotary_dim=(cfg.rotary_dim or cfg.head_dim) if cfg.rotary
                   else None)
             for _ in range(cfg.n_layers))
@@ -157,7 +156,7 @@ class GPT(nn.Module):
         clipping gather never fails). ``positions``: [s] or [b, s]
         (default arange(s)). ``attention_mask`` [b, s] (1 = attend) for the
         cache-free forward. ``dropout_seed``: the (s0, s1) words of this
-        forward, needed in training mode when attention dropout is on.
+        forward, needed in training mode when a dropout rate is above 0.
         ``layer_keep_prob``: progressive layer drop's keep probability (a
         0-dim fp32 tensor from the engine, or a float). ``return_hidden``:
         (final hidden states, wte) instead of logits, for
@@ -178,6 +177,8 @@ class GPT(nn.Module):
                                 self.wpe).to(cfg.dtype)
         if self.emb_ln is not None:
             h = self.emb_ln(h)
+        if cfg.dropout_rate > 0.0 and self.training:
+            h = dropout_apply(h, dropout_seed, cfg.dropout_rate, EMBED_SITE)
         mask = (attention_mask[:, None, None, :].bool()
                 if attention_mask is not None else None)
         paged = isinstance(cache, PagedView)

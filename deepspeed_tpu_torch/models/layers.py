@@ -27,7 +27,12 @@ per slot attends straight over the page pool through ``paged_attention``;
 the layer hands the token's K/V back to the caller, who scatters it).
 Attention dropout (``attn_dropout_rate``) is live only in training mode
 (``module.train()``), only without a cache, and draws its keep bits from
-the counter hash with the layer's seed words (layers.py:517-565).
+the counter hash with the layer's seed words (layers.py:517-565). The
+MLP's output dropout (``dropout_rate``, layers.py:618-619) is live in
+training mode and draws from the same hash with the words
+``ops.dropout.site_words(layer words, MLP_SITE)``; ``Block`` hands its
+MLP the layer's words. As in JAX, the attention output has no dropout of
+its own: the only dropout of a block is the MLP's.
 
 Activation checkpointing (``Block(..., remat=name)``, the JAX models'
 ``remat``; ``REMAT_POLICIES``) runs on ``torch.utils.checkpoint`` without
@@ -59,6 +64,7 @@ from torch import nn
 
 from ..inference.cache import PagedLayer
 from ..ops.decode_attention import decode_attention
+from ..ops.dropout import MLP_SITE, dropout_apply
 from ..ops.paged_attention import paged_attention
 from ..ops.sparse_attention import layout_to_dense_mask, sparse_attention
 from ..ops.transformer.attention import attention
@@ -342,19 +348,27 @@ ACTIVATIONS = {
 
 class MLP(nn.Module):
     """Transformer FFN: fc_in, the activation (layers.py:601-610; "gelu"
-    is tanh-GELU), fc_out."""
+    is tanh-GELU), fc_out, and in training mode dropout of the output
+    (layers.py:618-619) at ``MLP_SITE`` of the layer's words."""
 
     def __init__(self, d_model: int, d_ff: int, dtype=torch.bfloat16,
-                 use_bias: bool = True, activation: str = "gelu"):
+                 use_bias: bool = True, activation: str = "gelu",
+                 dropout_rate: float = 0.0):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise ValueError(f"unknown activation {activation}")
         self.act = ACTIVATIONS[activation]
+        self.dropout_rate = dropout_rate
         self.fc_in = QDense(d_model, d_ff, use_bias, dtype)
         self.fc_out = QDense(d_ff, d_model, use_bias, dtype)
 
-    def forward(self, x):
-        return self.fc_out(self.act(self.fc_in(x)))
+    def forward(self, x, dropout_seed=None):
+        """``dropout_seed``: the layer's (s0, s1) words, needed in
+        training mode when ``dropout_rate`` > 0."""
+        h = self.fc_out(self.act(self.fc_in(x)))
+        if self.dropout_rate > 0.0 and self.training:
+            h = dropout_apply(h, dropout_seed, self.dropout_rate, MLP_SITE)
+        return h
 
 
 class RematPolicy(NamedTuple):
@@ -435,7 +449,8 @@ class Block(nn.Module):
                  pre_ln: bool = True, activation: str = "gelu",
                  sparsity_config=None,
                  sparsity_pattern_len: Optional[int] = None,
-                 rotary_dim: Optional[int] = None):
+                 rotary_dim: Optional[int] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.parallel_residual, self.pre_ln = parallel_residual, pre_ln
         self.ln_1 = LayerNorm(d_model, ln_epsilon)
@@ -446,7 +461,8 @@ class Block(nn.Module):
             use_bias if attn_use_bias is None else attn_use_bias, alibi,
             attn_dropout_rate, causal, sparsity_config, sparsity_pattern_len,
             rotary_dim)
-        self.mlp = MLP(d_model, d_ff, dtype, use_bias, activation)
+        self.mlp = MLP(d_model, d_ff, dtype, use_bias, activation,
+                       dropout_rate)
 
     def forward(self, x, mask=None, positions=None, kv_cache=None,
                 cache_index=None, dropout_seed=None, layer_keep_prob=None,
@@ -464,7 +480,8 @@ class Block(nn.Module):
             # ln_1 runs once, as in the layer without remat
             return checkpointed(policy, self._post_attention, x, o,
                                 layer_keep_prob,
-                                h1 if self.ln_2 is None else None)
+                                h1 if self.ln_2 is None else None,
+                                dropout_seed)
         if kv_cache is None:
             return self._block(x, mask, positions, dropout_seed,
                                layer_keep_prob, rope)
@@ -472,14 +489,14 @@ class Block(nn.Module):
         a = self.attn(h1, mask=mask, positions=positions, kv_cache=kv_cache,
                       cache_index=cache_index, dropout_seed=dropout_seed,
                       rope=rope)
-        return self._residual(x, a, layer_keep_prob, h1)
+        return self._residual(x, a, layer_keep_prob, h1, dropout_seed)
 
     def _block(self, x, mask, positions, dropout_seed, layer_keep_prob,
                rope=None):
         """The cache-free layer; ln_1(x) is computed once."""
         q, k, v, h1 = self._pre_attention(x, positions, rope)
         o = self.attn.attend(q, k, v, mask, positions, dropout_seed)
-        return self._post_attention(x, o, layer_keep_prob, h1)
+        return self._post_attention(x, o, layer_keep_prob, h1, dropout_seed)
 
     def _attn_input(self, x):
         """The attention's input: ln_1(x), but x itself in post-LN."""
@@ -492,29 +509,32 @@ class Block(nn.Module):
         h1 = self._attn_input(x)
         return (*self.attn.project(h1, positions, rope), h1)
 
-    def _post_attention(self, x, o, layer_keep_prob, h1=None):
+    def _post_attention(self, x, o, layer_keep_prob, h1=None,
+                        dropout_seed=None):
         """The output projection of the attention ``o`` and the rest of
-        the layer (``h1`` as in ``_residual``)."""
+        the layer (``h1`` and ``dropout_seed`` as in ``_residual``)."""
         b, s, _ = x.shape
         return self._residual(x, self.attn.out(o.reshape(b, s, -1)),
-                              layer_keep_prob, h1)
+                              layer_keep_prob, h1, dropout_seed)
 
-    def _residual(self, x, a, layer_keep_prob, h1=None):
+    def _residual(self, x, a, layer_keep_prob, h1=None, dropout_seed=None):
         """The layer after its attention output ``a``, and the PLD gate
         on JAX's ``x`` (layers.py:682-708). ``h1``: ln_1(x) when known
-        (the parallel layout's shared LN)."""
+        (the parallel layout's shared LN); ``dropout_seed``: the layer's
+        words, from which the MLP draws its dropout site's."""
+        mlp = functools.partial(self.mlp, dropout_seed=dropout_seed)
         if not (self.pre_ln or self.parallel_residual):
             x = self.ln_1(x + a)
-            y = self.ln_2(x + self.mlp(x))
+            y = self.ln_2(x + mlp(x))
         elif self.parallel_residual:
             if self.ln_2 is not None:
                 h2 = self.ln_2(x)
             else:
                 h2 = self.ln_1(x) if h1 is None else h1
-            y = x + a + self.mlp(h2)
+            y = x + a + mlp(h2)
         else:
             x = x + a
-            y = x + self.mlp(self.ln_2(x))
+            y = x + mlp(self.ln_2(x))
         return keep_gate(x, y, layer_keep_prob)
 
 

@@ -3,6 +3,7 @@ PyTorch versions; counterpart of ``deepspeed_tpu/ops``."""
 
 from .block_sparse_attention import block_sparse_attention  # noqa: F401
 from .decode_attention import decode_attention  # noqa: F401
+from .dropout import dropout_apply  # noqa: F401
 from .flash_attention import flash_attention, flash_attention_bwd  # noqa: F401
 from .fused_adam import fused_adam  # noqa: F401
 from .fused_lamb import fused_lamb  # noqa: F401

@@ -48,18 +48,18 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 def kernel_dtype_code(dtype: torch.dtype, fp16: bool = False) -> int:
     """The element-type code the C entry points take (0 fp32, 1 bf16, 2
     fp16). ``fp16``: the caller's kernel has an fp16 instance (flash
-    attention, decode and paged attention, the int8 matmul); the
-    LayerNorm, quantizer and block-sparse kernels refuse fp16 by name."""
+    attention, decode and paged attention, the int8 matmul, block-sparse
+    attention, dropout); the LayerNorm and quantizer kernels refuse fp16
+    by name."""
     code = _KERNEL_DTYPES.get(dtype)
     if code is None:
         raise TypeError(f"the CUDA kernels take float32, bfloat16 or "
                         f"float16, got {dtype}")
     if code == 2 and not fp16:
         raise TypeError(
-            "float16: the flash attention, decode attention, paged "
-            "attention and int8 matmul kernels have fp16 instances; the "
-            "LayerNorm, quantizer and block-sparse attention kernels' fp16 "
-            "instances come in a later slice of the port")
+            "float16: the LayerNorm and quantizer kernels' fp16 "
+            "instances come in a later slice of the port (the attention, "
+            "int8 matmul and dropout kernels have fp16 instances)")
     return code
 
 

@@ -4,9 +4,11 @@ plain versions.
 Counterpart of ``deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py``
 ``_sparse_fwd`` (:355), ``_sparse_dq`` (:379), ``_sparse_dkv`` (:402) and
 the ``custom_vjp`` around them (:428-467), here a
-``torch.autograd.Function``. The kernels split by dtype: bf16 runs on the
-tensor cores (``csrc/block_sparse_attention_fwd_bf16.cu``, the forward;
-``csrc/block_sparse_attention_bwd_bf16.cu``, dQ and dK/dV), fp32, the
+``torch.autograd.Function``. The kernels split by dtype: bf16 and fp16
+run on the tensor cores (``csrc/block_sparse_attention_fwd_bf16.cu``, the
+forward; ``csrc/block_sparse_attention_bwd_bf16.cu``, dQ and dK/dV; one
+kernel each, templated on the 16-bit type, ``_bf16`` and ``_fp16`` entry
+points), fp32, the
 parity mode, on 3xTF32 tensor-core products (the forward,
 ``csrc/block_sparse_attention_fwd.cu``; dQ and dK/dV,
 ``csrc/block_sparse_attention_bwd.cu``); they walk a ``DevicePlan``
@@ -194,7 +196,7 @@ def _check(q, k, v, plan: DevicePlan, extra=()):
                          f"{plan.seq_len}, {plan.plan.n_heads} heads on "
                          f"{plan.device} does not fit q {tuple(q.shape)} on "
                          f"{q.device}")
-    code = kernel_dtype_code(q.dtype)
+    code = kernel_dtype_code(q.dtype, fp16=True)
     ts = (q, k, v, *extra)
     for t in ts[1:]:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -214,8 +216,8 @@ def _lists(plan, transposed):
 
 
 def launch_fwd(q, k, v, plan: DevicePlan, scale, dropout=None):
-    """Launch the forward kernel (the bf16 or the 3xTF32 fp32 kernel);
-    returns (o, m, l)."""
+    """Launch the forward kernel (the bf16 or fp16 instance, or the
+    3xTF32 fp32 kernel); returns (o, m, l)."""
     from . import op_builder
     code, q, k, v = _check(q, k, v, plan)
     b, s, h, d = q.shape
@@ -247,7 +249,7 @@ def _bwd_args(q, k, v, do, delta, m, l, plan):
 
 def launch_dq(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
               dropout=None):
-    """Launch the dQ kernel (bf16 or 3xTF32 fp32, both on the tensor
+    """Launch the dQ kernel (bf16, fp16 or 3xTF32 fp32, all on the tensor
     cores); returns dq [b, S, h, d]."""
     from . import op_builder
     keep, ins, shape, strides = _bwd_args(q, k, v, do, delta, m, l, plan)
@@ -265,8 +267,8 @@ def launch_dq(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
 
 def launch_dkv(q, k, v, do, delta, m, l, plan: DevicePlan, scale,
                dropout=None):
-    """Launch the dK/dV kernel (bf16 or 3xTF32 fp32, both on the tensor
-    cores); returns (dk, dv) [b, S, h, d]."""
+    """Launch the dK/dV kernel (bf16, fp16 or 3xTF32 fp32, all on the
+    tensor cores); returns (dk, dv) [b, S, h, d]."""
     from . import op_builder
     keep, ins, shape, strides = _bwd_args(q, k, v, do, delta, m, l, plan)
     dk = torch.empty(keep[0].shape, dtype=k.dtype, device=k.device)
@@ -331,8 +333,8 @@ def block_sparse_attention(q, k, v, sparsity_config, *, softmax_scale=None,
     tiled at ``KERNEL_TILE`` or its heads differ from q's (the caller
     takes the dense-mask route). Dropout: rate and the seed words
     (s0, s1), the flash kernels' keep bits. A CUDA tensor launches the
-    kernels (head_dim 64, 80, 96 or 128, float32 or bfloat16, else it
-    raises); a CPU tensor runs the plain versions."""
+    kernels (head_dim 64, 80, 96 or 128, float32, bfloat16 or float16,
+    else it raises); a CPU tensor runs the plain versions."""
     b, s, h, d = q.shape
     plan = device_plan(sparsity_config, s, q.device)
     if plan is None or plan.plan.n_heads != h:

@@ -1,7 +1,11 @@
-// Block-sparse attention backward on the H100's tensor cores, bf16
-// (sm_90a): dQ and dK/dV.
+// Block-sparse attention backward on the H100's tensor cores, bf16 and
+// fp16 (sm_90a): dQ and dK/dV. Both kernels are templated on the 16-bit
+// element type T, with the bf16 or the fp16 mma.sync product and packing
+// (mma.cuh's mma16<T>, pack_rn<T>, c_to_a16<T>); below, "bf16" stands for
+// T: fp16 rounds where bf16 rounds (P o D before dV, dS before dK and dQ,
+// the stores; JAX :318-321, :278), and sums in fp32.
 //
-// Replaces, for bf16 inputs, the TPU kernels _dq_kernel
+// Replaces, for bf16 and fp16 inputs, the TPU kernels _dq_kernel
 // (deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:254, launched
 // by _sparse_dq :379) and _dkv_kernel (:286, _sparse_dkv :402); fp32 inputs
 // go to the 3xTF32 kernels of block_sparse_attention_bwd.cu, the port's
@@ -101,16 +105,15 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(bf16) * 6 * TILE * (D + 8);
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(128 * dkv_q_groups<D>())
-sparse_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
+sparse_dkv_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ delta,
                        const float* __restrict__ m_in,
                        const float* __restrict__ l_in, Lists lists,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv,
-                       SparseArgs a, DropoutParams dr) {
+                       T* __restrict__ dk, T* __restrict__ dv, SparseArgs a,
+                       DropoutParams dr) {
   constexpr int QG = dkv_q_groups<D>();
   constexpr int NT = 128 * QG;
   constexpr int QC = TILE / QG;  // q columns of a warp in each step
@@ -119,10 +122,10 @@ sparse_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KS = D / 16;
   constexpr int NB = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + TILE * P;
-  bf16* Qs = Vs + TILE * P;       // two stages
-  bf16* dOs = Qs + 2 * TILE * P;  // two stages
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + TILE * P;
+  T* Qs = Vs + TILE * P;       // two stages
+  T* dOs = Qs + 2 * TILE * P;  // two stages
   float* stats = reinterpret_cast<float*>(dOs + 2 * TILE * P);  // 2 x m,l,dl
 
   int h, kt, b;
@@ -135,8 +138,8 @@ sparse_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qh = warp >> 2;  // and its q columns [qh * QC, qh * QC + QC)
   const int kl0 = kw * 16 + g;  // this thread's keys in the tile: kl0, +8
 
-  const bf16* qb = q + b * a.q_sb + h * a.q_sh;
-  const bf16* ob = dout + b * a.o_sb + h * a.o_sh;
+  const T* qb = q + b * a.q_sb + h * a.q_sh;
+  const T* ob = dout + b * a.o_sb + h * a.o_sh;
   const long long so = (static_cast<long long>(b) * a.H + h) * a.S;
   const float* mb = m_in + so;
   const float* lb = l_in + so;
@@ -189,8 +192,8 @@ sparse_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Qt = Qs + st * TILE * P + qh * QC * P;  // this warp's q rows
-    const bf16* dOt = dOs + st * TILE * P + qh * QC * P;
+    const T* Qt = Qs + st * TILE * P + qh * QC * P;  // this warp's q rows
+    const T* dOt = dOs + st * TILE * P + qh * QC * P;
     const float* mt = stats + st * 3 * TILE + qh * QC;
     const float* lt = mt + TILE;
     const float* dlt = mt + 2 * TILE;
@@ -214,10 +217,10 @@ sparse_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bq[4], bo[4];
         ldsm_x4(bq, Qt + brow);
         ldsm_x4(bo, dOt + brow);
-        mma_bf16(sT[jj], ak, bq[0], bq[1]);
-        mma_bf16(sT[jj + 1], ak, bq[2], bq[3]);
-        mma_bf16(dpT[jj], av, bo[0], bo[1]);
-        mma_bf16(dpT[jj + 1], av, bo[2], bo[3]);
+        mma16<T>(sT[jj], ak, bq[0], bq[1]);
+        mma16<T>(sT[jj + 1], ak, bq[2], bq[3]);
+        mma16<T>(dpT[jj], av, bo[0], bo[1]);
+        mma16<T>(dpT[jj + 1], av, bo[2], bo[3]);
       }
     }
 
@@ -268,8 +271,8 @@ sparse_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kc = 0; kc < QC / 16; ++kc) {
       uint32_t pa[4], sa[4];
-      c_to_a(pa, sT[2 * kc], sT[2 * kc + 1]);    // P o D rounded to bf16
-      c_to_a(sa, dpT[2 * kc], dpT[2 * kc + 1]);  // dS rounded to bf16
+      c_to_a16<T>(pa, sT[2 * kc], sT[2 * kc + 1]);    // P o D rounded to T
+      c_to_a16<T>(sa, dpT[2 * kc], dpT[2 * kc + 1]);  // dS rounded to T
 #pragma unroll
       for (int n = 0; n < NB; n += 2) {
         const int brow = (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
@@ -277,10 +280,10 @@ sparse_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bo[4], bq[4];
         ldsm_x4_t(bo, dOt + brow);
         ldsm_x4_t(bq, Qt + brow);
-        mma_bf16(tv[n], pa, bo[0], bo[1]);
-        mma_bf16(tv[n + 1], pa, bo[2], bo[3]);
-        mma_bf16(tk[n], sa, bq[0], bq[1]);
-        mma_bf16(tk[n + 1], sa, bq[2], bq[3]);
+        mma16<T>(tv[n], pa, bo[0], bo[1]);
+        mma16<T>(tv[n + 1], pa, bo[2], bo[3]);
+        mma16<T>(tk[n], sa, bq[0], bq[1]);
+        mma16<T>(tk[n + 1], sa, bq[2], bq[3]);
       }
     }
 #pragma unroll
@@ -330,31 +333,30 @@ sparse_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
       *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t) =
-          pack_bf16_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+          pack_rn<T>(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t) =
-          pack_bf16_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+          pack_rn<T>(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(128)
-sparse_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
+sparse_dq_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ delta,
                       const float* __restrict__ m_in,
                       const float* __restrict__ l_in, Lists lists,
-                      bf16* __restrict__ dq, SparseArgs a, DropoutParams dr) {
+                      T* __restrict__ dq, SparseArgs a, DropoutParams dr) {
   constexpr int NT = 128;
   constexpr int P = D + 8;
   constexpr int KS = D / 16;
   constexpr int NB = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + TILE * P;
-  bf16* Ks = dOs + TILE * P;     // two stages
-  bf16* Vs = Ks + 2 * TILE * P;  // two stages
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + TILE * P;
+  T* Ks = dOs + TILE * P;     // two stages
+  T* Vs = Ks + 2 * TILE * P;  // two stages
 
   int h, qt, b;
   cta_row(lists, a, h, qt, b);
@@ -364,8 +366,8 @@ sparse_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int rl0 = warp * 16 + g;  // this thread's rows in the tile: rl0, +8
 
-  const bf16* kb = k + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = v + b * a.v_sb + h * a.v_sh;
+  const T* kb = k + b * a.k_sb + h * a.k_sh;
+  const T* vb = v + b * a.v_sb + h * a.v_sh;
 
   const long long row = static_cast<long long>(h) * a.nt + qt;
   const int* idx = lists.idx + row * a.width;
@@ -418,8 +420,8 @@ sparse_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + st * TILE * P;
-    const bf16* Vt = Vs + st * TILE * P;
+    const T* Kt = Ks + st * TILE * P;
+    const T* Vt = Vs + st * TILE * P;
 
     // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
     float s[8][4], dp[8][4];
@@ -441,10 +443,10 @@ sparse_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bk[4], bv[4];
         ldsm_x4(bk, Kt + brow);
         ldsm_x4(bv, Vt + brow);
-        mma_bf16(s[jj], aq, bk[0], bk[1]);
-        mma_bf16(s[jj + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[jj], ao, bv[0], bv[1]);
-        mma_bf16(dp[jj + 1], ao, bv[2], bv[3]);
+        mma16<T>(s[jj], aq, bk[0], bk[1]);
+        mma16<T>(s[jj + 1], aq, bk[2], bk[3]);
+        mma16<T>(dp[jj], ao, bv[0], bv[1]);
+        mma16<T>(dp[jj + 1], ao, bv[2], bv[3]);
       }
     }
 
@@ -476,7 +478,7 @@ sparse_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // dQ += dS K: dS rounded to bf16 in registers is the A operand; the
+    // dQ += dS K: dS rounded to T in registers is the A operand; the
     // tile's product in fresh accumulators, then added to the sum
     float tq[NB][4];
 #pragma unroll
@@ -486,14 +488,14 @@ sparse_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       uint32_t sa[4];
-      c_to_a(sa, s[2 * kc], s[2 * kc + 1]);
+      c_to_a16<T>(sa, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
       for (int n = 0; n < NB; n += 2) {
         uint32_t bk[4];
         ldsm_x4_t(bk, Kt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
                           n * 8 + (lane >> 4) * 8);
-        mma_bf16(tq[n], sa, bk[0], bk[1]);
-        mma_bf16(tq[n + 1], sa, bk[2], bk[3]);
+        mma16<T>(tq[n], sa, bk[0], bk[1]);
+        mma16<T>(tq[n + 1], sa, bk[2], bk[3]);
       }
     }
 #pragma unroll
@@ -511,7 +513,7 @@ sparse_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NB; ++n)
       *reinterpret_cast<uint32_t*>(dq + off + n * 8 + 2 * t) =
-          pack_bf16_rn(dq_acc[n][2 * i], dq_acc[n][2 * i + 1]);
+          pack_rn<T>(dq_acc[n][2 * i], dq_acc[n][2 * i + 1]);
   }
 }
 
@@ -522,61 +524,64 @@ struct Ptrs {
   void *out0, *out1;
 };
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 int launch_dkv(const Ptrs& p, const Lists& lists, const SparseArgs& a,
                const DropoutParams& dr, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaFuncSetAttribute(sparse_dkv_bf16_kernel<D, DROP>,
+  cudaFuncSetAttribute(sparse_dkv_bf16_kernel<T, D, DROP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  sparse_dkv_bf16_kernel<D, DROP>
+  sparse_dkv_bf16_kernel<T, D, DROP>
       <<<a.H * a.nt * a.batch, 128 * dkv_q_groups<D>(), smem, stream>>>(
-          static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
-          static_cast<const bf16*>(p.v), static_cast<const bf16*>(p.dout),
-          p.delta, p.m_in, p.l_in, lists, static_cast<bf16*>(p.out0),
-          static_cast<bf16*>(p.out1), a, dr);
+          static_cast<const T*>(p.q), static_cast<const T*>(p.k),
+          static_cast<const T*>(p.v), static_cast<const T*>(p.dout), p.delta,
+          p.m_in, p.l_in, lists, static_cast<T*>(p.out0),
+          static_cast<T*>(p.out1), a, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 int launch_dq(const Ptrs& p, const Lists& lists, const SparseArgs& a,
               const DropoutParams& dr, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaFuncSetAttribute(sparse_dq_bf16_kernel<D, DROP>,
+  cudaFuncSetAttribute(sparse_dq_bf16_kernel<T, D, DROP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  sparse_dq_bf16_kernel<D, DROP><<<a.H * a.nt * a.batch, 128, smem, stream>>>(
-      static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
-      static_cast<const bf16*>(p.v), static_cast<const bf16*>(p.dout),
-      p.delta, p.m_in, p.l_in, lists, static_cast<bf16*>(p.out0), a, dr);
+  sparse_dq_bf16_kernel<T, D, DROP>
+      <<<a.H * a.nt * a.batch, 128, smem, stream>>>(
+          static_cast<const T*>(p.q), static_cast<const T*>(p.k),
+          static_cast<const T*>(p.v), static_cast<const T*>(p.dout), p.delta,
+          p.m_in, p.l_in, lists, static_cast<T*>(p.out0), a, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
 using LaunchFn = int (*)(const Ptrs&, const Lists&, const SparseArgs&,
                          const DropoutParams&, cudaStream_t);
 
-template <int D, bool DROP>
-struct PickDq { static constexpr LaunchFn fn = launch_dq<D, DROP>; };
-template <int D, bool DROP>
-struct PickDkv { static constexpr LaunchFn fn = launch_dkv<D, DROP>; };
+template <typename T, int D, bool DROP>
+struct PickDq { static constexpr LaunchFn fn = launch_dq<T, D, DROP>; };
+template <typename T, int D, bool DROP>
+struct PickDkv { static constexpr LaunchFn fn = launch_dkv<T, D, DROP>; };
 
-// the instance of one launcher template for (d, dropout), or null
-template <template <int, bool> class Pick>
+// the instance of one launcher template for (element type, d, dropout), or
+// null
+template <typename T, template <typename, int, bool> class Pick>
 LaunchFn pick(int d, int dropout) {
-  if (d == 64) return dropout ? Pick<64, true>::fn : Pick<64, false>::fn;
-  if (d == 80) return dropout ? Pick<80, true>::fn : Pick<80, false>::fn;
-  if (d == 96) return dropout ? Pick<96, true>::fn : Pick<96, false>::fn;
-  if (d == 128) return dropout ? Pick<128, true>::fn : Pick<128, false>::fn;
+  if (d == 64) return dropout ? Pick<T, 64, true>::fn : Pick<T, 64, false>::fn;
+  if (d == 80) return dropout ? Pick<T, 80, true>::fn : Pick<T, 80, false>::fn;
+  if (d == 96) return dropout ? Pick<T, 96, true>::fn : Pick<T, 96, false>::fn;
+  if (d == 128)
+    return dropout ? Pick<T, 128, true>::fn : Pick<T, 128, false>::fn;
   return nullptr;
 }
 
-int run(LaunchFn fn, int dtype, const Ptrs& p, const void* idx,
+int run(LaunchFn fn, int dtype, int code, const Ptrs& p, const void* idx,
         const void* pid, const void* table, const void* masks, int b, int h,
         int S, int width, long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_ss, long long k_sh, long long v_sb,
         long long v_ss, long long v_sh, long long o_sb, long long o_ss,
         long long o_sh, float scale, const DropoutParams& dr, void* stream) {
-  if (fn == nullptr || dtype != 1)
+  if (fn == nullptr || dtype != code)
     return static_cast<int>(cudaErrorInvalidValue);
   const Lists lists{static_cast<const int*>(idx), static_cast<const int*>(pid),
                     static_cast<const int*>(table),
@@ -589,42 +594,57 @@ int run(LaunchFn fn, int dtype, const Ptrs& p, const void* idx,
 
 }  // namespace
 
-// bf16 only (dtype 1); d in {64, 80, 96, 128}; S a multiple of 64 (the
-// wrapper checks). The arguments are block_sparse_attention_dq's and
-// block_sparse_attention_dkv's (block_sparse_attention_bwd.cu); `cnt` is the
-// plan's count table (the counts, the launch order, the all-live flags);
-// q/k/v/dout additionally need 16-byte aligned bases and (batch, sequence,
-// head) strides.
-extern "C" int block_sparse_attention_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* delta, const void* m, const void* l, const void* idx,
-    const void* pid, const void* cnt, const void* masks, void* dq, int dtype,
-    int b, int h, int S, int d, int width, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, float scale, DS_DROPOUT_PARAMS,
-    void* stream) {
-  const Ptrs p{q, k, v, dout, static_cast<const float*>(delta),
-               static_cast<const float*>(m), static_cast<const float*>(l),
-               dq, nullptr};
-  return run(pick<PickDq>(d, dropout), dtype, p, idx, pid, cnt, masks, b, h,
-             S, width, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-             o_sb, o_ss, o_sh, scale, DS_DROPOUT_STRUCT, stream);
+// The _bf16 entry points take bf16 (dtype 1), the _fp16 ones fp16 (dtype
+// 2); d in {64, 80, 96, 128}; S a multiple of 64 (the wrapper checks). The
+// arguments are block_sparse_attention_dq's and block_sparse_attention_dkv's
+// (block_sparse_attention_bwd.cu); `cnt` is the plan's count table (the
+// counts, the launch order, the all-live flags); q/k/v/dout additionally
+// need 16-byte aligned bases and (batch, sequence, head) strides.
+#define DS_SPARSE_DQ_PARAMS                                                  \
+  const void *q, const void *k, const void *v, const void *dout,           \
+      const void *delta, const void *m, const void *l, const void *idx,    \
+      const void *pid, const void *cnt, const void *masks, void *dq,       \
+      int dtype, int b, int h, int S, int d, int width, long long q_sb,    \
+      long long q_ss, long long q_sh, long long k_sb, long long k_ss,      \
+      long long k_sh, long long v_sb, long long v_ss, long long v_sh,      \
+      long long o_sb, long long o_ss, long long o_sh, float scale,         \
+      DS_DROPOUT_PARAMS, void *stream
+#define DS_SPARSE_DKV_PARAMS                                                 \
+  const void *q, const void *k, const void *v, const void *dout,           \
+      const void *delta, const void *m, const void *l, const void *idx,    \
+      const void *pid, const void *cnt, const void *masks, void *dk,       \
+      void *dv, int dtype, int b, int h, int S, int d, int width,          \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,      \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,      \
+      long long v_sh, long long o_sb, long long o_ss, long long o_sh,      \
+      float scale, DS_DROPOUT_PARAMS, void *stream
+// everything after the launcher, the dtype and its code, and the pointers
+#define DS_SPARSE_BWD_REST                                                   \
+  idx, pid, cnt, masks, b, h, S, width, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, \
+      v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, DS_DROPOUT_STRUCT, stream
+#define DS_SPARSE_PTRS(OUT0, OUT1)                                           \
+  Ptrs {                                                                    \
+    q, k, v, dout, static_cast<const float*>(delta),                        \
+        static_cast<const float*>(m), static_cast<const float*>(l), OUT0,  \
+        OUT1                                                                \
+  }
+
+extern "C" int block_sparse_attention_dq_bf16(DS_SPARSE_DQ_PARAMS) {
+  return run(pick<bf16, PickDq>(d, dropout), dtype, 1,
+             DS_SPARSE_PTRS(dq, nullptr), DS_SPARSE_BWD_REST);
 }
 
-extern "C" int block_sparse_attention_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* delta, const void* m, const void* l, const void* idx,
-    const void* pid, const void* cnt, const void* masks, void* dk, void* dv,
-    int dtype, int b, int h, int S, int d, int width, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, float scale,
-    DS_DROPOUT_PARAMS, void* stream) {
-  const Ptrs p{q, k, v, dout, static_cast<const float*>(delta),
-               static_cast<const float*>(m), static_cast<const float*>(l),
-               dk, dv};
-  return run(pick<PickDkv>(d, dropout), dtype, p, idx, pid, cnt, masks, b, h,
-             S, width, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-             o_sb, o_ss, o_sh, scale, DS_DROPOUT_STRUCT, stream);
+extern "C" int block_sparse_attention_dkv_bf16(DS_SPARSE_DKV_PARAMS) {
+  return run(pick<bf16, PickDkv>(d, dropout), dtype, 1,
+             DS_SPARSE_PTRS(dk, dv), DS_SPARSE_BWD_REST);
+}
+
+extern "C" int block_sparse_attention_dq_fp16(DS_SPARSE_DQ_PARAMS) {
+  return run(pick<f16, PickDq>(d, dropout), dtype, 2,
+             DS_SPARSE_PTRS(dq, nullptr), DS_SPARSE_BWD_REST);
+}
+
+extern "C" int block_sparse_attention_dkv_fp16(DS_SPARSE_DKV_PARAMS) {
+  return run(pick<f16, PickDkv>(d, dropout), dtype, 2,
+             DS_SPARSE_PTRS(dk, dv), DS_SPARSE_BWD_REST);
 }

@@ -1,7 +1,10 @@
-// Block-sparse attention forward on the H100's tensor cores, bf16
-// (sm_90a): O and the row statistics m and l.
+// Block-sparse attention forward on the H100's tensor cores, bf16 and
+// fp16 (sm_90a): O and the row statistics m and l. One kernel templated
+// on the 16-bit element type T, with the bf16 or the fp16 mma.sync
+// product and packing (mma.cuh's mma16<T>, pack_rn<T>, c_to_a16<T>);
+// below, "bf16" stands for T.
 //
-// Replaces, for bf16 inputs, the TPU kernel _fwd_kernel
+// Replaces, for bf16 and fp16 inputs, the TPU kernel _fwd_kernel
 // (deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:211, launched
 // by _sparse_fwd :355); fp32 inputs go to the 3xTF32 kernel of
 // block_sparse_attention_fwd.cu, the port's parity mode. Same function and
@@ -59,23 +62,23 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(bf16) * 5 * TILE * (D + 8);  // Q, 2 x K, 2 x V
+  return 2 * 5 * TILE * (D + 8);  // Q, 2 x K, 2 x V of 16-bit elements
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS)
-sparse_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, Lists lists,
-                       bf16* __restrict__ o, float* __restrict__ m_out,
+sparse_fwd_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, Lists lists,
+                       T* __restrict__ o, float* __restrict__ m_out,
                        float* __restrict__ l_out, SparseArgs a,
                        DropoutParams dr) {
   constexpr int P = D + 8;    // shared row pitch (elements)
   constexpr int KS = D / 16;  // 16-deep steps of Q K^T
   constexpr int NB = D / 8;   // 8-column blocks of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + TILE * P;      // two stages
-  bf16* Vs = Ks + 2 * TILE * P;  // two stages
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + TILE * P;      // two stages
+  T* Vs = Ks + 2 * TILE * P;  // two stages
 
   int h, qt, b;
   cta_row(lists, a, h, qt, b);
@@ -85,8 +88,8 @@ sparse_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int rl0 = warp * 16 + g;  // this thread's rows in the tile: rl0, +8
 
-  const bf16* kb = k + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = v + b * a.v_sb + h * a.v_sh;
+  const T* kb = k + b * a.k_sb + h * a.k_sh;
+  const T* vb = v + b * a.v_sb + h * a.v_sh;
 
   const long long row = static_cast<long long>(h) * a.nt + qt;
   const int* idx = lists.idx + row * a.width;
@@ -134,8 +137,8 @@ sparse_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + st * TILE * P;
-    const bf16* Vt = Vs + st * TILE * P;
+    const T* Kt = Ks + st * TILE * P;
+    const T* Vt = Vs + st * TILE * P;
 
     if (j == 0) {
 #pragma unroll
@@ -156,8 +159,8 @@ sparse_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bk[4];
         ldsm_x4(bk, Kt + (jj * 8 + (lane & 7) + (lane >> 4) * 8) * P +
                         kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[jj], qa[kk], bk[0], bk[1]);
-        mma_bf16(s[jj + 1], qa[kk], bk[2], bk[3]);
+        mma16<T>(s[jj], qa[kk], bk[0], bk[1]);
+        mma16<T>(s[jj + 1], qa[kk], bk[2], bk[3]);
       }
     }
 
@@ -219,7 +222,7 @@ sparse_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t pa[4][4];
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)
-      c_to_a(pa[kc], s[2 * kc], s[2 * kc + 1]);  // p' rounded to bf16
+      c_to_a16<T>(pa[kc], s[2 * kc], s[2 * kc + 1]);  // p' rounded to T
 #pragma unroll
     for (int n = 0; n < NB; n += 2) {
       float tv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -228,8 +231,8 @@ sparse_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bv[4];
         ldsm_x4_t(bv, Vt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
                           n * 8 + (lane >> 4) * 8);
-        mma_bf16(tv[0], pa[kc], bv[0], bv[1]);
-        mma_bf16(tv[1], pa[kc], bv[2], bv[3]);
+        mma16<T>(tv[0], pa[kc], bv[0], bv[1]);
+        mma16<T>(tv[1], pa[kc], bv[2], bv[3]);
       }
 #pragma unroll
       for (int c = 0; c < 2; ++c)
@@ -248,10 +251,10 @@ sparse_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int r = q0 + rl0 + 8 * i;
     const float safe_l = l[i] > 0.f ? l[i] : 1.f;  // no live key -> zeros
-    bf16* orow = o + ((static_cast<long long>(b) * a.S + r) * a.H + h) * D;
+    T* orow = o + ((static_cast<long long>(b) * a.S + r) * a.H + h) * D;
 #pragma unroll
     for (int n = 0; n < NB; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_bf16_rn(
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_rn<T>(
           acc[n][2 * i] / safe_l, acc[n][2 * i + 1] / safe_l);
     if (t == 0) {
       const long long at = (static_cast<long long>(b) * a.H + h) * a.S + r;
@@ -261,54 +264,41 @@ sparse_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 int launch(const void* q, const void* k, const void* v, const Lists& lists,
            void* o, float* m, float* l, const SparseArgs& a,
            const DropoutParams& dr, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<D>();
-  cudaFuncSetAttribute(sparse_fwd_bf16_kernel<D, DROP>,
+  cudaFuncSetAttribute(sparse_fwd_bf16_kernel<T, D, DROP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  sparse_fwd_bf16_kernel<D, DROP>
+  sparse_fwd_bf16_kernel<T, D, DROP>
       <<<a.H * a.nt * a.batch, THREADS, smem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), lists, static_cast<bf16*>(o), m, l, a,
-          dr);
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lists, static_cast<T*>(o), m, l, a, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// bf16 only (dtype 1; float32 is block_sparse_attention_fwd's); d in
-// {64, 80, 96, 128}; S a multiple of 64 (the wrapper checks). q/k/v are
-// [b, S, h, d] with unit stride along d, 16-byte aligned bases and the
-// given (batch, sequence, head) strides in elements, multiples of 8;
-// idx/pid are the kv lists, int32 [h, S / 64, width], and cnt the plan's
-// count table (block_sparse.cuh); masks int8 [U, 64, 64]; o is contiguous
-// [b, S, h, d], m and l contiguous fp32 [b, h, S]. dropout != 0 turns on
-// the keep hash.
-extern "C" int block_sparse_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* idx,
-    const void* pid, const void* cnt, const void* masks, void* o, void* m,
-    void* l, int dtype, int b, int h, int S, int d, int width,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, DS_DROPOUT_PARAMS, void* stream) {
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* idx,
+        const void* pid, const void* cnt, const void* masks, void* o, void* m,
+        void* l, int b, int h, int S, int d, int width, long long q_sb,
+        long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+        long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+        float scale, int dropout, const DropoutParams& dr, void* stream) {
   const Lists lists{static_cast<const int*>(idx), static_cast<const int*>(pid),
                     static_cast<const int*>(cnt),
                     static_cast<const signed char*>(masks)};
   const SparseArgs a{h, S, S / TILE, width, b, q_sb, q_ss, q_sh, k_sb, k_ss,
                      k_sh, v_sb, v_ss, v_sh, 0, 0, 0, scale};
-  const DropoutParams dr = DS_DROPOUT_STRUCT;
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_SPARSE_DISPATCH(DROP)                                          \
-  if (d == 64) return launch<64, DROP>(q, k, v, lists, o, mf, lf, a, dr, st);  \
-  if (d == 80) return launch<80, DROP>(q, k, v, lists, o, mf, lf, a, dr, st);  \
-  if (d == 96) return launch<96, DROP>(q, k, v, lists, o, mf, lf, a, dr, st);  \
-  if (d == 128) return launch<128, DROP>(q, k, v, lists, o, mf, lf, a, dr, st);
+#define DS_SPARSE_DISPATCH(DROP)                                            \
+  if (d == 64) return launch<T, 64, DROP>(q, k, v, lists, o, mf, lf, a, dr, st); \
+  if (d == 80) return launch<T, 80, DROP>(q, k, v, lists, o, mf, lf, a, dr, st); \
+  if (d == 96) return launch<T, 96, DROP>(q, k, v, lists, o, mf, lf, a, dr, st); \
+  if (d == 128) return launch<T, 128, DROP>(q, k, v, lists, o, mf, lf, a, dr, st);
   if (dropout) {
     DS_SPARSE_DISPATCH(true)
   } else {
@@ -316,4 +306,38 @@ extern "C" int block_sparse_attention_fwd_bf16(
   }
 #undef DS_SPARSE_DISPATCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// block_sparse_attention_fwd_bf16 takes bf16 (dtype 1),
+// block_sparse_attention_fwd_fp16 fp16 (dtype 2); float32 is
+// block_sparse_attention_fwd's; d in
+// {64, 80, 96, 128}; S a multiple of 64 (the wrapper checks). q/k/v are
+// [b, S, h, d] with unit stride along d, 16-byte aligned bases and the
+// given (batch, sequence, head) strides in elements, multiples of 8;
+// idx/pid are the kv lists, int32 [h, S / 64, width], and cnt the plan's
+// count table (block_sparse.cuh); masks int8 [U, 64, 64]; o is contiguous
+// [b, S, h, d], m and l contiguous fp32 [b, h, S]. dropout != 0 turns on
+// the keep hash.
+#define DS_SPARSE_FWD_PARAMS                                                  \
+  const void *q, const void *k, const void *v, const void *idx,             \
+      const void *pid, const void *cnt, const void *masks, void *o, void *m, \
+      void *l, int dtype, int b, int h, int S, int d, int width,            \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,       \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,       \
+      long long v_sh, float scale, DS_DROPOUT_PARAMS, void *stream
+#define DS_SPARSE_FWD_ARGS                                                  \
+  q, k, v, idx, pid, cnt, masks, o, m, l, b, h, S, d, width, q_sb, q_ss,    \
+      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, dropout,             \
+      DS_DROPOUT_STRUCT, stream
+
+extern "C" int block_sparse_attention_fwd_bf16(DS_SPARSE_FWD_PARAMS) {
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run<bf16>(DS_SPARSE_FWD_ARGS);
+}
+
+extern "C" int block_sparse_attention_fwd_fp16(DS_SPARSE_FWD_PARAMS) {
+  if (dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return run<f16>(DS_SPARSE_FWD_ARGS);
 }

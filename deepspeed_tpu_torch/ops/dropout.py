@@ -1,4 +1,5 @@
-"""Counter-based attention dropout: the keep hash and its seed words.
+"""Counter-based dropout: the keep hash, its seed words, and the
+activation dropout of the residual, MLP and embedding sites.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py`` ``_mix32``
 (:80), ``_keep_from_coords`` (:89), ``_seed_words`` (:102) and
@@ -19,9 +20,31 @@ per-step, per-microbatch and per-layer words (flax's ``make_rng`` folding
 needs JAX and is not reproduced): ``seed_words(n)`` is the word pair of
 ``jax.random.PRNGKey(n)`` for ``0 <= n < 2**32``, and ``fold_seed`` mixes
 one integer into a pair with the same murmur3 finalizer the hash uses.
+
+Activation dropout (``dropout_apply``; JAX: flax ``nn.Dropout`` at
+``models/layers.py:618-619`` (the MLP output), ``models/gpt.py:151-152``
+and ``models/bert.py:83-84`` (the embeddings), and
+``ops/transformer/transformer.py`` ``_dropout`` :233 (the fused layer's
+hidden1 and hidden2)) draws the same hash: element (b, s, j) of a
+[b, s, d] activation is kept when ``keep_from_coords(s0, s1, b, s, j,
+rate)`` says so. A site's words are ``fold_seed(words, site)`` of the
+layer's (or the forward's) words and the site's index, never the layer's
+own words, which its attention dropout takes. A kept element becomes
+``x / dtype(1 - rate)``: JAX divides by ``1.0 - rate``, a weakly typed
+Python float that takes the activation's dtype, so a bf16 activation is
+divided by bf16(0.9) = 0.8984375, not by 0.9. The quotient is taken in
+fp32 and rounded once to the dtype, which for fp32, bf16 and fp16 is
+JAX's division bit for bit. Dropped elements are 0, and the backward is
+the same map of the gradient, redrawn from the words: no mask is saved,
+so a recompute (remat) or a resumed run drops the same elements. A CUDA
+tensor launches ``csrc/dropout.cu`` (one fused pass; the plain version
+is ~20 int64 elementwise passes a site), a CPU tensor runs the plain
+version.
 """
 
 import torch
+
+from ._common import check_launch, kernel_dtype_code, use_kernel
 
 M32 = 0xFFFFFFFF
 
@@ -88,3 +111,112 @@ def attention_dropout_keep(words, rate, shape, total_heads=None,
     j = ar(sk, k_offset)[None, None, None, :]
     bh = (_mul32(bi, int(total_heads if total_heads else h)) + hi) & M32
     return keep_from_coords(words[0], words[1], bh, i, j, rate)
+
+
+# --------------------------------------------------------------------------
+# activation dropout
+# --------------------------------------------------------------------------
+
+# The site indices: a site's words are fold_seed(words, site). MLP_SITE is
+# the MLP output of models.layers.Block (fold over the layer's words);
+# HIDDEN1_SITE and HIDDEN2_SITE the attention-output and FFN-output
+# dropout of the fused DeepSpeedTransformerLayer (over its words);
+# EMBED_SITE the embeddings (over the forward's words, which fold_seed
+# gives layer i as fold_seed(words, i): no layer index reaches 2**32 - 1).
+MLP_SITE, HIDDEN1_SITE, HIDDEN2_SITE = 1, 2, 3
+EMBED_SITE = M32
+
+
+def site_words(words, site: int):
+    """The word pair of one dropout site of a layer (or of the forward)."""
+    return fold_seed(words, site)
+
+
+def keep_divisor(rate: float, dtype: torch.dtype) -> float:
+    """``dtype(1 - rate)``: what JAX divides a kept element by (the weakly
+    typed ``1.0 - rate`` takes the activation's dtype), through fp32 as
+    the kernel rounds it."""
+    return float(torch.tensor(1.0 - rate, dtype=torch.float32).to(dtype))
+
+
+def activation_keep(words, rate, shape, device=None):
+    """Boolean keep mask [b, s, d] of one site: element (b, s, j) is
+    ``keep_from_coords(s0, s1, b, s, j, rate)``."""
+    b, s, d = shape
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    return keep_from_coords(words[0], words[1], ar(b)[:, None, None],
+                            ar(s)[None, :, None], ar(d)[None, None, :], rate)
+
+
+def dropout_reference(x, words, rate):
+    """The dropout kernel's function in plain PyTorch: kept elements
+    ``x / dtype(1 - rate)`` (the quotient in fp32, a full tensor so no
+    division by a scalar becomes a product with its reciprocal, rounded
+    once to x's dtype), dropped ones 0. x [b, s, d]."""
+    keep = activation_keep(words, rate, x.shape, x.device)
+    xf = x.float()
+    q = (xf / torch.full_like(xf, keep_divisor(rate, x.dtype))).to(x.dtype)
+    return torch.where(keep, q, torch.zeros_like(q))
+
+
+def _launch(x, words, rate, backward):
+    """Launch the dropout kernel on a [b, s, d] CUDA tensor."""
+    from . import op_builder
+    code = kernel_dtype_code(x.dtype, fp16=True)
+    x = x.contiguous()
+    b, s, d = x.shape
+    y = torch.empty_like(x)
+    check_launch(op_builder.load().dropout_apply(
+        x.data_ptr(), y.data_ptr(), code, x.numel(), s, d, 1.0 - rate,
+        int(words[0]) & M32, int(words[1]) & M32, keep_threshold(rate),
+        torch.cuda.current_stream(x.device).cuda_stream), "dropout_apply")
+    if backward:
+        dropout_apply.bwd_launches += 1
+    else:
+        dropout_apply.fwd_launches += 1
+    return y
+
+
+def dropout_map(x, words, rate, backward=False):
+    """One site's dropout map of ``x`` (an activation, or its gradient
+    with ``backward``): the kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    if x.dim() != 3:
+        raise ValueError(f"dropout: a [batch, seq, features] activation, "
+                         f"got shape {tuple(x.shape)}")
+    if use_kernel(x):
+        return _launch(x, words, rate, backward)
+    return dropout_reference(x, words, rate)
+
+
+class _ActivationDropout(torch.autograd.Function):
+    """y = map(x), dx = map(dy): the backward redraws the keep bits from
+    the words and saves nothing."""
+
+    @staticmethod
+    def forward(ctx, x, words, rate):
+        ctx.words, ctx.rate = words, rate
+        return dropout_map(x, words, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dropout_map(g, ctx.words, ctx.rate, backward=True), None, None
+
+
+def dropout_apply(x, words, rate: float, site: int):
+    """Dropout of the [b, s, d] activation ``x`` at ``site`` (``MLP_SITE``,
+    ``HIDDEN1_SITE``, ``HIDDEN2_SITE`` or ``EMBED_SITE``) with the words of
+    its layer (or forward): the bits of ``site_words(words, site)``.
+    Differentiable; the caller applies it only in training mode with a
+    rate above 0. A CUDA tensor launches the kernel (fp32, bf16 or fp16,
+    else it raises), a CPU tensor runs the plain version."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must be in (0, 1), got {rate}")
+    if words is None:
+        raise ValueError("dropout in training mode needs its seed words "
+                         "(dropout_seed=(s0, s1))")
+    return _ActivationDropout.apply(x, site_words(words, site), float(rate))
+
+
+dropout_apply.fwd_launches = 0
+dropout_apply.bwd_launches = 0

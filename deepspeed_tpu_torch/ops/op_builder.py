@@ -95,6 +95,12 @@ SIGNATURES = {
     # the bf16 tensor-core dQ and dK/dV: the same arguments as the two above
     "block_sparse_attention_dq_bf16": [_p] * 12 + _SPARSE_BWD,
     "block_sparse_attention_dkv_bf16": [_p] * 13 + _SPARSE_BWD,
+    # their fp16 instances: the same arguments again
+    "block_sparse_attention_fwd_fp16": _SPARSE_FWD,
+    "block_sparse_attention_dq_fp16": [_p] * 12 + _SPARSE_BWD,
+    "block_sparse_attention_dkv_fp16": [_p] * 13 + _SPARSE_BWD,
+    # x, y, dtype, elements, S, D, 1 - rate, s0, s1, threshold, stream
+    "dropout_apply": [_p, _p, _i, _ll, _i, _i, _f, _u, _u, _u, _p],
     # x, gamma, beta, y, mean, rstd, dtype, n, d, eps, stream
     "layernorm_fwd": [_p] * 6 + [_i] * 3 + [_f, _p],
     # dy, x, gamma, mean, rstd, dx, partials, dgamma, dbeta, dtype, n, d,

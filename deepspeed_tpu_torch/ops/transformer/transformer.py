@@ -22,9 +22,12 @@ nothing, as in JAX.
 
 Attention dropout (``attn_dropout_ratio``) is live in training mode and
 draws its keep bits from the counter hash with the forward's seed words
-(``dropout_seed``). Hidden dropout (``hidden_dropout_ratio > 0`` in
-training mode; JAX :233 draws flax Bernoulli bits) comes with the
-residual-dropout slice and raises. The layer starts in the mode
+(``dropout_seed``). Hidden dropout (``hidden_dropout_ratio``, JAX
+:192-199 and ``_dropout`` :233) is live too, after the attention output
+projection (``HIDDEN1_SITE``) and after the FFN (``HIDDEN2_SITE``), each
+on the same hash with ``ops.dropout.site_words(dropout_seed, site)``
+(``ops.dropout.dropout_apply``); the checkpointed blocks redraw the same
+bits when they recompute. The layer starts in the mode
 ``config.training`` names; ``deterministic`` overrides the module's mode
 for one call, as in JAX.
 """
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dropout import HIDDEN1_SITE, HIDDEN2_SITE, dropout_apply
 from ..layernorm import fused_layer_norm
 from .attention import attention
 
@@ -168,15 +172,11 @@ class DeepSpeedTransformerLayer(nn.Module):
         cfg = self.config
         if deterministic is None:
             deterministic = not self.training
-        if not deterministic and cfg.hidden_dropout_ratio > 0:
-            raise NotImplementedError(
-                "hidden_dropout_ratio > 0 in training mode (residual "
-                "dropout) comes with the residual-dropout slice of the port; "
-                "attn_dropout_ratio is supported")
         drop_on = not deterministic and cfg.attn_dropout_ratio > 0
-        if drop_on and dropout_seed is None:
-            raise ValueError("attention dropout in training mode needs "
-                             "dropout_seed (two seed words)")
+        hidden_on = not deterministic and cfg.hidden_dropout_ratio > 0
+        if (drop_on or hidden_on) and dropout_seed is None:
+            raise ValueError("dropout in training mode needs dropout_seed "
+                             "(two seed words)")
         H, heads = cfg.hidden_size, cfg.heads
         dtype = cfg.dtype
         x = hidden_states.to(dtype)
@@ -190,6 +190,12 @@ class DeepSpeedTransformerLayer(nn.Module):
         def ln(y, w, b):
             return fused_layer_norm(y, w, b, cfg.layer_norm_eps)
 
+        def hidden_dropout(y, site):
+            if not hidden_on:
+                return y
+            return dropout_apply(y, dropout_seed, cfg.hidden_dropout_ratio,
+                                 site)
+
         def attn_block(y):
             b, s, _ = y.shape
             q, k, v = (t.reshape(b, s, heads, H // heads) for t in
@@ -198,11 +204,13 @@ class DeepSpeedTransformerLayer(nn.Module):
                             dropout_rate=cfg.attn_dropout_ratio,
                             dropout_seed=dropout_seed,
                             deterministic=not drop_on)
-            return dense(ctx.reshape(b, s, H), self.attn_ow, self.attn_ob)
+            out = dense(ctx.reshape(b, s, H), self.attn_ow, self.attn_ob)
+            return hidden_dropout(out, HIDDEN1_SITE)
 
         def ffn_block(y):
             h = F.gelu(dense(y, self.inter_w, self.inter_b))
-            return dense(h, self.output_w, self.output_b)
+            return hidden_dropout(dense(h, self.output_w, self.output_b),
+                                  HIDDEN2_SITE)
 
         def remat(fn, on):
             if not on:

@@ -7,8 +7,10 @@ silently and the kernel reads garbage. Here each entry point's parameters
 are counted from its source (parameter macros such as
 ``DS_DROPOUT_PARAMS`` expanded from their ``#define``) and held equal to
 its entry. The block-sparse wrappers must pick the bf16 entry points for
-bf16 and the fp32 ones (the 3xTF32 forward, the FMA dQ and dK/dV) for
-fp32, with exactly the bound arguments; and the plan's count tables (``count_table``) must give the
+bf16, the fp16 ones for fp16 (dtype code 2) and the fp32 ones (the
+3xTF32 forward, dQ and dK/dV) for fp32, with exactly the bound
+arguments, and the dropout wrapper its one entry point with the site's
+words, threshold and 1 - rate; and the plan's count tables (``count_table``) must give the
 kernels a deterministic heaviest-first launch order and the all-live
 flag of every fine mask. The serving wrappers pass fp16's element code
 (2) for fp16 tensors, and paged attention a page code for int8 pages
@@ -117,8 +119,9 @@ def fake_lib(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "_bf16"),
-                                          (torch.float32, "")],
-                         ids=["bf16", "fp32"])
+                                          (torch.float32, ""),
+                                          (torch.float16, "_fp16")],
+                         ids=["bf16", "fp32", "fp16"])
 def test_block_sparse_backward_picks_the_entry_for_the_dtype(fake_lib, dtype,
                                                              suffix):
     mod = sys.modules["deepspeed_tpu_torch.ops.block_sparse_attention"]
@@ -143,8 +146,9 @@ def test_block_sparse_backward_picks_the_entry_for_the_dtype(fake_lib, dtype,
 
 
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, "_bf16"),
-                                          (torch.float32, "")],
-                         ids=["bf16", "fp32"])
+                                          (torch.float32, ""),
+                                          (torch.float16, "_fp16")],
+                         ids=["bf16", "fp32", "fp16"])
 def test_block_sparse_forward_picks_the_entry_for_the_dtype(fake_lib, dtype,
                                                             suffix):
     mod = sys.modules["deepspeed_tpu_torch.ops.block_sparse_attention"]
@@ -158,10 +162,37 @@ def test_block_sparse_forward_picks_the_entry_for_the_dtype(fake_lib, dtype,
     # masks, then o, m, l and the dtype code
     assert args[5] == plan.kv_table.data_ptr() == plan.kv_cnt.data_ptr()
     assert args[7:10] == (o.data_ptr(), m.data_ptr(), l.data_ptr())
-    assert args[10] == (1 if dtype == torch.bfloat16 else 0)
+    assert args[10] == {torch.float32: 0, torch.bfloat16: 1,
+                        torch.float16: 2}[dtype]
     assert (o.dtype, m.dtype, l.dtype) == (dtype, torch.float32,
                                            torch.float32)
     assert mod.block_sparse_attention.fwd_launches == before + 1
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1),
+                                        (torch.float16, 2)],
+                         ids=["fp32", "bf16", "fp16"])
+def test_dropout_entry_takes_the_sites_words(fake_lib, dtype, code):
+    """One ``dropout_apply`` launch a map, with the element code, the
+    [b, S, D] extents, 1 - rate, the site's words and the hash threshold,
+    counted as a forward or a backward launch."""
+    from deepspeed_tpu_torch.ops import dropout
+    x = torch.zeros(2, 5, 24, dtype=dtype)
+    before = (dropout.dropout_apply.fwd_launches,
+              dropout.dropout_apply.bwd_launches)
+    y = dropout._launch(x, (7, 9), 0.1, backward=False)
+    dropout._launch(x, (7, 9), 0.1, backward=True)
+    assert [c[0] for c in fake_lib] == ["dropout_apply"] * 2
+    args = fake_lib[0][1]
+    assert args[:2] == (x.data_ptr(), y.data_ptr())
+    assert args[2:6] == (code, 240, 5, 24)
+    assert args[6] == pytest.approx(0.9)
+    assert args[7:10] == (7, 9, dropout.keep_threshold(0.1))
+    assert y.shape == x.shape and y.dtype == dtype
+    assert (dropout.dropout_apply.fwd_launches,
+            dropout.dropout_apply.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
 
 
 # --------------------------------------------------------------------------

@@ -218,8 +218,6 @@ def test_pretrain_loss_matches_jax():
 
 def test_later_slice_options_raise():
     _, pcfg = configs(False)
-    with pytest.raises(NotImplementedError, match="residual-dropout"):
-        BertForPreTraining(dataclasses.replace(pcfg, dropout_rate=0.1))
     with pytest.raises(NotImplementedError, match="remat"):
         BertForPreTraining(dataclasses.replace(pcfg, remat="offload"))
     with pytest.raises(ValueError, match="activation"):

@@ -166,7 +166,8 @@ def test_fp16_entry_points_take_the_bf16_ones_arguments():
             assert SIGNATURES[name] == SIGNATURES[name[:-5] + "_bf16"], name
     assert {n for n in SIGNATURES if n.endswith("_fp16")} == {
         "flash_attention_fwd_fp16", "flash_attention_bwd_dkv_fp16",
-        "flash_attention_bwd_dq_fp16"}
+        "flash_attention_bwd_dq_fp16", "block_sparse_attention_fwd_fp16",
+        "block_sparse_attention_dq_fp16", "block_sparse_attention_dkv_fp16"}
 
 
 def test_fp16_flash_launches_the_fp16_instances(fake_lib):
@@ -211,9 +212,8 @@ def test_gradient_dtype_picks_the_optimizer_instance(fake_lib, gdtype, adam,
 
 def test_only_the_flash_and_serving_kernels_take_fp16():
     assert kernel_dtype_code(torch.float16, fp16=True) == 2
-    with pytest.raises(TypeError, match="LayerNorm, quantizer and "
-                       "block-sparse attention kernels' fp16 instances come "
-                       "in a later slice"):
+    with pytest.raises(TypeError, match="LayerNorm and quantizer kernels' "
+                       "fp16 instances come in a later slice"):
         kernel_dtype_code(torch.float16)
     ops = os.path.dirname(op_builder.__file__)
     takers = set()
@@ -228,4 +228,5 @@ def test_only_the_flash_and_serving_kernels_take_fp16():
                     and any(kw.arg == "fp16" for kw in node.keywords)):
                 takers.add(name)
     assert takers == {"flash_attention.py", "decode_attention.py",
-                      "paged_attention.py", "wo_int8_matmul.py"}
+                      "paged_attention.py", "wo_int8_matmul.py",
+                      "block_sparse_attention.py", "dropout.py"}

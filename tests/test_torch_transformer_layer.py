@@ -165,7 +165,8 @@ def test_from_dict_and_json_file(tmp_path):
 def test_bf16_compute_and_dropout_rules():
     """fp16=True computes in bf16 on fp32 parameters; attention dropout
     is drawn from the seed words in training mode (the same words drop
-    the same elements); hidden dropout in training mode raises."""
+    the same elements); hidden dropout in training mode needs the words,
+    draws from them, and is off in deterministic mode."""
     kw = dict(KW, attn_dropout_ratio=0.2, training=True)
     layer = DeepSpeedTransformerLayer(DeepSpeedTransformerConfig(**kw))
     x = torch.randn(B, S, 128, generator=torch.Generator().manual_seed(0))
@@ -183,9 +184,12 @@ def test_bf16_compute_and_dropout_rules():
     assert all(p.dtype == torch.float32 for p in bf.parameters())
     hid = DeepSpeedTransformerLayer(DeepSpeedTransformerConfig(
         **dict(KW, hidden_dropout_ratio=0.1, training=True)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         hid(x)
-    assert hid(x, deterministic=True).shape == x.shape
+    h = hid(x, dropout_seed=(1, 2))
+    assert torch.equal(h, hid(x, dropout_seed=(1, 2)))
+    assert not torch.equal(h, hid(x, dropout_seed=(1, 3)))
+    assert torch.equal(hid(x, deterministic=True), hid.eval()(x))
 
 
 def test_layer_norms_go_through_fused_layer_norm(monkeypatch):
