@@ -18,8 +18,8 @@ Phases, each fatal on failure:
    defaults;
 2. build: the kernels of ``deepspeed_tpu_torch/ops/csrc`` with nvcc for
    sm_90a (register and spill counts printed; the bf16 and fp16 flash
-   forward's and backward's head-dim-256 instances must not spill, the
-   fp32 backward's are logged);
+   forward's and backward's head-dim-256 instances, on wgmma, must not
+   spill, the fp32 backward's are logged);
 3. kernels: every kernel of the serving and training paths against its
    plain PyTorch version on the card (the flash forward with dropout, both
    flash backward kernels and fused Adam over the training grid, the
@@ -298,9 +298,17 @@ it on copies built with each split-KV chunk width of ``SWEEP_CHUNKS``.
 prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (forty-nine faults;
-``d-256`` picks the nine of the head-dim-256 instances, ``bwd-d256`` the
-four of the flash backward's, ``fp16-serving`` the three of the serving
+``--d256-ab dir`` times the bf16 and fp16 d-256 flash forward, dK/dV and
+dQ kernels of this checkout and of the checkout ``dir`` (its package
+copied under another name, both libraries built) in turns in one process,
+at GPT-J-6B's attention and the serving prefill bucket, one line each
+with the parent's and the change's times beside the bound and SDPA, and
+holds the d <= 128 instances and the fp32 kernels bit-equal to the
+parent's (no result).
+``--planted-faults [name]`` runs ``--checks-only`` (fifty-two faults;
+``d-256`` picks the twelve of the head-dim-256 instances, ``bwd-d256``
+the six of the flash backward's, ``wgmma`` the six of the bf16/fp16
+d-256 kernels on wgmma, ``fp16-serving`` the three of the serving
 kernels' fp16 instances),
 ``--8c-only`` (two), ``--7a-only`` (one), ``--11b-only`` (three: the
 injection path's Python), ``--gptj-only`` (one, ``12c``: int8 pages at
@@ -412,17 +420,16 @@ def bound_ms(flops, nbytes, peak_flops):
 # --------------------------------------------------------------------------
 
 # the flash kernels' d-256 instances in nvcc's -Xptxas -v output (dropout
-# off and on each): the tensor-core forward (bf16, fp16), whose accumulator
-# alone takes 128 registers a thread; the tensor-core backward's dK/dV and
-# dQ (bf16, fp16), 128 accumulator registers a thread for dK/dV; the
-# 3xTF32 backward (fp32, the parity mode: spill logged, not gated)
+# off and on each): the bf16/fp16 forward, dK/dV and dQ on wgmma, whose
+# fp32 accumulator alone takes 128 registers a thread; the 3xTF32 backward
+# (fp32, the parity mode: spill logged, not gated)
 D256_ENTRIES = (
-    ("flash forward bf16/fp16", r"flash_fwd_kernelI(13__nv_bfloat16|6__half)"
-     r"Li256E", 4, True),
-    ("flash backward dK/dV bf16/fp16", r"flash_bwd_dkv_cols_kernelI"
-     r"(13__nv_bfloat16|6__half)Li256E", 4, True),
-    ("flash backward dQ bf16/fp16", r"flash_bwd_dq_cols_kernelI"
-     r"(13__nv_bfloat16|6__half)Li256E", 4, True),
+    ("flash forward bf16/fp16 (wgmma)", r"flash_fwd_wgmma_kernelI"
+     r"(13__nv_bfloat16|6__half)", 4, True),
+    ("flash backward dK/dV bf16/fp16 (wgmma)", r"flash_bwd_dkv_wgmma_kernelI"
+     r"(13__nv_bfloat16|6__half)", 4, True),
+    ("flash backward dQ bf16/fp16 (wgmma)", r"flash_bwd_dq_wgmma_kernelI"
+     r"(13__nv_bfloat16|6__half)", 4, True),
     ("flash backward dK/dV fp32", r"flash_bwd_dkv_cols_kernelILi256E", 2,
      False),
     ("flash backward dQ fp32", r"flash_bwd_dq_cols_kernelILi256E", 2, False))
@@ -1264,6 +1271,17 @@ FLASH_FWD_FP32_IMPL = ("3xTF32 tensor cores (mma.sync), K and V split once "
                        "a CTA, exp as ex2 of (x - m) log2 e")
 
 
+def flash_impl(dtype, d, forward):
+    """The products of the flash kernel for ``dtype`` at head dim ``d``:
+    the 16-bit instances at d 256 run on wgmma warpgroups."""
+    if dtype == torch.float32:
+        return FLASH_FWD_FP32_IMPL if forward else FLASH_IMPL[dtype]
+    if d == 256:
+        return (f"tensor-core {FLASH_IMPL[dtype].split()[1]} (wgmma "
+                "warpgroups, cp.async ring of swizzled tiles)")
+    return FLASH_IMPL[dtype]
+
+
 def _flash_train_inputs(dev, gen, b, h, s, d, dtype, padded):
     """q, k, v, dO and the bias of a training-shape flash call: phase 8's
     padding bias from ``mlm_batch`` (rows of 96-128 tokens) when
@@ -1369,8 +1387,7 @@ def time_flash_train(dev, gen, b=8, h=12, s=1024, d=64, rate=0.1,
             shape=(f"b={b} h={h} sq=sk={s} d={d} {str(dtype)[6:]} "
                    + ("padding bias" if padded else "causal")
                    + f" dropout={rate}" + fma),
-            impl=(FLASH_FWD_FP32_IMPL if dtype == torch.float32
-                  and name == "flash_attention" else FLASH_IMPL[dtype]),
+            impl=flash_impl(dtype, d, name == "flash_attention"),
             ms=times[rate][name],
             ms_rate0=times[0.0][name], plain_ms=pl, library_ms=lb,
             bound_ms=bound, bound_by=by, max_abs_err=errs[name])
@@ -1456,7 +1473,7 @@ def time_flash(dev, gen, sq=512, d=64, h=12, dt=torch.bfloat16):
            - flash_attention_reference(q, k, v, causal=True)[0].float()
            ).abs().max().item()
     return dict(shape=f"b={b} h={h} sq=sk={sq} d={d} {str(dt)[6:]} causal",
-                impl=FLASH_IMPL[dt], ms=kernel, plain_ms=plain,
+                impl=flash_impl(dt, d, True), ms=kernel, plain_ms=plain,
                 library_ms=library, bound_ms=bound, bound_by=by,
                 max_abs_err=err)
 
@@ -2616,6 +2633,162 @@ def serving_ab(card, parent_dir, blocks=100):
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in r.items()) + f" [{card}]")
     print(json.dumps({"serving_ab": out}), flush=True)
+
+
+def d256_ab(card, parent_dir, rounds=2):
+    """The flash kernels of this checkout against those of the checkout
+    ``parent_dir`` in one process: both kernel libraries built from their
+    own sources and launched through this checkout's wrappers in turns
+    (parent, change, change, parent, ``rounds`` times; each side's median).
+    Times the bf16 and fp16 d-256 forward, dK/dV and dQ at GPT-J-6B's
+    attention (``GPTJ_ATTN``, dropout 0 and 0.1) and the forward at the
+    serving prefill bucket (``time_flash``'s shape at d 256), one line
+    each beside the bound and SDPA; then holds the d <= 128 instances and
+    the fp32 kernels bit-equal to the parent's over phase 3's training
+    grid and times them at GPT-2's micro batch (d 64) and, fp32, at
+    ``GPTJ_ATTN``. One JSON line holds the readings (no gate, no result
+    line)."""
+    import importlib
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        BWD_HEAD_DIMS, Dropout, _bias_operand, bwd_operands,
+        flash_attention_fwd, launch_bwd_dkv, launch_bwd_dq)
+    tmp = tempfile.mkdtemp()
+    shutil.copytree(os.path.join(os.path.abspath(parent_dir),
+                                 "deepspeed_tpu_torch"),
+                    os.path.join(tmp, "parent_ops_pkg"),
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    sys.path.insert(0, tmp)
+    libs = {"parent": importlib.import_module(
+        "parent_ops_pkg.ops.op_builder").load(), "change": op_builder.load()}
+    real_load = op_builder.load
+
+    def side(name):
+        op_builder.load = lambda *a, **k: libs[name]
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    order = ("parent", "change", "change", "parent") * rounds
+
+    def ab(fns):
+        """{kernel: {side: median ms}} of ``fns`` {kernel: fn} in turns."""
+        seen = {k: {"parent": [], "change": []} for k in fns}
+        for who in order:
+            side(who)
+            for k, fn in fns.items():
+                seen[k][who].append(gpu_ms(fn, iters=20))
+        return {k: {w: float(np.median(v)) for w, v in sides.items()}
+                for k, sides in seen.items()}
+
+    def kernels(q, k, v, do, bias, causal, drop):
+        d = q.shape[-1]
+        o, lse = flash_attention_fwd(q, k, v, bias, causal=causal,
+                                     dropout=drop)
+        ops = bwd_operands(q, k, v, o, lse, do, bias)
+        return {
+            "flash_attention": lambda: flash_attention_fwd(
+                q, k, v, bias, causal=causal, dropout=drop),
+            "flash_attention_bwd_dkv": lambda: launch_bwd_dkv(
+                ops, causal, d ** -0.5, drop),
+            "flash_attention_bwd_dq": lambda: launch_bwd_dq(
+                ops, causal, d ** -0.5, drop)}
+
+    out = {"card": card, "d256": [], "unchanged_times": []}
+    b, h, s, d = (GPTJ_ATTN[x] for x in "bhsd")
+    for dt in (torch.bfloat16, torch.float16):
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
+                                   dtype=dt) for _ in range(4))
+        for rate in (0.0, 0.1):
+            # the bound and SDPA (with the same dropout rate) at this rate
+            side("change")
+            ref = time_flash_train(dev, gen, b=b, h=h, s=s, d=d, rate=rate,
+                                   dtype=dt)
+            drop = Dropout(rate, 0x1234, 0x5678, h) if rate else None
+            times = ab(kernels(q, k, v, do, None, True, drop))
+            for name, t in times.items():
+                row = dict(kernel=name, dtype=str(dt)[6:], rate=rate,
+                           shape=f"b={b} h={h} s={s} d={d} causal",
+                           parent_ms=t["parent"], change_ms=t["change"],
+                           bound_ms=ref[name]["bound_ms"],
+                           sdpa_ms=ref[name]["library_ms"])
+                out["d256"].append(row)
+                log(f"  d-256 A/B {name} {row['dtype']} {row['shape']} "
+                    f"rate={rate}: parent {t['parent']:.4f} ms, change "
+                    f"{t['change']:.4f} ms (change/parent "
+                    f"{t['change'] / t['parent']:.3f}); bound "
+                    f"{row['bound_ms']:.4f} ms, SDPA {row['sdpa_ms']:.4f} "
+                    f"ms [{card}]")
+        # the serving prefill bucket: the forward alone (time_flash's)
+        qp, kp, vp = (torch.randn(1, 512, h, d, generator=gen, device=dev,
+                                  dtype=dt) for _ in range(3))
+        side("change")
+        pref = time_flash(dev, gen, d=d, h=h, dt=dt)
+        t = ab({"flash_attention": lambda: flash_attention_fwd(
+            qp, kp, vp, None, causal=True)})["flash_attention"]
+        row = dict(kernel="flash_attention", dtype=str(dt)[6:], rate=0.0,
+                   shape=pref["shape"], parent_ms=t["parent"],
+                   change_ms=t["change"], bound_ms=pref["bound_ms"],
+                   sdpa_ms=pref["library_ms"])
+        out["d256"].append(row)
+        log(f"  d-256 A/B flash_attention {row['dtype']} prefill bucket "
+            f"{pref['shape']}: parent {t['parent']:.4f} ms, change "
+            f"{t['change']:.4f} ms (change/parent "
+            f"{t['change'] / t['parent']:.3f}); bound {pref['bound_ms']:.4f}"
+            f" ms, SDPA {pref['library_ms']:.4f} ms [{card}]")
+        del q, k, v, do, qp, kp, vp
+
+    # the kernels this change leaves alone: bit for bit over phase 3's grid
+    cases, unequal = 0, []
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for d in BWD_HEAD_DIMS:
+            if d == 256 and dt != torch.float32:
+                continue
+            for s in (128, 1024):
+                for name, b, bias in _train_cases(dev, s):
+                    for rate in (0.0, 0.1):
+                        q, k, v, do = (torch.randn(
+                            b, s, 12, d, generator=gen, device=dev,
+                            dtype=dt) for _ in range(4))
+                        bias_in = _bias_operand(bias, q, k)
+                        drop = _drop(rate, 12, cases)
+                        res = {}
+                        for who in ("parent", "change"):
+                            side(who)
+                            o, lse = flash_attention_fwd(
+                                q, k, v, bias_in, causal=True, dropout=drop)
+                            ops = bwd_operands(q, k, v, o, lse, do, bias_in)
+                            res[who] = (o, lse, *launch_bwd_dkv(
+                                ops, True, d ** -0.5, drop),
+                                launch_bwd_dq(ops, True, d ** -0.5, drop))
+                        cases += 1
+                        if not _same_bits(res["parent"], res["change"]):
+                            unequal.append(f"{str(dt)[6:]} d={d} s={s} "
+                                           f"{name} rate={rate}")
+    out["unchanged_cases"], out["unchanged_unequal"] = cases, unequal
+    log(f"  d <= 128 instances and fp32 kernels against the parent's: "
+        f"{cases - len(unequal)}/{cases} cases bit-equal (o, lse, dk, dv, "
+        f"dq){'; differ: ' + str(unequal) if unequal else ''}")
+    for dt, shape in ((torch.bfloat16, dict(b=8, h=12, s=1024, d=64)),
+                      (torch.float16, dict(b=8, h=12, s=1024, d=64)),
+                      (torch.float32, dict(b=8, h=12, s=1024, d=64)),
+                      (torch.float32, GPTJ_ATTN)):
+        q, k, v, do = (torch.randn(shape["b"], shape["s"], shape["h"],
+                                   shape["d"], generator=gen, device=dev,
+                                   dtype=dt) for _ in range(4))
+        drop = Dropout(0.1, 0x1234, 0x5678, shape["h"])
+        for name, t in ab(kernels(q, k, v, do, None, True, drop)).items():
+            label = (f"{str(dt)[6:]} b={shape['b']} h={shape['h']} "
+                     f"s={shape['s']} d={shape['d']} causal rate=0.1")
+            out["unchanged_times"].append(dict(
+                kernel=name, shape=label, parent_ms=t["parent"],
+                change_ms=t["change"]))
+            log(f"  unchanged {name} {label}: parent {t['parent']:.4f} ms, "
+                f"change {t['change']:.4f} ms [{card}]")
+        del q, k, v, do
+    op_builder.load = real_load
+    print(json.dumps(out), flush=True)
 
 
 def wall_ms(fn, iters):
@@ -6252,11 +6425,18 @@ PLANTED_FAULTS = (
        '#define DS_SPLIT_CHUNK 127\n#include "decode_split.cuh"'),),
      "--checks-only"),
     # the head-dim-256 instances (phase 12's kernels)
-    ("bf16/fp16 flash forward at d-256: Q's fragments of neighbouring "
-     "16-deep steps swapped (the shared-memory Q read)",
+    ("wgmma: bf16/fp16 flash forward at d-256: Q's descriptors of "
+     "neighbouring 16-deep steps swapped (the shared-memory Q read)",
      "flash_attention_fwd_bf16.cu",
-     (("        ldsm_x4(a, qrow + kk * 16);",
-       "        ldsm_x4(a, qrow + (kk ^ 1) * 16);"),), "--checks-only"),
+     (("desc_at(ql, c * WQ * 128 + kk * 32)",
+       "desc_at(ql, c * WQ * 128 + (kk ^ 1) * 32)"),), "--checks-only"),
+    ("wgmma: bf16/fp16 flash forward at d-256: S = Q K^T reads the other "
+     "K stage, whose barrier the consumer did not wait on (the last "
+     "tile's keys, or the next tile's before its phase flips)",
+     "flash_attention_fwd_bf16.cu",
+     (("    const uint32_t kl = fresh(k_lo) + st * (WTILE * 2 / 16);",
+       "    const uint32_t kl = fresh(k_lo) + (st ^ 1) * (WTILE * 2 / 16);"),),
+     "--checks-only"),
     ("fp32 flash forward at d-256: V not split into its tf32 halves (the "
      "one-stage tile keeps K's lo plane)", "flash_attention_fwd.cu",
      (("      split_tile(Vt, Vlo, TILE);\n      __syncthreads();\n", ""),),
@@ -6279,18 +6459,35 @@ PLANTED_FAULTS = (
        "                                      split::CHUNK) - (D == 256);"),),
      "--checks-only"),
     # the flash backward's head-dim-256 instances (phase 13's kernels):
-    # ``--planted-faults bwd-d256`` runs these four
-    ("bwd-d256: bf16/fp16 flash dK/dV at d-256: both column halves of dK "
-     "and dV written to the first (the second never written)",
+    # ``--planted-faults bwd-d256`` runs these six; ``wgmma`` picks the
+    # six faults of the bf16/fp16 d-256 kernels
+    ("bwd-d256: wgmma: bf16/fp16 flash dK/dV at d-256: the epilogue "
+     "writes the first 128 columns of dK and dV (the rest never written)",
      "flash_attention_bwd_bf16.cu",
-     (("((static_cast<long long>(b) * a.sk + key) * a.H + h) * D + ch * HC;",
-       "((static_cast<long long>(b) * a.sk + key) * a.H + h) * D;"),),
-     "--checks-only"),
-    ("bwd-d256: bf16/fp16 flash dQ at d-256: the hand-over tile's last 16 "
-     "keys left out of dQ += dS K", "flash_attention_bwd_bf16.cu",
-     (("    for (int kc = 0; kc < BK / 16; ++kc) {\n      uint32_t sa[4];",
-       "    for (int kc = 0; kc < BK / 16 - 1; ++kc) {\n      uint32_t sa[4];"),),
-     "--checks-only"),
+     (("    for (int nb = 0; nb < 32; ++nb)\n"
+       "      *reinterpret_cast<uint32_t*>(out + off",
+       "    for (int nb = 0; nb < 16; ++nb)\n"
+       "      *reinterpret_cast<uint32_t*>(out + off"),), "--checks-only"),
+    ("bwd-d256: wgmma: bf16/fp16 flash dK/dV at d-256: the keep hash at "
+     "the wrong fragment column (q rows 2t and 2t + 1 swapped; caught only "
+     "with dropout on)", "flash_attention_bwd_bf16.cu",
+     (("          hq[0] = hash_row(dr, q0 + c0);  // a q row is a row\n"
+       "          hq[1] = hash_row(dr, q0 + c0 + 1);",
+       "          hq[0] = hash_row(dr, q0 + c0 + 1);  // a q row is a row\n"
+       "          hq[1] = hash_row(dr, q0 + c0);"),), "--checks-only"),
+    ("bwd-d256: wgmma: bf16/fp16 flash dQ at d-256: each 32-key step's "
+     "last 16 keys left out of dQ += dS K", "flash_attention_bwd_bf16.cu",
+     (("    for (int kc = 0; kc < 2; ++kc)\n"
+       "      wgmma_rs_n256<T>(acc, sa[kc],",
+       "    for (int kc = 0; kc < 1; ++kc)\n"
+       "      wgmma_rs_n256<T>(acc, sa[kc],"),), "--checks-only"),
+    ("bwd-d256: wgmma: bf16/fp16 flash dQ at d-256: dS rounded at the "
+     "wrong point (D o dP rounded to T before the delta subtraction)",
+     "flash_attention_bwd_bf16.cu",
+     (("        s[4 * jj + e] = p * (dfac * dp[4 * jj + e] - dlr[i]) * "
+       "a.scale;",
+       "        s[4 * jj + e] = p * (round_to<T>(dfac * dp[4 * jj + e]) - "
+       "dlr[i]) * a.scale;"),), "--checks-only"),
     ("bwd-d256: fp32 flash dK/dV at d-256: dK's second column half takes "
      "the first half's Q columns", "flash_attention_bwd.cu",
      (("b_rows_tf32<P>(bh, bl, Qs, r, ch * HC + n * 8 + g);",
@@ -6563,6 +6760,9 @@ def main():
         return 0
     if "--serving-ab" in sys.argv[1:]:
         serving_ab(card, rest[0])
+        return 0
+    if "--d256-ab" in sys.argv[1:]:
+        d256_ab(card, rest[0])
         return 0
     if timing:
         serving_timing(card)

@@ -19,10 +19,11 @@ A CUDA tensor launches the kernels, a CPU tensor runs
 is a dense recompute outside the kernels (``_dbias_dense`` :743), run only
 when the bias requires grad. The forward kernels take head dims
 ``FWD_HEAD_DIMS``, the backward kernels ``BWD_HEAD_DIMS``: the same five,
-GPT-J-6B's 256 included. At 256 both backward kernels run 8 warps a CTA
-that split the output columns in halves (dQ in quarters in fp32) and
-hand P o D and dS to each other through shared memory; the fp32 ones
-take 32-row q tiles in one stage (the headers say why).
+GPT-J-6B's 256 included. At 256 the bf16 and fp16 forward, dK/dV and dQ
+run on wgmma warpgroups fed by a loading warpgroup (``csrc/wgmma.cuh``),
+behind the same entry points; the fp32 backward kernels run 8 warps a CTA
+that split the output columns (dQ in quarters) and take 32-row q tiles
+in one stage (the headers say why).
 """
 
 import math

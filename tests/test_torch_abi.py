@@ -32,6 +32,9 @@ from deepspeed_tpu_torch.ops.op_builder import SIGNATURES, _DROPOUT
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as psc
 from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
     compile_layout, count_table, device_plan)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 CSRC = os.path.join(os.path.dirname(op_builder.__file__), "csrc")
 

@@ -33,6 +33,9 @@ from deepspeed_tpu_torch.models import (BertConfig, BertForPreTraining,
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.ops.sparse_attention import SparseAttentionUtils
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as psc
+from tests.torch_threads import share_cores
+
+share_cores()
 
 ATOL = 1e-5
 TINY = dict(vocab_size=96, max_seq_len=256, d_model=128, n_layers=2,

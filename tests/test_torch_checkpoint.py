@@ -41,6 +41,9 @@ from deepspeed_tpu_torch.runtime.resilience.manifest import (
     CheckpointCorruptionError)
 
 from tests.test_torch_model import TINY, jax_gpt
+from tests.torch_threads import share_cores
+
+share_cores()
 
 SEQ, MICRO, GAS = 32, 4, 2
 JAX_META_KEYS = {"global_steps", "global_samples", "skipped_steps",

@@ -36,6 +36,9 @@ from deepspeed_tpu_torch.module_inject import (POLICY_REGISTRY,
 from deepspeed_tpu_torch.module_inject.load_checkpoint import (
     HF_CONFIG_DEFAULTS, load_state_dict_from_checkpoint)
 from tests.test_torch_injection import FAMILIES, hf_config, hf_model
+from tests.torch_threads import share_cores
+
+share_cores()
 
 T = pytest.importorskip("transformers")
 st_torch = pytest.importorskip("safetensors.torch")

@@ -42,6 +42,9 @@ from deepspeed_tpu_torch.ops.quantizer import inv_qmax
 from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerConfig
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.quantize import MoQConfig, MoQQuantizer
+from tests.torch_threads import share_cores
+
+share_cores()
 
 MATRICES = ["attn_qkvw", "attn_ow", "inter_w", "output_w"]
 

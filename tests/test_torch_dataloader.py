@@ -21,6 +21,9 @@ from deepspeed_tpu_torch.models import GPT, GPTConfig
 from deepspeed_tpu_torch.runtime import dataloader as port_dl
 
 from tests.test_torch_model import TINY
+from tests.torch_threads import share_cores
+
+share_cores()
 
 N, SEQ = 22, 8
 

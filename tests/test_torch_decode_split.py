@@ -36,6 +36,9 @@ from deepspeed_tpu_torch.models.layers import alibi_slopes
 from deepspeed_tpu_torch.ops import decode_split, op_builder
 from deepspeed_tpu_torch.ops.decode_split import CHUNK
 from deepspeed_tpu_torch.ops.op_builder import SIGNATURES
+from tests.torch_threads import share_cores
+
+share_cores()
 
 HEADS, CAPACITY = 2, 1024
 LENGTHS = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 300, CAPACITY]

@@ -51,6 +51,9 @@ from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
                                                  DeepSpeedTransformerLayer)
 
 from tests.test_torch_bert import tree_np
+from tests.torch_threads import share_cores
+
+share_cores()
 
 RATE = 0.1
 WORDS = (0x1234ABCD, 0x9E3779B9)       # a forward's seed words

@@ -39,6 +39,9 @@ from tests.test_torch_model import TINY, jax_gpt
 from tests.test_torch_training import (SEQ, WARMUP, _batch, _close,
                                        _engine_config, _jax_loss, _port_loss,
                                        _run_jax, _run_port, _tree_np)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 LR = 1e-3            # _engine_config's peak learning rate
 WEIGHT = 0.5         # the keyword operand of train_batch and eval_batch

@@ -33,6 +33,9 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference, flash_attention_fwd)
 from deepspeed_tpu_torch.ops.transformer.attention import (
     _reference_attention, attention)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -51,6 +51,9 @@ from deepspeed_tpu_torch.ops import (decode_attention, paged_attention,
                                      wo_int8_matmul)
 from deepspeed_tpu_torch.ops.wo_int8_matmul import wo_int8_matmul_reference
 from deepspeed_tpu_torch.serving import ServingEngine
+from tests.torch_threads import share_cores
+
+share_cores()
 
 T = pytest.importorskip("transformers")
 

@@ -10,6 +10,9 @@ from deepspeed_tpu.inference.generation import generate as jax_generate
 from deepspeed_tpu_torch.inference.generation import (
     _sample_impl, _sampling_mode, generate)
 from tests.test_torch_model import jax_gpt, port_gpt, tokens
+from tests.torch_threads import share_cores
+
+share_cores()
 
 
 @pytest.fixture(scope="module")

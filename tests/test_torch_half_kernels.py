@@ -43,6 +43,9 @@ from deepspeed_tpu_torch.ops.op_builder import SIGNATURES
 from deepspeed_tpu_torch.runtime.optimizers import Adam, Lamb
 
 from tests.test_torch_flash_bwd import _bias, _inputs, _words
+from tests.torch_threads import share_cores
+
+share_cores()
 
 FA = sys.modules["deepspeed_tpu_torch.ops.flash_attention"]
 ADAM_MOD = sys.modules["deepspeed_tpu_torch.ops.fused_adam"]

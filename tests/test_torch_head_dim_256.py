@@ -63,6 +63,9 @@ from tests.test_torch_decode_split import (HEADS, _close as _split_close,
                                            emulate_decode, emulate_paged)
 from tests.test_torch_flash_bwd import _bias, _inputs, _words
 from tests.test_torch_head_dims import _dispatched_dims
+from tests.torch_threads import share_cores
+
+share_cores()
 
 T = pytest.importorskip("transformers")
 

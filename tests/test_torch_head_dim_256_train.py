@@ -54,6 +54,9 @@ from tests.test_torch_flash_bwd import _bias, _inputs, _words
 from tests.test_torch_tf32x3 import max_rel, split
 from tests.test_torch_training import (_engine_config, _jax_loss,
                                        _port_loss, _tree_np)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 D = 256
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-3}

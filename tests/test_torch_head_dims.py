@@ -52,6 +52,9 @@ from tests.test_torch_flash_bwd import _bias, _inputs, _words
 from tests.test_torch_model import TINY, jax_gpt, port_gpt
 from tests.test_torch_paging import _drive_lockstep, _prompts
 from tests.test_torch_sparse_attention import pair, qkv, to_t
+from tests.torch_threads import share_cores
+
+share_cores()
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

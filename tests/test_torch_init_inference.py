@@ -23,6 +23,9 @@ from deepspeed_tpu.inference.engine import InferenceEngine as JaxEngine
 from deepspeed_tpu_torch import init_inference
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.models import GPT, GPTConfig
+from tests.torch_threads import share_cores
+
+share_cores()
 
 
 def _params(cls):

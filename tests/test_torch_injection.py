@@ -52,6 +52,9 @@ from deepspeed_tpu_torch.ops.sparse_attention import (
     BertSparseSelfAttention, BigBirdSparsityConfig)
 from deepspeed_tpu_torch.runtime.state_dict_factory import MegatronSDLoader
 from deepspeed_tpu_torch.serving import ServingConfig, ServingEngine
+from tests.torch_threads import share_cores
+
+share_cores()
 
 T = pytest.importorskip("transformers")
 

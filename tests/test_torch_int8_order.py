@@ -33,6 +33,9 @@ from deepspeed_tpu_torch.models.gpt import HEAD_ROWS, tied_head_rows
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.wo_int8_matmul import (
     SEG, SMALL_M, SPLIT_TILES, TILE_M, TILE_N, tiled_splits, wo_int8_matmul)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 SOURCE = os.path.join(os.path.dirname(op_builder.__file__), "csrc",
                       "wo_int8_matmul.cu")

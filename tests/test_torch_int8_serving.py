@@ -46,6 +46,9 @@ from deepspeed_tpu_torch.ops.wo_int8_matmul import wo_int8_matmul_reference
 from deepspeed_tpu_torch.serving import ServingConfig, ServingEngine
 from deepspeed_tpu_torch.serving.config import QuantizeConfig
 from tests.test_torch_model import TINY, jax_gpt, port_gpt
+from tests.torch_threads import share_cores
+
+share_cores()
 
 VOCAB = TINY["vocab_size"]
 GAP_STOP = 1e-3

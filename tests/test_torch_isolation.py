@@ -19,6 +19,9 @@ from deepspeed_tpu_torch.models import GPT, GPTConfig
 from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
                                      paged_attention, wo_int8_matmul)
 from deepspeed_tpu_torch.ops import op_builder
+from tests.torch_threads import share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deepspeed_tpu_torch")

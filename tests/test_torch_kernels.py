@@ -21,6 +21,9 @@ from deepspeed_tpu_torch.ops import decode_attention, flash_attention
 from deepspeed_tpu_torch.ops._common import NEG_INF
 from deepspeed_tpu_torch.ops.transformer.attention import (
     _reference_attention, attention)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

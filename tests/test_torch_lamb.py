@@ -46,6 +46,9 @@ from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.optimizers import (Adam, Lamb,
                                                     build_optimizer)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 SHAPES = [(3,), (17, 5), (128,), (4, 33), (7,), (300,)]
 ZERO = 4            # the tensor that starts at 0 (trust ratio 1)

@@ -25,6 +25,9 @@ from deepspeed_tpu_torch.ops.layernorm import (BWD_CTAS, BWD_WARPS,
                                                VEC_BYTES, bwd_ctas,
                                                layer_norm_bwd_reference,
                                                layer_norm_fwd_reference)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -21,6 +21,9 @@ import torch
 
 from deepspeed_tpu.runtime.fp16 import loss_scaler as jls
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as pls
+from tests.torch_threads import share_cores
+
+share_cores()
 
 
 def _flags(seed, n=64):

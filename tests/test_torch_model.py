@@ -22,6 +22,9 @@ from deepspeed_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from deepspeed_tpu_torch.inference.generation import init_cache
 from deepspeed_tpu_torch.models import GPT, GPTConfig
 from deepspeed_tpu_torch.models.convert import params_from_jax
+from tests.torch_threads import share_cores
+
+share_cores()
 
 LOGIT_ATOL = 1e-4
 TINY = dict(vocab_size=97, max_seq_len=128, d_model=128, n_layers=2,

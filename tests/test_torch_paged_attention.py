@@ -25,6 +25,9 @@ from deepspeed_tpu_torch.models.layers import alibi_slopes
 from deepspeed_tpu_torch.ops import paged_attention as port_paged_attention
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_reference
 from tests.test_torch_model import jax_gpt, port_gpt
+from tests.torch_threads import share_cores
+
+share_cores()
 
 PAGE, HEADS, D, MAX_PAGES = 16, 2, 64, 8     # the tiny model's attention
 LENGTHS = [0, 1, 23, 47, 16]                 # empty, one token, ragged,

@@ -27,6 +27,9 @@ from deepspeed_tpu_torch.serving import ServingConfig, ServingEngine
 from deepspeed_tpu_torch.serving.paging import (NULL_PAGE, PageAllocator,
                                                 PagingConfig, PrefixCache)
 from tests.test_torch_model import TINY, jax_gpt, port_gpt
+from tests.torch_threads import share_cores
+
+share_cores()
 
 VOCAB = TINY["vocab_size"]
 PAGE = 16

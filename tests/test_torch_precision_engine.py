@@ -53,6 +53,9 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import update_scale
 
 from tests.test_torch_model import TINY, jax_gpt
 from tests.test_torch_training import SEQ, _batch, _jax_loss, _tree_np
+from tests.torch_threads import share_cores
+
+share_cores()
 
 LR = 1e-3
 POISON = 1e6

@@ -26,6 +26,9 @@ from deepspeed_tpu.ops.pallas import quantizer as jq
 from deepspeed_tpu_torch.compression.compress import fake_quantize
 from deepspeed_tpu_torch.ops import dequantize, quantize
 from deepspeed_tpu_torch.ops.quantizer import uniform24
+from tests.torch_threads import share_cores
+
+share_cores()
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -32,6 +32,9 @@ from deepspeed_tpu_torch.inference.generation import init_cache
 from deepspeed_tpu_torch.models import GPT, GPTConfig
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.ops.transformer.rotary import apply_rotary_pos_emb
+from tests.torch_threads import share_cores
+
+share_cores()
 
 TINY = dict(vocab_size=97, max_seq_len=64, d_model=128, n_layers=2,
             n_heads=2)

@@ -11,6 +11,9 @@ from deepspeed_tpu.inference.generation import generate as jax_generate
 from deepspeed_tpu_torch.inference.generation import generate
 from deepspeed_tpu_torch.serving import ServingConfig, ServingEngine
 from tests.test_torch_model import TINY, jax_gpt, port_gpt
+from tests.torch_threads import share_cores
+
+share_cores()
 
 VOCAB = TINY["vocab_size"]
 

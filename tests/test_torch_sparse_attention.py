@@ -33,6 +33,9 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
     KERNEL_TILE, compile_layout, device_plan)
 from deepspeed_tpu_torch.ops.transformer.attention import \
     _reference_attention
+from tests.torch_threads import share_cores
+
+share_cores()
 
 FWD_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 GRAD_ATOL = 2e-5

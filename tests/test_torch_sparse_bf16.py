@@ -33,6 +33,9 @@ from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
 from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
     device_plan
 from tests.test_torch_sparse_attention import pair, qkv, to_t
+from tests.torch_threads import share_cores
+
+share_cores()
 
 ATOL = 2e-2          # of max|ref|, per tensor
 RMS = {"dq": 2.5e-3, "dk": 2.5e-3, "dv": 5e-4}   # rms(err) / rms(ref)

@@ -40,6 +40,9 @@ from deepspeed_tpu_torch.ops.block_sparse_attention import (
 from tests.test_torch_sparse_tf32x3 import LAYOUTS, _case
 from tests.test_torch_tf32x3 import (GATE, kernel_exp, max_rel,
                                      product_3xtf32, product_tf32)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 BWD_CLOSE = 1e-5
 

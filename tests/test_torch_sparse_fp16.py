@@ -62,6 +62,9 @@ from tests.test_torch_bert import batch as bert_batch
 from tests.test_torch_bert import configs, tree_np
 from tests.test_torch_sparse_attention import pair, qkv, to_t
 from tests.test_torch_sparse_bf16 import CASES
+from tests.torch_threads import share_cores
+
+share_cores()
 
 FWD_ATOL = 2e-3
 ATOL = 5e-3          # of max|ref|, per tensor

@@ -40,6 +40,9 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import \
 from tests.test_torch_sparse_attention import pair, qkv
 from tests.test_torch_tf32x3 import (FWD_CLOSE, GATE, kernel_exp, max_rel,
                                      product_3xtf32, product_tf32)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 H, S = 2, 256
 

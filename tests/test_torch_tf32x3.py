@@ -32,6 +32,9 @@ from deepspeed_tpu_torch.ops._common import NEG_INF
 from deepspeed_tpu_torch.ops.flash_attention import (
     BLOCK_K, Dropout, flash_attention_bwd_reference,
     flash_attention_reference)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 GATE = 1e-4     # the card's fp32 gate (chip_smoke.py TOL[torch.float32])
 # the forward against the fp32 plain forward. Exact products (float64,

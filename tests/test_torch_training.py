@@ -47,6 +47,9 @@ from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
 from deepspeed_tpu_torch.serving.engine import ServingEngine
 
 from tests.test_torch_model import TINY, jax_gpt
+from tests.torch_threads import share_cores
+
+share_cores()
 
 SHAPES = [(3,), (17, 5), (128,), (4, 33)]
 WARMUP = {"warmup_min_lr": 0.0, "warmup_max_lr": 1e-2,

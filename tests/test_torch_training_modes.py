@@ -51,6 +51,9 @@ from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
 from tests.test_torch_bert import configs as bert_configs
 from tests.test_torch_bert import tree_np
 from tests.test_torch_model import TINY, jax_gpt, port_gpt, tokens
+from tests.torch_threads import share_cores
+
+share_cores()
 
 FA = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
 ATOL = 1e-5

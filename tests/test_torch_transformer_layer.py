@@ -27,6 +27,9 @@ import deepspeed_tpu_torch as ds
 from deepspeed_tpu_torch.ops import fused_layer_norm
 from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
                                                  DeepSpeedTransformerLayer)
+from tests.torch_threads import share_cores
+
+share_cores()
 
 B, S = 2, 32
 KW = dict(hidden_size=128, heads=2, num_hidden_layers=2,
