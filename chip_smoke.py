@@ -298,18 +298,19 @@ it on copies built with each split-KV chunk width of ``SWEEP_CHUNKS``.
 prefill and decode with no gate, on the package of the checkout ``dir``
 (default this one), and prints them as one JSON line: run on a change's
 and its parent's checkouts in turns, it compares the two (no result).
-``--d256-ab dir`` times the bf16 and fp16 d-256 flash forward, dK/dV and
-dQ kernels of this checkout and of the checkout ``dir`` (its package
-copied under another name, both libraries built) in turns in one process,
-at GPT-J-6B's attention and the serving prefill bucket, one line each
-with the parent's and the change's times beside the bound and SDPA, and
-holds the d <= 128 instances and the fp32 kernels bit-equal to the
-parent's (no result).
-``--planted-faults [name]`` runs ``--checks-only`` (fifty-two faults;
-``d-256`` picks the twelve of the head-dim-256 instances, ``bwd-d256``
-the six of the flash backward's, ``wgmma`` the six of the bf16/fp16
-d-256 kernels on wgmma, ``fp16-serving`` the three of the serving
-kernels' fp16 instances),
+``--d256-ab dir`` times the bf16, fp16 and fp32 d-256 flash forward,
+dK/dV and dQ kernels of this checkout and of the checkout ``dir`` (its
+package copied under another name, both libraries built) in turns in one
+process, at GPT-J-6B's attention and the serving prefill bucket, one line
+each with the parent's and the change's times beside the bound and SDPA,
+and holds the bf16 and fp16 instances at every head dim and the fp32 ones
+at d <= 128 bit-equal to the parent's (no result).
+``--planted-faults [name]`` runs ``--checks-only`` (fifty-five faults;
+``d-256`` picks the fifteen of the head-dim-256 instances, ``bwd-d256``
+the six of the flash backward's, ``wgmma`` the eight of the d-256
+kernels on wgmma and of wgmma.cuh's tf32 stagers, ``tf32`` the six of
+the fp32 d-256 kernels on tf32 wgmma, ``fp16-serving`` the three of the
+serving kernels' fp16 instances),
 ``--8c-only`` (two), ``--7a-only`` (one), ``--11b-only`` (three: the
 injection path's Python), ``--gptj-only`` (one, ``12c``: int8 pages at
 head dim 256 in every slot but the first) or ``--published-only`` (one:
@@ -420,19 +421,20 @@ def bound_ms(flops, nbytes, peak_flops):
 # --------------------------------------------------------------------------
 
 # the flash kernels' d-256 instances in nvcc's -Xptxas -v output (dropout
-# off and on each): the bf16/fp16 forward, dK/dV and dQ on wgmma, whose
-# fp32 accumulator alone takes 128 registers a thread; the 3xTF32 backward
-# (fp32, the parity mode: spill logged, not gated)
+# off and on each), whose fp32 accumulator alone takes 128 registers a
+# thread: the bf16/fp16 forward, dK/dV and dQ on wgmma, and the fp32
+# (3xTF32) forward, dQ, dK and dV on tf32 wgmma (flash_tf32.cuh)
 D256_ENTRIES = (
     ("flash forward bf16/fp16 (wgmma)", r"flash_fwd_wgmma_kernelI"
-     r"(13__nv_bfloat16|6__half)", 4, True),
+     r"(13__nv_bfloat16|6__half)", 4),
     ("flash backward dK/dV bf16/fp16 (wgmma)", r"flash_bwd_dkv_wgmma_kernelI"
-     r"(13__nv_bfloat16|6__half)", 4, True),
+     r"(13__nv_bfloat16|6__half)", 4),
     ("flash backward dQ bf16/fp16 (wgmma)", r"flash_bwd_dq_wgmma_kernelI"
-     r"(13__nv_bfloat16|6__half)", 4, True),
-    ("flash backward dK/dV fp32", r"flash_bwd_dkv_cols_kernelILi256E", 2,
-     False),
-    ("flash backward dQ fp32", r"flash_bwd_dq_cols_kernelILi256E", 2, False))
+     r"(13__nv_bfloat16|6__half)", 4),
+    ("flash forward fp32 (tf32 wgmma)", r"flash_fwd_tf32_kernelI", 2),
+    ("flash backward dQ fp32 (tf32 wgmma)", r"flash_bwd_dq_tf32_kernelI", 2),
+    ("flash backward dK fp32 (tf32 wgmma)", r"flash_bwd_dk_tf32_kernelI", 2),
+    ("flash backward dV fp32 (tf32 wgmma)", r"flash_bwd_dv_tf32_kernelI", 2))
 
 
 def d256_spills(build_log, pattern):
@@ -460,16 +462,14 @@ def d256_spills(build_log, pattern):
 def check_d256_spills(build_log):
     """Registers and spill bytes of the flash kernels' d-256 instances
     (``D256_ENTRIES``): each family present with its count of instances,
-    and the bf16/fp16 ones spilling nothing."""
+    none spilling."""
     bad = []
-    for what, pattern, count, gated in D256_ENTRIES:
+    for what, pattern, count in D256_ENTRIES:
         seen = d256_spills(build_log, pattern)
-        log(f"  {what} d-256 instances (dropout off, on)"
-            f"{'' if gated else ', logged'}: "
+        log(f"  {what} d-256 instances (dropout off, on): "
             + ", ".join(f"{regs} registers / {spill} spill bytes"
                         for spill, regs in seen.values()))
-        if len(seen) != count or gated and any(
-                spill for spill, _ in seen.values()):
+        if len(seen) != count or any(spill for spill, _ in seen.values()):
             bad.append((what, seen))
     if bad:
         raise AssertionError("flash d-256 instances spill or were not "
@@ -1099,12 +1099,15 @@ GPTJ_ATTN = dict(b=1, h=16, s=2048, d=256)
 def check_flash_bwd_d256(dev, gen, launches=20):
     """The backward's d-256 instances (bf16, fp16, fp32) at GPT-J-6B's
     attention shape (``GPTJ_ATTN``), dropout 0 and 0.1, against the plain
-    backward (``Gate``); then ``launches`` repeated launches of each kernel
-    at dropout 0.1, bit for bit (one owner per output element)."""
+    backward (``Gate``), the fp32 forward (tf32 wgmma) against its plain
+    version too; then ``launches`` repeated launches of each kernel at
+    dropout 0.1, bit for bit (one owner per output element); then the fp32
+    forward and backward at a ragged prefix (sq 1000 of sk 2048, causal)
+    under a padding bias, dropout 0 and 0.1."""
     from deepspeed_tpu_torch.ops.flash_attention import (
-        Dropout, bwd_operands, flash_attention_bwd,
-        flash_attention_bwd_reference, flash_attention_fwd, launch_bwd_dkv,
-        launch_bwd_dq)
+        Dropout, _bias_operand, bwd_operands, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd,
+        flash_attention_reference, launch_bwd_dkv, launch_bwd_dq)
     b, h, s, d = (GPTJ_ATTN[x] for x in "bhsd")
     gate = Gate("flash bwd d-256")
     unequal = []
@@ -1122,6 +1125,13 @@ def check_flash_bwd_d256(dev, gen, launches=20):
             torch.cuda.synchronize()
             gate.case(dtype, grads, refs, f"b={b} h={h} s={s} d={d} causal "
                       f"rate={rate} (dq, dk, dv)", show=True)
+            if dtype == torch.float32:
+                ro, rlse = flash_attention_reference(q, k, v, None,
+                                                     causal=True,
+                                                     dropout=drop)
+                gate.case(dtype, [o], [ro], f"b={b} h={h} s={s} d={d} causal "
+                          f"rate={rate} (o)", show=True,
+                          extra=(lse - rlse).abs().max().item())
         ops = bwd_operands(q, k, v, o, lse, do, None)
         first = (*launch_bwd_dkv(ops, True, d ** -0.5, drop),
                  launch_bwd_dq(ops, True, d ** -0.5, drop))
@@ -1132,6 +1142,27 @@ def check_flash_bwd_d256(dev, gen, launches=20):
                 unequal.append(str(dtype)[6:])
                 break
         del q, k, v, do, o, lse, grads, refs, ops, first
+    # fp32 at a ragged prefix over a longer cache, padding bias
+    sq, sk = 1000, s
+    q, do = (torch.randn(2, sq, h, d, generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(2, sk, h, d, generator=gen, device=dev)
+            for _ in range(2))
+    bias = _bias_operand(_padding_bias(2, sk, dev), q, k)
+    for rate in (0.0, 0.1):
+        drop = Dropout(rate, 0x2468, 0x1357, h) if rate else None
+        kw = dict(causal=True, dropout=drop)
+        o, lse = flash_attention_fwd(q, k, v, bias, **kw)
+        ro, rlse = flash_attention_reference(q, k, v, bias, **kw)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, bias, **kw)
+        refs = flash_attention_bwd_reference(q, k, v, o, lse, do, bias, **kw)
+        torch.cuda.synchronize()
+        label = f"b=2 h={h} sq={sq} sk={sk} d={d} causal padding rate={rate}"
+        gate.case(torch.float32, [o], [ro], label + " (o)", show=True,
+                  extra=(lse - rlse).abs().max().item())
+        gate.case(torch.float32, grads, refs, label + " (dq, dk, dv)",
+                  show=True)
+    del q, k, v, do, o, lse, grads, refs
     gate.close()
     log(f"  flash bwd d-256: {launches} launches of dK/dV and dQ at rate "
         f"0.1 bit-equal: {'all' if not unequal else 'FAIL ' + str(unequal)}")
@@ -1273,7 +1304,10 @@ FLASH_FWD_FP32_IMPL = ("3xTF32 tensor cores (mma.sync), K and V split once "
 
 def flash_impl(dtype, d, forward):
     """The products of the flash kernel for ``dtype`` at head dim ``d``:
-    the 16-bit instances at d 256 run on wgmma warpgroups."""
+    the instances at d 256 run on wgmma warpgroups."""
+    if dtype == torch.float32 and d == 256:
+        return ("3xTF32 tensor cores (tf32 wgmma warpgroups, a loading "
+                "warpgroup staging split swizzled tiles; flash_tf32.cuh)")
     if dtype == torch.float32:
         return FLASH_FWD_FP32_IMPL if forward else FLASH_IMPL[dtype]
     if d == 256:
@@ -2640,13 +2674,13 @@ def d256_ab(card, parent_dir, rounds=2):
     ``parent_dir`` in one process: both kernel libraries built from their
     own sources and launched through this checkout's wrappers in turns
     (parent, change, change, parent, ``rounds`` times; each side's median).
-    Times the bf16 and fp16 d-256 forward, dK/dV and dQ at GPT-J-6B's
+    Times the bf16, fp16 and fp32 d-256 forward, dK/dV and dQ at GPT-J-6B's
     attention (``GPTJ_ATTN``, dropout 0 and 0.1) and the forward at the
     serving prefill bucket (``time_flash``'s shape at d 256), one line
-    each beside the bound and SDPA; then holds the d <= 128 instances and
-    the fp32 kernels bit-equal to the parent's over phase 3's training
-    grid and times them at GPT-2's micro batch (d 64) and, fp32, at
-    ``GPTJ_ATTN``. One JSON line holds the readings (no gate, no result
+    each beside the bound and SDPA; then holds the bf16 and fp16 instances
+    at every head dim and the fp32 ones at d <= 128 bit-equal to the
+    parent's over phase 3's training grid and times them at GPT-2's micro
+    batch (d 64). One JSON line holds the readings (no gate, no result
     line)."""
     import importlib
     import shutil
@@ -2697,7 +2731,7 @@ def d256_ab(card, parent_dir, rounds=2):
 
     out = {"card": card, "d256": [], "unchanged_times": []}
     b, h, s, d = (GPTJ_ATTN[x] for x in "bhsd")
-    for dt in (torch.bfloat16, torch.float16):
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
         q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev,
                                    dtype=dt) for _ in range(4))
         for rate in (0.0, 0.1):
@@ -2743,7 +2777,7 @@ def d256_ab(card, parent_dir, rounds=2):
     cases, unequal = 0, []
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for d in BWD_HEAD_DIMS:
-            if d == 256 and dt != torch.float32:
+            if d == 256 and dt == torch.float32:
                 continue
             for s in (128, 1024):
                 for name, b, bias in _train_cases(dev, s):
@@ -2767,13 +2801,12 @@ def d256_ab(card, parent_dir, rounds=2):
                             unequal.append(f"{str(dt)[6:]} d={d} s={s} "
                                            f"{name} rate={rate}")
     out["unchanged_cases"], out["unchanged_unequal"] = cases, unequal
-    log(f"  d <= 128 instances and fp32 kernels against the parent's: "
+    log(f"  bf16/fp16 instances and fp32 d <= 128 against the parent's: "
         f"{cases - len(unequal)}/{cases} cases bit-equal (o, lse, dk, dv, "
         f"dq){'; differ: ' + str(unequal) if unequal else ''}")
     for dt, shape in ((torch.bfloat16, dict(b=8, h=12, s=1024, d=64)),
                       (torch.float16, dict(b=8, h=12, s=1024, d=64)),
-                      (torch.float32, dict(b=8, h=12, s=1024, d=64)),
-                      (torch.float32, GPTJ_ATTN)):
+                      (torch.float32, dict(b=8, h=12, s=1024, d=64))):
         q, k, v, do = (torch.randn(shape["b"], shape["s"], shape["h"],
                                    shape["d"], generator=gen, device=dev,
                                    dtype=dt) for _ in range(4))
@@ -6437,9 +6470,28 @@ PLANTED_FAULTS = (
      (("    const uint32_t kl = fresh(k_lo) + st * (WTILE * 2 / 16);",
        "    const uint32_t kl = fresh(k_lo) + (st ^ 1) * (WTILE * 2 / 16);"),),
      "--checks-only"),
-    ("fp32 flash forward at d-256: V not split into its tf32 halves (the "
-     "one-stage tile keeps K's lo plane)", "flash_attention_fwd.cu",
-     (("      split_tile(Vt, Vlo, TILE);\n      __syncthreads();\n", ""),),
+    # the fp32 d-256 kernels on tf32 wgmma (flash_tf32.cuh and the tf32
+    # stagers of wgmma.cuh): ``--planted-faults tf32`` runs these six
+    ("tf32: fp32 flash at d-256: the transposed stager writes no lo plane "
+     "(V^T, K^T, Q^T and dO^T lose their lo halves)", "wgmma.cuh",
+     (("      *reinterpret_cast<uint4*>(dl + sw128_f32(d, (vl % 32) >> 2)) = "
+       "lo;\n", ""),), "--checks-only"),
+    ("tf32: fp32 flash at d-256: the S-shaped products' hi(A) lo(B) term "
+     "dropped (B's lo plane unread)", "flash_tf32.cuh",
+     (("      wgmma_tf32<N>(c, h[x][i], desc_at(b, LO + off), 1);\n", ""),),
+     "--checks-only"),
+    ("tf32: fp32 flash at d-256: the transposed stager's rows out of "
+     "c_to_a_tf32's order (position 4h + i of an 8-group holds row "
+     "8j + 4h + 2i, not 8j + h + 2i)", "wgmma.cuh",
+     (("  const int row = r0 + (c >> 1) * 8 + (c & 1);  // + 2i: rows of "
+       "quad c",
+       "  const int row = r0 + (c >> 1) * 8 + 4 * (c & 1);  // + 2i: rows "
+       "of quad c"),), "--checks-only"),
+    ("tf32: fp32 flash at d-256: S reads the next staged operand's slot, "
+     "whose barrier the computing warpgroup did not wait on",
+     "flash_tf32.cuh",
+     (("    s_product<R>(s, frags + tid, desc_lo(slots, 16));",
+       "    s_product<R>(s, frags + tid, desc_lo(slots + C::PAIR, 16));"),),
      "--checks-only"),
     ("split-KV fp32 at d-256: each lane's second 16-byte slice left out of "
      "the scores", "decode_split.cuh",
@@ -6488,16 +6540,21 @@ PLANTED_FAULTS = (
        "a.scale;",
        "        s[4 * jj + e] = p * (round_to<T>(dfac * dp[4 * jj + e]) - "
        "dlr[i]) * a.scale;"),), "--checks-only"),
-    ("bwd-d256: fp32 flash dK/dV at d-256: dK's second column half takes "
-     "the first half's Q columns", "flash_attention_bwd.cu",
-     (("b_rows_tf32<P>(bh, bl, Qs, r, ch * HC + n * 8 + g);",
-       "b_rows_tf32<P>(bh, bl, Qs, r, n * 8 + g);"),), "--checks-only"),
-    ("bwd-d256: fp32 flash dQ at d-256: the last visible key tile skipped",
-     "flash_attention_bwd.cu",
-     (("  for (int kt = 0; kt < nkb; ++kt) {\n    const int k0 = kt * BK;\n"
-       "    load_tile_f32<D, BK, NT>(Ks, kb",
-       "  for (int kt = 0; kt + 1 < nkb; ++kt) {\n    const int k0 = kt * BK;\n"
-       "    load_tile_f32<D, BK, NT>(Ks, kb"),), "--checks-only"),
+    ("bwd-d256: tf32: fp32 flash dK at d-256: dK's second column half "
+     "takes the first half's Q columns (Q^T's rows 128-255 staged from "
+     "columns 0-127)", "flash_tf32.cuh",
+     (("          load_rows_t<R, D, NT>(x, bt.p, bt.ss, c0, ncol, tid);\n",
+       "          load_rows_t<R, D, NT>(x, bt.p, bt.ss, c0, ncol, tid);\n"
+       "          if (M == DK)\n"
+       "            for (int v = NV / 2; v < NV; ++v) "
+       "x[v] = x[v - NV / 2];\n"),),
+     "--checks-only"),
+    ("bwd-d256: tf32: fp32 flash dQ at d-256: the last visible key step "
+     "skipped", "flash_tf32.cuh",
+     (("  for (int n = 0; n < steps; ++n) {\n    mbar_wait(&full[0], n & 1);",
+       "  for (int n = 0; n < steps - (M == DQ); ++n) {\n"
+       "    mbar_wait(&full[0], n & 1);"),),
+     "--checks-only"),
     # the serving kernels' fp16 instances (phase 14's), each caught by
     # phase 3's fp16 checks: ``--planted-faults fp16-serving``
     ("fp16-serving: an fp16 pool read through the int8-page instance (the "
@@ -7231,7 +7288,7 @@ def main():
               for name, src, replaces in (
                   ("flash_attention_d256", "flash_attention_fwd_bf16.cu",
                    "flash_attention.py:662"),
-                  ("flash_attention_d256_fp32", "flash_attention_fwd.cu",
+                  ("flash_attention_d256_fp32", "flash_tf32.cuh",
                    "flash_attention.py:662"),
                   ("decode_attention_d256", "decode_attention.cu",
                    "decode_attention.py:118"),
@@ -7243,9 +7300,10 @@ def main():
                    "paged_attention.py:169"),
                   ("paged_attention_d256_fp32", "paged_attention.cu",
                    "paged_attention.py:169"))),
-            *((name, t, csrc + ("flash_attention_fwd" if "bwd" not in name
-                                else "flash_attention_bwd")
-               + ("" if name.endswith("_fp32") else "_bf16") + ".cu",
+            *((name, t, csrc + ("flash_tf32.cuh" if name.endswith("_fp32")
+                                else ("flash_attention_fwd" if "bwd" not in
+                                      name else "flash_attention_bwd")
+                                + "_bf16.cu"),
                pallas + ("flash_attention.py:773" if "bwd" in name
                          else "flash_attention.py:662"))
               for name, t in gptj_train_t.items()),

@@ -56,24 +56,16 @@
 //      forward's walk over the visible key tiles through a 2-stage ring:
 //      S = Q K^T and dP = dO V^T, dS in registers as the A operand of
 //      dQ += dS K.
-//  (c) d = 256, both kernels: (a)'s ring at 64 rows of D + 4 floats needs
-//      399,360 bytes of shared memory, over the 232,448 a CTA may have, so
-//      the q tiles are 32 rows in one stage (dK/dV: K and V resident, one
-//      32-row Q/dO tile; dQ: one 32-row Q/dO tile, one 64-key K/V tile),
-//      each tile copied, then used, then released. 8 warps a CTA split the
-//      output columns, as flash_attention_bwd_bf16.cu's d-256 kernels do:
-//      dK/dV warp (kw, ch) owns keys kw * 16 .. + 15 and columns ch * 128
-//      .. + 127 (128 fp32 accumulator registers a thread); dQ warp (rw,
-//      cq) rows rw * 16 .. + 15 and columns cq * 64 .. + 63. The warps of
-//      a stripe split S and dP between them (dK/dV: 16 q rows each; dQ:
-//      16 keys each) and hand P o D and dS over in fp32 through shared
-//      memory; after a barrier each reads them back as C fragments into
-//      the A operands of its products over the whole tile. Shared memory:
-//      dK/dV 218,368 bytes, dQ 208,384; one CTA an SM.
+//  (c) d = 256: (a)'s ring at 64 rows of D + 4 floats would need 399,360
+//      bytes of shared memory, over the 232,448 a CTA may have; the dQ,
+//      dK and dV kernels of flash_tf32.cuh run it on tf32 wgmma
+//      warpgroups fed by a loading warpgroup (its header gives their
+//      budgets), the dK/dV entry launching dV, then dK.
 // Tiles inside the causal triangle and the sequence skip the per-element
 // masks. Rows past sq are zero in Q and dO and masked. Each output element
 // has one owner: no float atomics, the same bits from every launch.
 #include "common.cuh"
+#include "flash_tf32.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -96,47 +88,30 @@ __host__ __device__ constexpr int dkv_q_groups() {
   return D > 64 ? 2 : 1;
 }
 
-// d = 256 takes design (c): one stage of 32-row q tiles, output columns
-// split over the warps
-template <int D>
-__host__ __device__ constexpr bool split_cols() {
-  return D > 128;
-}
-
-constexpr int WQ = 32;  // q rows of a (c) tile
-
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  // K, V; 2 stages of Q and dO; 2 stages of lse and delta. (c): K, V; one
-  // WQ-row stage of Q, dO, lse and delta; the P o D and dS hand-over tiles
-  // [64 keys][WQ + 4]
-  return sizeof(float) *
-         (split_cols<D>()
-              ? (2 * BK + 2 * WQ) * (D + 4) + 2 * WQ + 2 * BK * (WQ + 4)
-              : 6 * BK * (D + 4) + 4 * BQ);
+  // K, V; 2 stages of Q and dO; 2 stages of lse and delta
+  return sizeof(float) * (6 * BK * (D + 4) + 4 * BQ);
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // Q, dO; 2 stages of K and V. (c): WQ rows of Q and dO; one stage of K
-  // and V; the dS hand-over tile [WQ][64 + 4]
-  return sizeof(float) *
-         (split_cols<D>() ? (2 * WQ + 2 * BK) * (D + 4) + WQ * (BK + 4)
-                          : 6 * BQ * (D + 4));
+  // Q, dO; 2 stages of K and V
+  return sizeof(float) * 6 * BQ * (D + 4);
 }
 
-// lse and delta of rows [q0, q0 + ROWS) of one (b, h) into shared memory
+// lse and delta of rows [q0, q0 + BQ) of one (b, h) into shared memory
 // with cp.async; rows past sq are zero-filled (the kernels mask them)
-template <int NT, int ROWS = BQ>
+template <int NT>
 __device__ __forceinline__ void load_row_stats_async(float* ls, float* dl,
                                                      const float* lse,
                                                      const float* delta,
                                                      int q0, int sq) {
-  for (int r = threadIdx.x; r < 2 * ROWS; r += NT) {
-    const int row = q0 + (r & (ROWS - 1));
+  for (int r = threadIdx.x; r < 2 * BQ; r += NT) {
+    const int row = q0 + (r & (BQ - 1));
     const bool ok = row < sq;
-    const float* src = (r < ROWS ? lse : delta) + (ok ? row : 0);
-    cp_async4((r < ROWS ? ls : dl) + (r & (ROWS - 1)), src, ok ? 4 : 0);
+    const float* src = (r < BQ ? lse : delta) + (ok ? row : 0);
+    cp_async4((r < BQ ? ls : dl) + (r & (BQ - 1)), src, ok ? 4 : 0);
   }
 }
 
@@ -537,361 +512,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The C fragment c[4] of rows r, r + 8 and columns c0, c0 + 1 of an fp32
-// hand-over tile (row pitch XP) in shared memory
-template <int XP>
-__device__ __forceinline__ void c_frag(float (&c)[4], const float* tile,
-                                       int r, int c0) {
-  const float2 lo = *reinterpret_cast<const float2*>(tile + r * XP + c0);
-  const float2 hi = *reinterpret_cast<const float2*>(tile + (r + 8) * XP + c0);
-  c[0] = lo.x;
-  c[1] = lo.y;
-  c[2] = hi.x;
-  c[3] = hi.y;
-}
-
-// (c) dK/dV at d = 256: warp (kw, ch) takes keys kw * 16 .. + 15 and, in
-// S^T and dP^T, q rows ch * 16 .. + 15 of each 32-row tile; in dK and dV
-// the output columns ch * 128 .. + 127 over all 32 q rows of the tile.
-template <int D, bool DROP>
-__global__ void __launch_bounds__(256)
-flash_bwd_dkv_cols_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          const float* __restrict__ bias,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          BwdArgs a, DropoutParams dr) {
-  constexpr int NT = 256;
-  constexpr int QC = WQ / 2;  // q rows of a warp's S^T and dP^T
-  constexpr int NQ = QC / 8;  // their 8-column blocks
-  constexpr int P = D + 4;
-  constexpr int XP = WQ + 4;  // hand-over row pitch
-  constexpr int HC = D / 2;   // output columns of a warp
-  constexpr int NH = HC / 8;  // their 8-column blocks
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + BK * P;
-  float* Qs = Vs + BK * P;
-  float* dOs = Qs + WQ * P;
-  float* ls = dOs + WQ * P;
-  float* dl = ls + WQ;
-  float* Px = dl + WQ;        // P o D [key][q row]
-  float* Sx = Px + BK * XP;   // dS [key][q row]
-
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kw = warp & 3;   // this warp's 16 keys
-  const int ch = warp >> 2;  // its q half of S^T, its column half of dK, dV
-  const int shift = a.sk - a.sq;
-  const int kr0 = k0 + kw * 16 + g;  // this thread's keys: kr0, kr0 + 8
-
-  const float* qb = q + b * a.q_sb + h * a.q_sh;
-  const float* ob = dout + b * a.o_sb + h * a.o_sh;
-  const float* lb = lse + (static_cast<long long>(b) * a.H + h) * a.sq;
-  const float* db = delta + (static_cast<long long>(b) * a.H + h) * a.sq;
-  const float* bb = bias ? bias + b * a.b_sb + h * a.b_sh : nullptr;
-
-  // causal: the first q row that sees key k0 is k0 - shift
-  const int first_row = a.causal ? max(0, k0 - shift) : 0;
-  const int qt0 = first_row / WQ;
-  const int nqb = (a.sq + WQ - 1) / WQ;
-
-  load_tile_f32<D, BK, NT>(Ks, k + b * a.k_sb + h * a.k_sh, a.k_ss, k0,
-                           a.sk);
-  load_tile_f32<D, BK, NT>(Vs, v + b * a.v_sb + h * a.v_sh, a.v_ss, k0,
-                           a.sk);
-  cp_async_commit();
-
-  uint32_t hbase = 0, hkey[2] = {0u, 0u};
-  if (DROP) {
-    hbase = hash_base(dr, dropout_bh(dr, b, h));
-    hkey[0] = hash_col(dr, kr0);  // a key is a column of the hash lattice
-    hkey[1] = hash_col(dr, kr0 + 8);
-  }
-
-  float dk_acc[NH][4], dv_acc[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  const float scale2 = a.scale * kLog2e;  // scores in log2 units: exp = ex2
-
-  for (int qt = qt0; qt < nqb; ++qt) {
-    const int q0 = qt * WQ;
-    load_tile_f32<D, WQ, NT>(Qs, qb, a.q_ss, q0, a.sq);
-    load_tile_f32<D, WQ, NT>(dOs, ob, a.o_ss, q0, a.sq);
-    load_row_stats_async<NT, WQ>(ls, dl, lb, db, q0, a.sq);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x this warp's QC q rows
-    float sT[NQ][4], dpT[NQ][4];
-    s_products<D, NQ>(sT, dpT, Ks, Vs, Qs, dOs, kw * 16, ch * QC);
-
-    // P o D and dS into the hand-over tiles; element e of n-block j is
-    // key kr0 + 8 * (e >> 1) and q row q0 + ch * QC + 8j + 2t + (e & 1)
-    const bool masked = q0 + WQ > a.sq || k0 + BK > a.sk ||
-                        (a.causal && k0 + BK - 1 > q0 + shift);
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      const int c0 = ch * QC + j * 8 + 2 * t;  // q row of e = 0 in the tile
-      const float2 l2 = *reinterpret_cast<const float2*>(ls + c0);
-      const float2 d2 = *reinterpret_cast<const float2*>(dl + c0);
-      uint32_t hq[2] = {0u, 0u};
-      if (DROP) {
-        hq[0] = hash_row(dr, q0 + c0);  // a q row is a row
-        hq[1] = hash_row(dr, q0 + c0 + 1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kr0 + 8 * (e >> 1);
-        const int qrow = q0 + c0 + (e & 1);
-        const float lq = (e & 1) ? l2.y : l2.x;
-        const float dlq = (e & 1) ? d2.y : d2.x;
-        bool live = lq > DS_NEG_INF / 2;
-        if (masked)
-          live = live && qrow < a.sq && key < a.sk &&
-                 !(a.causal && key > qrow + shift);
-        float x = sT[j][e] * scale2;
-        if (bb != nullptr && live) x += bb[qrow * a.b_sq + key] * kLog2e;
-        const float p = live ? exp2_approx(x - lq * kLog2e) : 0.f;
-        float dfac = 1.f;
-        if (DROP)
-          dfac = keep_bit(dr, hq[e & 1], hkey[e >> 1], hbase) ? dr.inv_keep
-                                                              : 0.f;
-        // dS, then P o D
-        dpT[j][e] = p * (dfac * dpT[j][e] - dlq) * a.scale;
-        sT[j][e] = p * dfac;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int at = (kw * 16 + g + 8 * i) * XP + c0;
-        *reinterpret_cast<float2*>(Px + at) =
-            make_float2(sT[j][2 * i], sT[j][2 * i + 1]);
-        *reinterpret_cast<float2*>(Sx + at) =
-            make_float2(dpT[j][2 * i], dpT[j][2 * i + 1]);
-      }
-    }
-    __syncthreads();  // both q halves of every key stripe handed over
-
-    // dV += (P o D)^T dO and dK += dS^T Q over the tile's WQ q rows, this
-    // warp's output columns, one 8-row block of them a k step
-#pragma unroll
-    for (int j = 0; j < WQ / 8; ++j) {
-      float pc[4], sc[4];
-      c_frag<XP>(pc, Px, kw * 16 + g, j * 8 + 2 * t);
-      c_frag<XP>(sc, Sx, kw * 16 + g, j * 8 + 2 * t);
-      uint32_t ph[4], pl[4], sh[4], sl[4];
-      c_to_a_tf32(ph, pl, pc);
-      c_to_a_tf32(sh, sl, sc);
-      const int r = j * 8 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NH; ++n) {
-        uint32_t bh[2], bl[2];
-        b_rows_tf32<P>(bh, bl, dOs, r, ch * HC + n * 8 + g);
-        mma_3xtf32(dv_acc[n], ph, pl, bh, bl);
-        b_rows_tf32<P>(bh, bl, Qs, r, ch * HC + n * 8 + g);
-        mma_3xtf32(dk_acc[n], sh, sl, bh, bl);
-      }
-    }
-    __syncthreads();  // the tile and the hand-over tiles are free again
-  }
-  cp_async_wait<0>();  // nothing in flight when no q tile was visible
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = kr0 + 8 * i;
-    if (key >= a.sk) continue;
-    const long long off =
-        ((static_cast<long long>(b) * a.sk + key) * a.H + h) * D + ch * HC;
-#pragma unroll
-    for (int n = 0; n < NH; ++n) {
-      *reinterpret_cast<float2*>(dk + off + n * 8 + 2 * t) =
-          make_float2(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
-      *reinterpret_cast<float2*>(dv + off + n * 8 + 2 * t) =
-          make_float2(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
-    }
-  }
-}
-
-// (c) dQ at d = 256: a CTA takes WQ q rows; warp (rw, cq) takes rows
-// rw * 16 .. + 15 and, in S and dP, keys cq * 16 .. + 15 of each 64-key
-// tile; in dQ the output columns cq * 64 .. + 63 over all 64 keys.
-template <int D, bool DROP>
-__global__ void __launch_bounds__(256)
-flash_bwd_dq_cols_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const float* __restrict__ bias,
-                         float* __restrict__ dq, BwdArgs a,
-                         DropoutParams dr) {
-  constexpr int NT = 256;
-  constexpr int KC = BK / 4;  // keys of a warp's S and dP
-  constexpr int NJ = KC / 8;  // their 8-column blocks
-  constexpr int P = D + 4;
-  constexpr int XP = BK + 4;  // hand-over row pitch
-  constexpr int QCOL = D / 4; // output columns of a warp
-  constexpr int NQ = QCOL / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* dOs = Qs + WQ * P;
-  float* Ks = dOs + WQ * P;
-  float* Vs = Ks + BK * P;
-  float* Sx = Vs + BK * P;  // dS [q row][key]
-
-  const int q0 = blockIdx.x * WQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rw = warp & 1;   // this warp's 16 q rows
-  const int cq = warp >> 1;  // its key quarter of S and dP, column quarter
-  const int shift = a.sk - a.sq;
-  const int row0 = q0 + rw * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  const float* kb = k + b * a.k_sb + h * a.k_sh;
-  const float* vb = v + b * a.v_sb + h * a.v_sh;
-  const float* bb = bias ? bias + b * a.b_sb + h * a.b_sh : nullptr;
-
-  int nkb = (a.sk + BK - 1) / BK;
-  if (a.causal) {
-    const int last_col = q0 + WQ - 1 + shift;  // last visible key of the tile
-    nkb = min(nkb, last_col < 0 ? 0 : last_col / BK + 1);
-  }
-
-  load_tile_f32<D, WQ, NT>(Qs, q + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
-                           a.sq);
-  load_tile_f32<D, WQ, NT>(dOs, dout + b * a.o_sb + h * a.o_sh, a.o_ss, q0,
-                           a.sq);
-  cp_async_commit();
-
-  // lse and delta of this thread's two rows; rows past sq are masked
-  float lr2[2], dlr[2];  // lse in log2 units, delta
-  const float scale2 = a.scale * kLog2e;
-  uint32_t hrow[2] = {0u, 0u}, hbase = 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    const long long at = (static_cast<long long>(b) * a.H + h) * a.sq + row;
-    lr2[i] = (row < a.sq ? lse[at] : DS_NEG_INF) * kLog2e;
-    dlr[i] = row < a.sq ? delta[at] : 0.f;
-    if (DROP) hrow[i] = hash_row(dr, row);
-  }
-  if (DROP) hbase = hash_base(dr, dropout_bh(dr, b, h));
-
-  float dq_acc[NQ][4];
-#pragma unroll
-  for (int n = 0; n < NQ; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  for (int kt = 0; kt < nkb; ++kt) {
-    const int k0 = kt * BK;
-    load_tile_f32<D, BK, NT>(Ks, kb, a.k_ss, k0, a.sk);
-    load_tile_f32<D, BK, NT>(Vs, vb, a.v_ss, k0, a.sk);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 16 rows x this warp's KC keys
-    float s[NJ][4], dp[NJ][4];
-    s_products<D, NJ>(s, dp, Qs, dOs, Ks, Vs, rw * 16, cq * KC);
-
-    // dS into the hand-over tile
-    const bool masked = q0 + WQ > a.sq || k0 + BK > a.sk ||
-                        (a.causal && k0 + BK - 1 > q0 + shift);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c0 = cq * KC + j * 8 + 2 * t;  // key of e = 0 in the tile
-      uint32_t hcol[2] = {0u, 0u};
-      if (DROP) {
-        hcol[0] = hash_col(dr, k0 + c0);
-        hcol[1] = hash_col(dr, k0 + c0 + 1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int row = row0 + 8 * i;
-        const int col = k0 + c0 + (e & 1);
-        bool live = lr2[i] > DS_NEG_INF / 2;
-        if (masked)
-          live = live && row < a.sq && col < a.sk &&
-                 !(a.causal && col > row + shift);
-        float x = s[j][e] * scale2;
-        if (bb != nullptr && live) x += bb[row * a.b_sq + col] * kLog2e;
-        const float p = live ? exp2_approx(x - lr2[i]) : 0.f;
-        float dfac = 1.f;
-        if (DROP)
-          dfac = keep_bit(dr, hrow[i], hcol[e & 1], hbase) ? dr.inv_keep
-                                                           : 0.f;
-        s[j][e] = p * (dfac * dp[j][e] - dlr[i]) * a.scale;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<float2*>(Sx + (rw * 16 + g + 8 * i) * XP + c0) =
-            make_float2(s[j][2 * i], s[j][2 * i + 1]);
-    }
-    __syncthreads();  // the four key quarters of every row stripe handed over
-
-    // dQ += dS K over the tile's 64 keys, this warp's output columns, one
-    // 8-key block a k step
-#pragma unroll 2
-    for (int j = 0; j < BK / 8; ++j) {
-      float sc[4];
-      c_frag<XP>(sc, Sx, rw * 16 + g, j * 8 + 2 * t);
-      uint32_t sh[4], sl[4];
-      c_to_a_tf32(sh, sl, sc);
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        uint32_t bh[2], bl[2];
-        b_rows_tf32<P>(bh, bl, Ks, j * 8 + 2 * t, cq * QCOL + n * 8 + g);
-        mma_3xtf32(dq_acc[n], sh, sl, bh, bl);
-      }
-    }
-    __syncthreads();  // the K/V tile and the hand-over tile are free again
-  }
-  cp_async_wait<0>();  // nothing in flight when no key tile was visible
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row >= a.sq) continue;
-    const long long off =
-        ((static_cast<long long>(b) * a.sq + row) * a.H + h) * D + cq * QCOL;
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-      *reinterpret_cast<float2*>(dq + off + n * 8 + 2 * t) =
-          make_float2(dq_acc[n][2 * i], dq_acc[n][2 * i + 1]);
-  }
-}
-
-// the dK/dV and dQ kernels of a head dim: (c) at d = 256, else (a), (b)
-template <int D, bool DROP>
-constexpr auto dkv_kernel() {
-  if constexpr (split_cols<D>())
-    return flash_bwd_dkv_cols_kernel<D, DROP>;
-  else
-    return flash_bwd_dkv_kernel<D, DROP>;
-}
-
-template <int D, bool DROP>
-constexpr auto dq_kernel() {
-  if constexpr (split_cols<D>())
-    return flash_bwd_dq_cols_kernel<D, DROP>;
-  else
-    return flash_bwd_dq_kernel<D, DROP>;
+// the arguments of flash_tf32.cuh's kernels (d = 256), out their output
+inline tf32::Args tf32_args(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const float* bias,
+                            void* out, const BwdArgs& a) {
+  return {static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout),
+          lse, delta, bias, static_cast<float*>(out), nullptr, a.H, a.sq,
+          a.sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
+          a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.b_sb, a.b_sh, a.b_sq,
+          a.scale, a.causal};
 }
 
 template <int D, bool DROP>
@@ -899,17 +530,27 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const float* bias,
                void* dk, void* dv, int b, const BwdArgs& a,
                const DropoutParams& dr, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  constexpr bool COLS = split_cols<D>();
-  auto* kernel = dkv_kernel<D, DROP>();
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  dim3 grid((a.sk + BK - 1) / BK, a.H, b);
-  kernel<<<grid, COLS ? 256 : 128 * dkv_q_groups<D>(), smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, bias, static_cast<float*>(dk), static_cast<float*>(dv), a, dr);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (D == tf32::D) {  // dV, then dK, on tf32 wgmma
+    const int err = tf32::launch<tf32::DV>(
+        tf32::flash_bwd_dv_tf32_kernel<DROP>,
+        tf32_args(q, k, v, dout, lse, delta, bias, dv, a), b, dr, stream);
+    if (err != 0) return err;
+    return tf32::launch<tf32::DK>(
+        tf32::flash_bwd_dk_tf32_kernel<DROP>,
+        tf32_args(q, k, v, dout, lse, delta, bias, dk, a), b, dr, stream);
+  } else {
+    constexpr size_t smem = dkv_smem_bytes<D>();
+    auto* kernel = flash_bwd_dkv_kernel<D, DROP>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    dim3 grid((a.sk + BK - 1) / BK, a.H, b);
+    kernel<<<grid, 128 * dkv_q_groups<D>(), smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, bias, static_cast<float*>(dk), static_cast<float*>(dv), a,
+        dr);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <int D, bool DROP>
@@ -917,18 +558,22 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const float* bias,
               void* dq, void*, int b, const BwdArgs& a,
               const DropoutParams& dr, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  constexpr bool COLS = split_cols<D>();
-  auto* kernel = dq_kernel<D, DROP>();
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  const int rows = COLS ? WQ : BQ;
-  dim3 grid((a.sq + rows - 1) / rows, a.H, b);
-  kernel<<<grid, COLS ? 256 : 128, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, bias, static_cast<float*>(dq), a, dr);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (D == tf32::D) {
+    return tf32::launch<tf32::DQ>(
+        tf32::flash_bwd_dq_tf32_kernel<DROP>,
+        tf32_args(q, k, v, dout, lse, delta, bias, dq, a), b, dr, stream);
+  } else {
+    constexpr size_t smem = dq_smem_bytes<D>();
+    auto* kernel = flash_bwd_dq_kernel<D, DROP>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    dim3 grid((a.sq + BQ - 1) / BQ, a.H, b);
+    kernel<<<grid, 128, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, bias, static_cast<float*>(dq), a, dr);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace

@@ -41,13 +41,10 @@
 // 264 KB beside the ring and the K/V lo planes at d 128, over the 227 KB a
 // CTA may have). The K/V tiles of 64 keys go through a 2-stage
 // cp.async ring, rows of D + 4 floats so every ldmatrix and the column
-// reads of V are conflict-free. At d 256 that plan needs 399,360 bytes of
-// shared memory and Q's raw fragments another 128 registers beside the
-// accumulator's 128, so the d-256 instance runs one stage: Q stays in
-// shared memory (read by ldmatrix and split where used, every tile), and
-// one 64-key tile buffer with its lo plane takes K, then V (V's copy is in
-// flight while the softmax of the tile runs): 199,680 bytes. The key step,
-// and so every rounding, is the other dims'. S = Q K^T on mma.sync (B from
+// reads of V are conflict-free. (At d 256 that plan would need 399,360
+// bytes of shared memory and Q's raw fragments another 128 registers
+// beside the accumulator's 128: head dim 256 runs flash_fwd_tf32_kernel
+// of flash_tf32.cuh, on tf32 wgmma warpgroups.) S = Q K^T on mma.sync (B from
 // ldmatrix of K rows); the online softmax stays in registers (each thread
 // 2 rows x 16 keys of a tile; row max over the quad's two shuffles, l
 // summed per thread and reduced once at the end). p' is, in registers,
@@ -58,6 +55,7 @@
 // A row's result depends only on its own keys: fully masked tiles add
 // exact zeros, so batch, bucket length and padding do not move it.
 #include "common.cuh"
+#include "flash_tf32.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -70,11 +68,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Q's A fragments held split (hi and lo planes) or raw
 template <int D>
-__host__ __device__ constexpr bool one_stage() {
-  return D > 128;  // Q in shared memory, K then V through one tile
-}
-
-template <int D>
 __host__ __device__ constexpr int q_planes() {
   return D <= 64 ? 2 : 1;
 }
@@ -82,9 +75,8 @@ __host__ __device__ constexpr int q_planes() {
 template <int D>
 constexpr size_t fwd_smem_bytes() {
   // 2 stages of K and V (the hi halves in place once split), and the lo
-  // halves of the current K and V tile, where Q is staged at the start;
-  // one stage: Q, one tile and its lo halves
-  return sizeof(float) * (one_stage<D>() ? 3 : 6) * BK * (D + 4);
+  // halves of the current K and V tile, where Q is staged at the start
+  return sizeof(float) * 6 * BK * (D + 4);
 }
 
 // c += A B for fp32 A = ah + al and B = (bh0, bh1) + (bl0, bl1), as
@@ -134,17 +126,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NB = D / 8;    // 8-column blocks of O
   constexpr int QP = q_planes<D>();
   constexpr int TILE = BK * P;
-  constexpr bool ONE = one_stage<D>();
   static_assert(BQ == BK, "Q is staged in a tile");
+  static_assert(D <= 128, "d = 256 runs flash_fwd_tf32_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
   // two stages of K, two of V, the lo halves of K and of V (Q staged in
-  // K's); one stage: Q, the tile, its lo halves
-  float* Ks = ONE ? base + TILE : base;
-  float* Vs = ONE ? Ks : Ks + 2 * TILE;
-  float* Klo = ONE ? base + 2 * TILE : base + 4 * TILE;
-  float* Vlo = ONE ? Klo : Klo + TILE;
-  float* Qs = ONE ? base : Klo;
+  // K's)
+  float* Ks = base;
+  float* Vs = Ks + 2 * TILE;
+  float* Klo = base + 4 * TILE;
+  float* Vlo = Klo + TILE;
+  float* Qs = Klo;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -166,7 +158,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   load_tile_f32<D, BQ, THREADS>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, sq);
-  if (!ONE && nkb > 0) {
+  if (nkb > 0) {
     load_tile_f32<D, BK, THREADS>(Ks, kb, k_ss, 0, sk);
     load_tile_f32<D, BK, THREADS>(Vs, vb, v_ss, 0, sk);
   }
@@ -176,18 +168,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Q's A fragments (two stages); the loop's first barrier orders these
   // reads before the first split overwrites the staging
   const float* qrow = Qs + (warp * 16 + (lane & 15)) * P + (lane >> 4) * 4;
-  uint32_t qf[ONE ? 1 : KS][QP][4];
-  if constexpr (!ONE) {
+  uint32_t qf[KS][QP][4];
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t x[4];
-      ldsm_x4(x, qrow + kk * 8);
-      if constexpr (QP == 2) {
-        split_frag(x, qf[kk][0], qf[kk][QP - 1]);
-      } else {
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t x[4];
+    ldsm_x4(x, qrow + kk * 8);
+    if constexpr (QP == 2) {
+      split_frag(x, qf[kk][0], qf[kk][QP - 1]);
+    } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qf[kk][0][i] = x[i];
-      }
+      for (int i = 0; i < 4; ++i) qf[kk][0][i] = x[i];
     }
   }
 
@@ -208,12 +198,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = 0; kt < nkb; ++kt) {
     const int k0 = kt * BK;
-    const int st = ONE ? 0 : kt & 1;
-    if constexpr (ONE) {  // K into the tile
-      load_tile_f32<D, BK, THREADS>(Ks, kb, k_ss, k0, sk);
-      cp_async_commit();
-      cp_async_wait<0>();
-    } else if (kt + 1 < nkb) {  // the next tile streams in while this runs
+    const int st = kt & 1;
+    if (kt + 1 < nkb) {  // the next tile streams in while this runs
       load_tile_f32<D, BK, THREADS>(Ks + (st ^ 1) * TILE, kb, k_ss, k0 + BK,
                                     sk);
       load_tile_f32<D, BK, THREADS>(Vs + (st ^ 1) * TILE, vb, v_ss, k0 + BK,
@@ -227,7 +213,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* Kt = Ks + st * TILE;
     float* Vt = Vs + st * TILE;
     split_tile(Kt, Klo, TILE);
-    if constexpr (!ONE) split_tile(Vt, Vlo, TILE);
+    split_tile(Vt, Vlo, TILE);
     __syncthreads();
 
     // S = Q K^T: 16 rows x 64 keys a warp, n-block j = keys 8j..8j+7
@@ -247,12 +233,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       } else {
         uint32_t x[4];
-        if constexpr (ONE) {
-          ldsm_x4(x, qrow + kk * 8);
-        } else {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) x[i] = qf[kk][0][i];
-        }
+        for (int i = 0; i < 4; ++i) x[i] = qf[kk][0][i];
         split_frag(x, ah, al);
       }
 #pragma unroll
@@ -265,11 +247,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mma_fp32(s[j], ah, al, bh[0], bh[1], bl[0], bl[1]);
         mma_fp32(s[j + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
       }
-    }
-    if constexpr (ONE) {  // V into the tile while the softmax runs
-      __syncthreads();    // every warp's K reads are done
-      load_tile_f32<D, BK, THREADS>(Vs, vb, v_ss, k0, sk);
-      cp_async_commit();
     }
 
     // scale and bias as the plain version rounds them; the diagonal and
@@ -327,12 +304,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-    if constexpr (ONE) {
-      cp_async_wait<0>();
-      __syncthreads();
-      split_tile(Vt, Vlo, TILE);
-      __syncthreads();
-    }
 
     // O += p' V, one 8-key block a k step: p' split in registers is the A
     // operand, V's rows 2t and 2t + 1 of the block its B fragment
@@ -393,6 +364,24 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// d = 256: the forward of flash_tf32.cuh (tf32 wgmma warpgroups)
+template <bool DROP>
+int launch_tf32(const void* q, const void* k, const void* v,
+                const float* bias, void* o, float* lse, int b, int h, int sq,
+                int sk, long long q_sb, long long q_ss, long long q_sh,
+                long long k_sb, long long k_ss, long long k_sh,
+                long long v_sb, long long v_ss, long long v_sh,
+                long long b_sb, long long b_sh, long long b_sq, float scale,
+                int causal, DropoutParams dp, cudaStream_t stream) {
+  const tf32::Args a{
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), nullptr, nullptr, nullptr, bias,
+      static_cast<float*>(o), lse, h, sq, sk, q_sb, q_ss, q_sh, k_sb, k_ss,
+      k_sh, v_sb, v_ss, v_sh, 0, 0, 0, b_sb, b_sh, b_sq, scale, causal};
+  return tf32::launch<tf32::FWD>(tf32::flash_fwd_tf32_kernel<DROP>, a, b,
+                                 dp, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (bfloat16 is flash_attention_fwd_bf16's); d in
@@ -423,7 +412,7 @@ extern "C" int flash_attention_fwd(
   if (d == 80) return launch<80, DROP>(DS_FLASH_ARGS);             \
   if (d == 96) return launch<96, DROP>(DS_FLASH_ARGS);             \
   if (d == 128) return launch<128, DROP>(DS_FLASH_ARGS);            \
-  if (d == 256) return launch<256, DROP>(DS_FLASH_ARGS);
+  if (d == 256) return launch_tf32<DROP>(DS_FLASH_ARGS);
   if (dropout) {
     DS_FLASH_DISPATCH(true)
   } else {

@@ -286,3 +286,203 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 
 #undef DS_WG_SS
 #undef DS_WG_RS256
+
+// 4-byte operands: tf32 products of fp32 tiles (the 3xTF32 kernels).
+//
+// tf32 wgmma reads both operands K-major (the transpose qualifiers exist
+// only for 16-bit types), 8 deep a step: 32 bytes, as a 16-bit step is.
+// A 128-byte-swizzled fp32 tile keeps 32 floats a row: a [ROWS][D]
+// K-major operand is D / 32 column blocks of [ROWS][32] floats, block c at
+// c * ROWS * 128 bytes, the 16-byte chunk k (floats 4k..4k+3) of row r at
+// chunk k ^ (r % 8) of its row -- the 16-bit tiles' layout in bytes, so
+// desc_lo and desc_at (K-major, SBO 1024) serve unchanged: an 8-deep step
+// kk starts 32 (kk % 4) bytes into column block kk / 4. The fp32 operand
+// of a 3xTF32 product is staged split (split_trunc), hi and lo each a
+// plane of its own. An operand whose reduction
+// runs down its rows (V, K, Q or dO reduced over keys or q rows) is staged
+// transposed, its R rows becoming the K-major columns. Its A fragments come
+// from registers (the C fragment of an earlier product, mma.cuh's
+// c_to_a_tf32), whose 8 k positions are permuted (position p holds column
+// 2p for p < 4, 2(p - 4) + 1 for p >= 4), so the transposed stager stores
+// the columns of each 8-group in that order. The A operand of the
+// products that read a resident tile comes from registers too, loaded and
+// split where used: 4-byte A fragments from shared memory would double
+// what the products read there.
+
+// the float offset of chunk k of row r inside a [.][32]-float swizzled
+// column block
+__host__ __device__ constexpr int sw128_f32(int r, int k) {
+  return r * 32 + ((k ^ (r & 7)) << 2);
+}
+
+// The 3xTF32 split of the tf32 kernels: hi = x with its 13 low mantissa
+// bits cleared (tf32(x) toward zero), lo = x - hi, exact in fp32, which
+// the tensor cores read as tf32 toward zero too. hi + tf32(lo) is within
+// 2^-20 |x| of x (split_tf32's rounded halves: 2^-22), two instructions
+// a value where split_tf32 takes three and two of them conversions
+// (cvt.rna), which the SMs issue at a fraction of the integer and fp32
+// rate.
+__device__ __forceinline__ void split_trunc(float x, uint32_t& hi,
+                                            uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// the hi and lo tf32 halves of four floats
+__device__ __forceinline__ void split4(const float4& x, uint4& hi,
+                                       uint4& lo) {
+  split_trunc(x.x, hi.x, lo.x);
+  split_trunc(x.y, hi.y, lo.y);
+  split_trunc(x.z, hi.z, lo.z);
+  split_trunc(x.w, hi.w, lo.w);
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The stagers of fp32 operands: rows [r0, r0 + R) of a [s, D] fp32 head
+// slice (row stride ss floats, 16-byte aligned; rows at or past `limit`
+// zero) loaded by threads tid = 0 .. NT - 1 into R * D / (4 NT) float4
+// registers a thread (load_*), then split and stored (store_*), so a
+// stager can have the next operand's loads in flight while it waits to
+// store this one.
+
+template <int R, int D, int NT>
+__host__ __device__ constexpr int stage_vecs() {
+  return R * D / (4 * NT);
+}
+
+// K-major: the hi plane at dst, the lo plane R * D floats on, each D / 32
+// swizzled column blocks of [R][32]. A thread keeps one 16-byte chunk
+// column (NT a multiple of D / 4) and steps down the rows.
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_rows(float4 (&x)[stage_vecs<R, D, NT>()],
+                                          const float* src, long long ss,
+                                          int r0, int limit, int tid) {
+  constexpr int CH = D / 4;       // 16-byte chunks a row
+  constexpr int STEP = NT / CH;   // rows a pass
+  static_assert(D % 32 == 0 && NT % CH == 0 && R % STEP == 0,
+                "32-float blocks, whole rows a pass");
+#pragma unroll
+  for (int i = 0; i < R / STEP; ++i) {
+    const int r = r0 + tid / CH + i * STEP;
+    x[i] = r < limit ? ldg4(src + r * ss + (tid % CH) * 4)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+template <int R, int D, int NT>
+__device__ __forceinline__ void store_split(
+    float* dst, const float4 (&x)[stage_vecs<R, D, NT>()], int tid) {
+  constexpr int CH = D / 4, STEP = NT / CH;
+  const int c = tid % CH;
+  float* d = dst + (c >> 3) * R * 32;
+#pragma unroll
+  for (int i = 0; i < R / STEP; ++i) {
+    const int r = tid / CH + i * STEP;
+    uint4 hi, lo;
+    split4(x[i], hi, lo);
+    *reinterpret_cast<uint4*>(d + sw128_f32(r, c & 7)) = hi;
+    *reinterpret_cast<uint4*>(d + R * D + sw128_f32(r, c & 7)) = lo;
+  }
+}
+
+// the byte offset of virtual column v (32 a tile) of transposed [D][32]
+// tiles: the tile v / 32, D * 128 bytes each, then v % 32 in its rows
+template <int D>
+__host__ __device__ constexpr int trans_col_bytes(int v) {
+  return (v / 32) * D * 128 + (v % 32) * 4;
+}
+
+// Transposed: D rows of R values, K-major, in [D][32]-float swizzled
+// tiles (trans_col_bytes); the hi halves at virtual columns 0..R - 1, the
+// lo halves at R..2R - 1, the R values of each plane in the c_to_a_tf32
+// order of their 8-groups (position 4h + i of group j holds row 8j + h +
+// 2i). Thread tid takes position quad c = tid % (R / 4) (four rows: one
+// 16-byte chunk of each plane) of 4-column quads of D: it loads 4 x 4
+// blocks (four 16-byte row loads each) and stores their columns,
+// transposed in registers, as the chunks of four tile rows. The 8 threads
+// of a 16-byte store phase hit 8 distinct chunks of a 128-byte line, and a
+// warp's loads read whole 32-byte sectors.
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_rows_t(
+    float4 (&x)[stage_vecs<R, D, NT>()], const float* src, long long ss,
+    int r0, int limit, int tid) {
+  constexpr int KQ = R / 4;              // position quads of a plane
+  constexpr int STEP = NT / KQ;          // column quads a pass
+  static_assert(R % 8 == 0 && 2 * R <= 64 && (D / 4) % STEP == 0 &&
+                    stage_vecs<R, D, NT>() == 4 * (D / 4 / STEP),
+                "whole 8-groups, both planes in two tiles at most");
+  const int c = tid % KQ;
+  const int row = r0 + (c >> 1) * 8 + (c & 1);  // + 2i: rows of quad c
+#pragma unroll
+  for (int pass = 0; pass < D / 4 / STEP; ++pass)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[4 * pass + i] = row + 2 * i < limit
+                            ? ldg4(src + (row + 2 * i) * ss +
+                                   (tid / KQ + pass * STEP) * 4)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <int R, int D, int NT>
+__device__ __forceinline__ void store_split_t(
+    float* dst, const float4 (&x)[stage_vecs<R, D, NT>()], int tid) {
+  constexpr int KQ = R / 4, STEP = NT / KQ;
+  const int c = tid % KQ;
+  const int vh = 4 * c, vl = R + 4 * c;  // the hi and lo chunks' columns
+  float* dh = dst + (vh / 32) * D * 32;
+  float* dl = dst + (vl / 32) * D * 32;
+#pragma unroll
+  for (int pass = 0; pass < D / 4 / STEP; ++pass)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = (tid / KQ + pass * STEP) * 4 + e;
+      const float4* q = x + 4 * pass;
+      const float4 col =
+          e == 0   ? make_float4(q[0].x, q[1].x, q[2].x, q[3].x)
+          : e == 1 ? make_float4(q[0].y, q[1].y, q[2].y, q[3].y)
+          : e == 2 ? make_float4(q[0].z, q[1].z, q[2].z, q[3].z)
+                   : make_float4(q[0].w, q[1].w, q[2].w, q[3].w);
+      uint4 hi, lo;
+      split4(col, hi, lo);
+      *reinterpret_cast<uint4*>(dh + sw128_f32(d, (vh % 32) >> 2)) = hi;
+      *reinterpret_cast<uint4*>(dl + sw128_f32(d, (vl % 32) >> 2)) = lo;
+    }
+}
+
+#define DS_WG_REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
+
+// d (+)= A B on a warpgroup, 64 x N x 8 in tf32: A from registers (a, the
+// A fragment of one 8-deep step: per warp mma.sync.m16n8k8's), B K-major
+// in shared memory (db); acc = 0 overwrites d instead of adding to it.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int acc) {
+  static_assert(N == 16 || N == 32 || N == 256, "instantiated widths");
+  if constexpr (N == 16)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+                 "{" DS_WG_REGS8 "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+                 : DS_WG_ACC8(d, 0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(acc));
+  else if constexpr (N == 32)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+                 "{" DS_WG_REGS16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;"
+                 "\n}\n"
+                 : DS_WG_ACC16(d, 0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(acc));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+                 "{" DS_WG_REGS128 "}, {%128, %129, %130, %131}, %132, p, "
+                 "1, 1;\n}\n"
+                 : DS_WG_ACC128(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(acc));
+}

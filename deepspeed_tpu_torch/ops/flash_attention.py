@@ -21,9 +21,9 @@ when the bias requires grad. The forward kernels take head dims
 ``FWD_HEAD_DIMS``, the backward kernels ``BWD_HEAD_DIMS``: the same five,
 GPT-J-6B's 256 included. At 256 the bf16 and fp16 forward, dK/dV and dQ
 run on wgmma warpgroups fed by a loading warpgroup (``csrc/wgmma.cuh``),
-behind the same entry points; the fp32 backward kernels run 8 warps a CTA
-that split the output columns (dQ in quarters) and take 32-row q tiles
-in one stage (the headers say why).
+and the fp32 forward, dQ, dK and dV on tf32 wgmma warpgroups
+(``csrc/flash_tf32.cuh``; the dK/dV entry launches dV, then dK), behind
+the same entry points (the headers say why).
 """
 
 import math

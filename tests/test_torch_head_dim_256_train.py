@@ -12,13 +12,15 @@ outputs ~1, on top of the bf16 casts of P and dS that both sides make at
 the same points) and 2e-3 in fp16 (a few fp16 ulps at 2^-10;
 ``tests/test_torch_half_kernels.py``).
 
-The d-256 fp32 kernels (``csrc/flash_attention_bwd.cu`` design (c)) sum
-in another order than the narrower ones: 32-row q tiles, each warp's
-output columns accumulated over 8-deep steps in the tile order. Their
-arithmetic emulated in plain PyTorch (3xTF32 products, as
-``tests/test_torch_tf32x3.py`` emulates them, each 8-deep step added to
-the fp32 accumulator in the kernels' order) holds to the plain fp32
-backward within 1e-5 of max(1, max |ref|).
+The d-256 fp32 kernels (``csrc/flash_tf32.cuh``, on tf32 wgmma) sum in
+another order than the narrower ones: dK in 16-row and dV in 32-row q
+steps, dQ in 16-key steps, each product over 8-deep steps in order.
+Their arithmetic emulated in plain PyTorch (3xTF32 products of the
+kernels' truncating split, hi = x toward zero at tf32 and lo = x - hi,
+each 8-deep step added to the fp32 accumulator in the kernels' order)
+holds to the plain fp32 backward within 1e-5 of max(1, max |ref|);
+``tests/test_torch_flash_tf32_d256.py`` holds it to ``jax.vjp`` and
+emulates the forward's order.
 
 The engine on GPT-J-6B's layout at head dim 256 (2 layers, d_model 512,
 2 heads of 256, rotary over 64 of each head's dims, parallel residual
@@ -51,7 +53,7 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention_reference)
 
 from tests.test_torch_flash_bwd import _bias, _inputs, _words
-from tests.test_torch_tf32x3 import max_rel, split
+from tests.test_torch_tf32x3 import max_rel
 from tests.test_torch_training import (_engine_config, _jax_loss,
                                        _port_loss, _tree_np)
 from tests.torch_threads import share_cores
@@ -108,17 +110,27 @@ def test_d256_backward_matches_jax_vjp(dtype, rate, sq, sk, bias_kind):
 # the d-256 fp32 kernels' summation order, emulated
 # ---------------------------------------------------------------------------
 
-STEP = 8        # the depth of one m16n8k8 tf32 product
+STEP = 8        # the depth of one tf32 wgmma (m64nNk8) product
+
+
+def split_trunc(x):
+    """The d-256 kernels' split (``csrc/wgmma.cuh`` ``split_trunc``): hi =
+    x with its 13 low mantissa bits cleared, lo = x - hi exactly, which
+    the tensor cores read as tf32 toward zero."""
+    hi = (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    lo = ((x - hi).contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+    return hi, lo
 
 
 def _steps_3xtf32(eq, a, b, a_dim, b_dim):
     """``einsum(eq, a, b)`` contracted over 8-deep steps of the shared
     dimension (``a_dim`` of ``a``, ``b_dim`` of ``b``) in order, each step
-    a 3xTF32 product (lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b)) added to
-    the fp32 accumulator."""
+    a 3xTF32 product (lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), halves of
+    ``split_trunc``) added to the fp32 accumulator."""
     acc = None
     for i in range(0, a.shape[a_dim], STEP):
-        (ah, al), (bh, bl) = (split(t.narrow(dim, i, STEP).contiguous())
+        (ah, al), (bh, bl) = (split_trunc(t.narrow(dim, i, STEP).contiguous())
                               for t, dim in ((a, a_dim), (b, b_dim)))
         part = (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
                 + torch.einsum(eq, ah, bh))
@@ -128,8 +140,9 @@ def _steps_3xtf32(eq, a, b, a_dim, b_dim):
 
 def backward_d256_kernel_order(q, k, v, o, lse, do, bias, causal, dropout):
     """(dq, dk, dv) as the d-256 fp32 kernels sum them: S and dP over the
-    head dim, dV and dK over the q rows (32-row tiles, 8-row steps), dQ
-    over the keys (64-key tiles, 8-key steps), all in order."""
+    head dim, dV and dK over the q rows (32- and 16-row steps of 8-row
+    products), dQ over the keys (16-key steps of 8-key products), all in
+    order."""
     qh, kh, vh, doh = (t.transpose(1, 2).float() for t in (q, k, v, do))
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
     scale = 1.0 / math.sqrt(d)
