@@ -5,7 +5,8 @@
                            --7a-only | --loop-only | --fp16-only |
                            --inject-only | --11b-only | --gptj-only |
                            --gptj-train-only | --fp16-serve-only |
-                           --published-only | --serving-only |
+                           --published-only | --spec-qos-only |
+                           --serving-only |
                            --serving-timing [dir] | --decode-timing [dir] |
                            --serving-ab dir | --chunk-sweep |
                            --planted-faults [name]]
@@ -23,7 +24,11 @@ Phases, each fatal on failure:
 3. kernels: every kernel of the serving and training paths against its
    plain PyTorch version on the card (the flash forward with dropout, both
    flash backward kernels and fused Adam over the training grid, the
-   attention kernels at head_dim 64, 80, 96 and 128, the flash forward and
+   attention kernels at head_dim 64, 80, 96 and 128, the flash forward
+   at phase 16's verification shape (8 slots x 5 rows over 1152 keys under
+   a per-row mask bias, causal off) and at one masked token a slot (one
+   slot fully masked), fp32, bf16 and fp16 at head dims 64 and 256, the
+   flash forward and
    backward, decode and paged kernels also at 256 (GPT-J-6B's; the
    backward also at GPT-J-6B's attention, b 1, s 2048, 16 heads, causal,
    dropout 0 and 0.1, in bf16, fp16 and fp32, and 20 repeated launches bit
@@ -278,7 +283,29 @@ Phases, each fatal on failure:
    fp16 ``Gate``) and the dropout kernel (bit-equal: fp32, bf16, fp16,
    rates 0.1 and 0.5, 15a's activation, an odd shape, a misaligned base,
    forward and backward) against their plain versions first, and times
-   them at 7a's shape (beside the bf16 twins) and 15a's activation.
+   them at 7a's shape (beside the bf16 twins) and 15a's activation;
+16. the rest of serving: GPT-2 125M at full width (seed 0), 24 requests
+   with self-similar prompts (a seeded 8-32-token motif tiled 4-8 times),
+   64 new tokens each, 8 slots, speculation with k 4 (capacity 1152):
+   (a) fp32 speculative serving, contiguous and paged (pages of 16), and
+   the non-speculative engine, every request token-exact against
+   ``generate()`` up to its first near tie (top-2 gap < 1e-3), launch
+   counts exact (flash: a layer a prefill and a verification step;
+   decode or paged: a layer a one-token step), the paged allocator clean
+   after every iteration, the acceptance rate printed; (b) bf16 paged
+   speculation, first tokens exact against ``generate()`` (the rest
+   classified: a verification step's dense layers run m = 40 rows), then
+   tokens/s and decode wall ms with and without speculation in turns;
+   (c) fp32 paged QoS with two classes: low-priority requests fill the
+   slots, high-priority ones arrive and preempt past
+   ``preempt_after_steps`` (preemptions >= 1, the re-prefill's prefix
+   hits >= 1), ``set_slot_cap(2)`` mid-run drains by preemption, and
+   ``recover()`` mid-run, every request token-exact against
+   ``generate()`` and the allocator clean after each; (d) a real CUDA
+   OOM: the caching allocator capped (``set_per_process_memory_fraction``)
+   just past what it holds while an oversized admission prefills; that
+   request shed with reason ``oom``, its forensics holding the
+   allocator's stats, the engine recovered and the others token-exact.
 
 ``--checks-only`` stops after phase 3's checks (the quick proof that
 edited kernels build and agree; it prints no result line).
@@ -287,6 +314,7 @@ edited kernels build and agree; it prints no result line).
 ``--fp16-only`` phase 10, ``--inject-only`` phase 11, ``--11b-only``
 phase 11b, ``--gptj-only`` phase 12, ``--gptj-train-only`` phase 13,
 ``--fp16-serve-only`` phase 14, ``--published-only`` phase 15,
+``--spec-qos-only`` phase 16,
 ``--serving-only`` phases 4b and 6b.
 ``--serving-ab dir`` times 4b's and 6b's decode iteration in one process
 with this checkout's decode and paged ops and with those of the checkout
@@ -310,7 +338,9 @@ at d <= 128 bit-equal to the parent's (no result).
 the six of the flash backward's, ``wgmma`` the eight of the d-256
 kernels on wgmma and of wgmma.cuh's tf32 stagers, ``tf32`` the six of
 the fp32 d-256 kernels on tf32 wgmma, ``fp16-serving`` the three of the
-serving kernels' fp16 instances),
+serving kernels' fp16 instances), ``--spec-qos-only`` (three,
+``spec-qos``: the verification mask, a resumption without its tokens,
+``recover()`` without a rebuild),
 ``--8c-only`` (two), ``--7a-only`` (one), ``--11b-only`` (three: the
 injection path's Python), ``--gptj-only`` (one, ``12c``: int8 pages at
 head dim 256 in every slot but the first) or ``--published-only`` (one:
@@ -1507,6 +1537,105 @@ def time_flash(dev, gen, sq=512, d=64, h=12, dt=torch.bfloat16):
            - flash_attention_reference(q, k, v, causal=True)[0].float()
            ).abs().max().item()
     return dict(shape=f"b={b} h={h} sq=sk={sq} d={d} {str(dt)[6:]} causal",
+                impl=flash_impl(dt, d, True), ms=kernel, plain_ms=plain,
+                library_ms=library, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
+# the speculative verification shape (phase 16): K + 1 = 5 query rows a
+# slot over the whole cache capacity (max_len 1024 + K, rounded to 128)
+VERIFY_SLOTS, VERIFY_ROWS, VERIFY_CAPACITY = 8, 5, 1152
+
+
+def _verify_case(dev, gen, dt, d, h, sq, fully_masked_row=False):
+    """q [8, sq, h, d] against a cache ``[8, h, 1152, d]`` read through
+    its transposed view (as the layer reads it), under the per-row mask
+    ``col <= idx[b] + i`` at drawn frontiers ``idx`` (one slot's row all
+    masked with ``fully_masked_row``), folded into the bias the way
+    ``ops.transformer.attention`` folds it. Returns (q, k, v, keep, bias,
+    visible (q, k) pairs)."""
+    from deepspeed_tpu_torch.ops.flash_attention import _bias_operand
+    from deepspeed_tpu_torch.ops.transformer.attention import _combined_bias
+    b, cap = VERIFY_SLOTS, VERIFY_CAPACITY
+    idx = torch.tensor(np.random.RandomState(d + sq).randint(
+        16, cap - sq, size=b), device=dev)
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev, dtype=dt)
+    kc, vc = (torch.randn(b, h, cap, d, generator=gen, device=dev, dtype=dt)
+              for _ in range(2))
+    last = idx[:, None] + torch.arange(sq, device=dev)
+    keep = (torch.arange(cap, device=dev)[None, None, None, :]
+            <= last[:, None, :, None])                    # [b, 1, sq, cap]
+    if fully_masked_row:
+        keep[0] = False
+    bias = _bias_operand(_combined_bias(None, keep), q, kc.transpose(1, 2))
+    if bias.float().stride(2) * 4 % 16:
+        raise AssertionError("the verify bias rows are not 16-byte aligned")
+    return (q, kc.transpose(1, 2), vc.transpose(1, 2), keep, bias,
+            int(keep.sum()))
+
+
+def check_flash_verify(dev, gen):
+    """The flash forward at the speculative verification shape (8 slots x
+    5 rows over 1152 keys, causal off, a per-row fp32 mask bias whose
+    rows are 1152 * 4 bytes: 16-byte aligned) and at one masked token a
+    slot (a sparse or masked model's decode; one slot fully masked:
+    O = 0, LSE = NEG_INF), in fp32, bf16 and fp16 at head dims 64 (GPT-2's
+    12 heads) and 256 (GPT-J-6B's 16), against its plain version."""
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    gate = Gate("flash_verify")
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for d, h in ((64, 12), (256, 16)):
+            for sq in (VERIFY_ROWS, 1):
+                q, k, v, _, bias, _ = _verify_case(
+                    dev, gen, dt, d, h, sq, fully_masked_row=sq == 1)
+                o, lse = flash_attention(q, k, v, bias=bias, causal=False,
+                                         return_lse=True)
+                ro, rlse = flash_attention_reference(q, k, v, bias,
+                                                     causal=False)
+                torch.cuda.synchronize()
+                lse_err = 0.0
+                if dt == torch.float32:
+                    finite = rlse > -1e29
+                    lse_err = (lse - rlse)[finite].abs().max().item()
+                if sq == 1 and not (bool((o[0] == 0).all())
+                                    and bool((lse[0] <= -1e29).all())):
+                    raise AssertionError("flash_verify: a fully masked row "
+                                         "did not give O = 0, LSE = NEG_INF")
+                masked = ", one slot fully masked" if sq == 1 else ""
+                gate.case(dt, [o], [ro],
+                          f"b=8 h={h:2d} d={d:3d} sq={sq} sk=1152 per-row "
+                          f"mask{masked}", show=True, extra=lse_err)
+    gate.close()
+
+
+def time_flash_verify(dev, gen, dt=torch.bfloat16, d=64, h=12):
+    """The verification shape (``_verify_case``, 5 rows a slot): kernel,
+    plain version and SDPA given the same boolean mask; the bound counts
+    the visible (q, k) pairs' products and reads each slot's visible keys
+    and values, the bias, q and o once."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    q, k, v, keep, bias, visible = _verify_case(dev, gen, dt, d, h,
+                                                VERIFY_ROWS)
+    kernel = gpu_ms(lambda: flash_attention(q, k, v, bias=bias,
+                                            causal=False))
+    plain = gpu_ms(lambda: flash_attention_reference(q, k, v, bias,
+                                                     causal=False), iters=10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = gpu_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep))
+    keys = int(keep[:, 0, -1].sum())        # each slot's visible keys
+    nbytes = ((2 * keys * h + 2 * q.shape[0] * VERIFY_ROWS * h) * d
+              * q.element_size() + bias.numel() * 4)
+    bound, by = bound_ms(4 * h * d * visible, nbytes, PEAK_TF32_FLOPS / 3
+                         if dt == torch.float32 else PEAK_BF16_FLOPS)
+    err = (flash_attention(q, k, v, bias=bias, causal=False).float()
+           - flash_attention_reference(q, k, v, bias, causal=False)[0]
+           .float()).abs().max().item()
+    return dict(shape=f"b=8 h={h} sq=5 sk=1152 d={d} {str(dt)[6:]} per-row "
+                f"mask bias, causal off, {visible} visible (q, k) pairs",
                 impl=flash_impl(dt, d, True), ms=kernel, plain_ms=plain,
                 library_ms=library, bound_ms=bound, bound_by=by,
                 max_abs_err=err)
@@ -6266,6 +6395,381 @@ def phase_published(card, defaults):
 # ``--checks-only`` there
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 16: the rest of serving (speculation, QoS, recovery, OOM)
+# --------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_NEW = 64
+SPEC_CONFIG = {"num_slots": 8, "max_len": 1024, "prefill_bucket": 128,
+               "speculation": {"max_spec_tokens": SPEC_K}}
+# pages of 16 tokens (prefix hits at that grain), chunks of 256, a pool of
+# full-capacity rows
+SPEC_PAGING = {"page_len": 16, "prefill_chunk": 256}
+QOS_16C = {"classes": [
+    {"name": "interactive", "priority": 2, "preempt_after_steps": 2,
+     "sheddable": False},
+    {"name": "batch", "priority": 0}]}
+OOM_MARGIN = 8 << 20     # 16d: bytes the allocator may reserve past its
+                         # state when the oversized admission arrives
+KEYS_16D = ("bytes_in_use", "bytes_reserved", "num_ooms")
+OOM_BALLAST = 16 << 20   # 16d: the blocks that fill the allocator's free
+                         # cached memory first (the prefill's ~38 MB
+                         # gathered row then fits in no cached block)
+
+
+def spec_traffic(vocab, n=24, seed=SEED):
+    """24 self-similar prompts (a seeded 8-32-token motif tiled 4-8
+    times), ``SPEC_NEW`` new tokens each."""
+    rs = np.random.RandomState(seed + 16)
+    prompts = [np.tile(rs.randint(0, vocab, size=rs.randint(8, 33)),
+                       rs.randint(4, 9)).astype(np.int32) for _ in range(n)]
+    return prompts, [SPEC_NEW] * n
+
+
+def spec_reference(engine, prompts, outs):
+    """generate()'s tokens for every request (one ragged batch) and the
+    step up to which each is compared: its first near tie (reference
+    top-2 logit gap < ``GAP_STOP``, from a cache-free forward)."""
+    width = max(len(p) for p in prompts)
+    ids = np.zeros((len(prompts), width), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    lens = [len(p) for p in prompts]
+    out = engine.generate(ids, max_new_tokens=max(outs),
+                          prompt_lengths=lens).cpu().numpy()
+    refs, upto = [], []
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        ref = out[i, lens[i]:lens[i] + o]
+        gaps, _ = top2_gaps(engine.module, p, ref)
+        near = np.nonzero(gaps < GAP_STOP)[0]
+        refs.append(ref)
+        upto.append(int(near[0]) if near.size else o)
+    return refs, upto
+
+
+def check_tokens(reqs, refs, upto, what):
+    """Every request served its ``max_new_tokens`` and agrees with its
+    reference up to its first near tie."""
+    bad = [i for i, (r, ref, u) in enumerate(zip(reqs, refs, upto))
+           if len(r.output_tokens) != r.max_new_tokens
+           or list(r.output_tokens[:u]) != ref[:min(u, r.max_new_tokens)]
+           .tolist()]
+    ties = sum(u < len(r.output_tokens) for r, u in zip(reqs, upto))
+    compared = [min(u, r.max_new_tokens) for r, u in zip(reqs, upto)]
+    log(f"  {what}: {len(reqs) - len(bad)}/{len(reqs)} requests token-exact "
+        f"up to their first near tie ({ties} stop at one, reference top-2 "
+        f"gap < {GAP_STOP}); {sum(compared)} of "
+        f"{sum(r.max_new_tokens for r in reqs)} tokens compared, fewest "
+        f"{min(compared)} a request")
+    if bad:
+        raise AssertionError(f"{what}: requests {bad} differ")
+
+
+def spec_counters():
+    from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
+                                         paged_attention)
+    return ((flash_attention, "launches", "flash_attention"),
+            (decode_attention, "launches", "decode_attention"),
+            (paged_attention, "launches", "paged_attention"))
+
+
+def serve_spec(engine, prompts, outs, config, what):
+    """Serve ``prompts`` on a fresh server with the launch counters set to
+    0 just before and read just after; holds them to the engine's own
+    count of its programs (flash: a layer a prefill and a verification
+    step; decode or paged: a layer a one-token step) and, paged, the
+    allocator clean after every iteration. The flash launches made inside
+    the verification steps are counted on their own
+    (``flash_attention_verify``: the counter's change across each call of
+    the engine's verify step, summed). Returns (requests, snapshot,
+    counts, wall seconds)."""
+    from deepspeed_tpu_torch.ops import flash_attention
+    from deepspeed_tpu_torch.serving import engine as engine_mod
+    srv = engine.serve(config)
+    torch.cuda.synchronize()
+    verify_impl, in_verify = engine_mod._spec_verify_impl, [0]
+
+    def counted_verify(*args, **kwargs):
+        before = flash_attention.launches
+        try:
+            return verify_impl(*args, **kwargs)
+        finally:
+            in_verify[0] += flash_attention.launches - before
+
+    for fn, attr, _ in spec_counters():
+        setattr(fn, attr, 0)
+    engine_mod._spec_verify_impl = counted_verify
+    try:
+        t0 = time.perf_counter()
+        reqs = [srv.submit(p, max_new_tokens=o)
+                for p, o in zip(prompts, outs)]
+        while srv.busy:
+            srv.advance()
+            if srv._paged is not None:
+                srv._paged.allocator.check()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod._spec_verify_impl = verify_impl
+    counts = {key: getattr(fn, attr) for fn, attr, key in spec_counters()}
+    counts["flash_attention_verify"] = in_verify[0]
+    snap = srv.metrics.snapshot()
+    n_layers = engine.module.config.n_layers
+    verify = snap.get("spec_verify_iterations", 0)
+    plain = snap["decode_iterations"] - verify
+    prefills = (snap["prefill_chunks"] if srv._paged is not None
+                else snap["requests_admitted"])
+    want = {"flash_attention": n_layers * (prefills + verify),
+            "decode_attention": 0 if srv._paged is not None
+            else n_layers * plain,
+            "paged_attention": n_layers * plain if srv._paged is not None
+            else 0,
+            "flash_attention_verify": n_layers * verify}
+    log(f"  {what}: launches {counts} (want {want}: {n_layers} layers x "
+        f"{prefills} prefills + {verify} verification steps, x {plain} "
+        f"one-token steps)")
+    if counts != want or (srv.config.spec_enabled and not verify):
+        raise AssertionError(f"{what}: the run did not go through its "
+                             "kernels the expected number of times")
+    if snap["requests_finished"] != len(prompts):
+        raise AssertionError(f"{what}: only {snap['requests_finished']} of "
+                             f"{len(prompts)} requests finished")
+    if srv._paged is not None and (srv._paged.allocator.pages_in_use
+                                   != snap["prefix_nodes"]):
+        raise AssertionError(f"{what}: pages still held after every "
+                             "request ended")
+    return reqs, snap, counts, wall
+
+
+def _rate(snap):
+    return (f"acceptance {snap['spec_accepted_tokens']}/"
+            f"{snap['spec_proposed_tokens']} = "
+            f"{snap['spec_acceptance_rate']:.4f}, "
+            f"{snap['tokens_per_decode_iteration']:.3f} tokens a decode "
+            f"iteration")
+
+
+def phase_spec_fp32(model_fp32, prompts, outs):
+    """16a: fp32, speculation on the contiguous and the paged engine and
+    the non-speculative engine, each request against generate()."""
+    from deepspeed_tpu_torch import init_inference
+    log("phase 16a: fp32 speculative serving (k 4), contiguous and paged, "
+        "token-exact against the non-speculative engine and generate()")
+    engine = init_inference(model_fp32, dtype=torch.float32)
+    refs, upto = spec_reference(engine, prompts, outs)
+    plain_cfg = {k: v for k, v in SPEC_CONFIG.items() if k != "speculation"}
+    runs = {}
+    for what, config in (
+            ("16a non-speculative", plain_cfg),
+            ("16a speculative contiguous", SPEC_CONFIG),
+            ("16a speculative paged", {**SPEC_CONFIG,
+                                       "paging": SPEC_PAGING})):
+        reqs, snap, counts, wall = serve_spec(engine, prompts, outs, config,
+                                              what)
+        check_tokens(reqs, refs, upto, what)
+        if "spec_proposed_tokens" in snap:
+            log(f"  {what}: {_rate(snap)}, {snap['decode_iterations']} "
+                f"decode iterations, {wall:.3f} s (printed, not gated)")
+        runs[what] = (snap, counts)
+    return refs, upto, runs
+
+
+def phase_spec_bf16(model_bf16, prompts, outs, card):
+    """16b: bf16 paged speculation, first tokens exact against generate()
+    (the rest classified: a verification step's dense layers run m =
+    slots x (k + 1) rows, which cuBLAS rounds differently from a one-token
+    step's m = slots), then tokens/s and decode wall ms with and without
+    speculation in turns."""
+    from deepspeed_tpu_torch import init_inference
+    log("phase 16b: bf16 paged speculative serving, first tokens against "
+        "generate()")
+    engine = init_inference(model_bf16)
+    spec_cfg = {**SPEC_CONFIG, "paging": SPEC_PAGING}
+    plain_cfg = {k: v for k, v in spec_cfg.items() if k != "speculation"}
+    reqs, snap, counts, _ = serve_spec(engine, prompts, outs, spec_cfg,
+                                       "16b speculative paged")
+    check_against_generate(engine, reqs, prompts, outs, GAP_STOP, "16b bf16",
+                           first_token_only=True)
+    log(f"  16b: {_rate(snap)} (printed, not gated)")
+    turns = {}
+    for name, config in (("speculative", spec_cfg), ("plain", plain_cfg),
+                         ("plain", plain_cfg), ("speculative", spec_cfg)):
+        _, s, _, wall = serve_spec(engine, prompts, outs, config,
+                                   f"16b {name}")
+        turns.setdefault(name, []).append(
+            (s["tokens_generated"] / wall,
+             1e3 * wall / s["decode_iterations"]))
+    for name, rows in turns.items():
+        log(f"  16b {name}: " + ", ".join(
+            f"{tps:.1f} tokens/s, {ms:.3f} ms a decode iteration"
+            for tps, ms in rows) + f" [{card}] (printed, not gated)")
+    return snap, counts, turns
+
+
+def _serve_checked(srv):
+    """Advance to the end, the allocator checked after every iteration."""
+    while srv.busy:
+        srv.advance()
+        srv._paged.allocator.check()
+
+
+def _allocator_clean(srv, what):
+    srv._paged.allocator.check()
+    stats = srv._paged.stats()
+    if stats["pages_in_use"] != stats.get("prefix_nodes", 0):
+        raise AssertionError(f"{what}: {stats['pages_in_use']} pages held "
+                             f"after every request ended (prefix cache "
+                             f"{stats.get('prefix_nodes', 0)})")
+
+
+def phase_spec_qos(model_fp32, prompts, refs, upto):
+    """16c: fp32 paged QoS with two priority classes: preemption with
+    prefix hits on the re-prefill, ``set_slot_cap(2)`` mid-run, and
+    ``recover()`` mid-run, every request against generate()."""
+    from deepspeed_tpu_torch import init_inference
+    log("phase 16c: fp32 paged QoS (two classes): priority preemption, "
+        "set_slot_cap and recover() mid-run")
+    engine = init_inference(model_fp32, dtype=torch.float32)
+    config = {**SPEC_CONFIG, "paging": SPEC_PAGING, "qos": QOS_16C}
+    del config["speculation"]
+    low = list(range(8))
+    srv = engine.serve(config)
+    lows = [srv.submit(prompts[i], SPEC_NEW, priority=0) for i in low]
+    for _ in range(4):
+        srv.advance()
+    his = [srv.submit(prompts[i], 16, priority=2) for i in (8, 9)]
+    _serve_checked(srv)
+    snap = srv.metrics.snapshot()
+    check_tokens(lows + his, [refs[i] for i in low + [8, 9]],
+                 [upto[i] for i in low + [8, 9]], "16c preemption")
+    waits = [h.first_token_iteration - h.submitted_iteration for h in his]
+    log(f"  16c: {snap['requests_preempted']} preemptions, "
+        f"{snap['requests_resumed']} resumptions, {snap['prefix_hits']} "
+        f"prefix hits ({snap['prefill_tokens_reused']} prompt tokens "
+        f"reused), interactive TTFT {waits} steps")
+    if (snap["requests_preempted"] < 1 or snap["requests_resumed"] < 1
+            or snap["prefix_hits"] < 1):
+        raise AssertionError("16c: no preemption, or its re-prefill found "
+                             "no prefix hit")
+    _allocator_clean(srv, "16c preemption")
+
+    srv = engine.serve(config)
+    reqs = [srv.submit(prompts[i], SPEC_NEW, priority=0) for i in low]
+    for _ in range(4):
+        srv.advance()
+    srv.set_slot_cap(2)
+    peak = 0
+    while srv.busy:
+        srv.advance()
+        srv._paged.allocator.check()
+        peak = max(peak, sum(r is not None for r in srv._slot_req))
+    drained = srv.metrics.requests_preempted
+    check_tokens(reqs, [refs[i] for i in low], [upto[i] for i in low],
+                 "16c set_slot_cap(2)")
+    log(f"  16c set_slot_cap(2): {drained} requests drained by preemption, "
+        f"at most {peak} slots busy after")
+    if drained < 1 or peak > 2:
+        raise AssertionError("16c: set_slot_cap(2) did not drain to 2 slots")
+    _allocator_clean(srv, "16c set_slot_cap")
+
+    srv = engine.serve(config)
+    reqs = [srv.submit(prompts[i], SPEC_NEW, priority=0) for i in low]
+    for _ in range(6):
+        srv.advance()
+    srv.recover("phase 16c")
+    _serve_checked(srv)
+    check_tokens(reqs, [refs[i] for i in low], [upto[i] for i in low],
+                 "16c recover()")
+    log(f"  16c recover(): {srv.metrics.recoveries} recovery, "
+        f"{srv.metrics.requests_resumed} requests resumed")
+    _allocator_clean(srv, "16c recover")
+
+
+def phase_spec_oom(model_fp32, prompts, refs, upto):
+    """16d: a real CUDA out-of-memory error. The caching allocator's
+    free cached blocks are filled with ``OOM_BALLAST``-byte blocks, and
+    it is capped (``set_per_process_memory_fraction``, a setting of this
+    process's allocator) ``OOM_MARGIN`` past what it holds while one
+    oversized admission prefills; the request is shed with reason
+    ``oom``, the forensics hold the card's allocator stats, the engine
+    rebuilds its state (in the memory its old pool frees), the cap is
+    lifted, and the other requests finish token-exactly with the
+    allocator clean."""
+    from deepspeed_tpu_torch import init_inference
+    log("phase 16d: a real CUDA OOM during an admission, contained")
+    engine = init_inference(model_fp32, dtype=torch.float32)
+    config = {k: v for k, v in SPEC_CONFIG.items() if k != "speculation"}
+    srv = engine.serve({**config, "paging": SPEC_PAGING})
+    keep = list(range(4))
+    reqs = [srv.submit(prompts[i], SPEC_NEW) for i in keep]
+    for _ in range(4):
+        srv.advance()
+    big = srv.submit(np.arange(900, dtype=np.int32) % 50000, 8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, ballast = torch.cuda.memory_reserved(), []
+    while True:
+        block = torch.empty(OOM_BALLAST, dtype=torch.uint8, device="cuda")
+        if torch.cuda.memory_reserved() > base:   # no cached block was free
+            del block
+            break
+        ballast.append(block)
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = (torch.cuda.memory_reserved() + OOM_MARGIN) / total
+    torch.cuda.set_per_process_memory_fraction(cap)
+    try:
+        srv.advance()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        filled = len(ballast) * OOM_BALLAST
+        del ballast
+    report = srv.last_oom_forensics
+    live = (report or {}).get("live_at_failure") or {}
+    log(f"  16d: {filled} cached bytes filled, the allocator capped at "
+        f"{cap:.6f} of {total} bytes; request "
+        f"status {big.status} ({big.shed_reason}); forensics live stats "
+        f"{ {k: live.get(k) for k in KEYS_16D} }")
+    if big.status != "shed" or big.shed_reason != "oom":
+        raise AssertionError("16d: the oversized admission was not shed "
+                             "for oom")
+    if live.get("num_ooms", 0) < 1 or not report["memory"]["top_buffers"]:
+        raise AssertionError("16d: the forensics miss the allocator's OOM "
+                             "or the attributed buffers")
+    _serve_checked(srv)
+    check_tokens(reqs, [refs[i] for i in keep], [upto[i] for i in keep],
+                 "16d after the OOM")
+    if srv.metrics.recoveries != 1:
+        raise AssertionError("16d: the engine did not recover exactly once")
+    _allocator_clean(srv, "16d")
+
+
+def phase_spec_qos_all(card):
+    """Phase 16 on GPT-2 125M at full width (seed ``SEED``)."""
+    import dataclasses
+    from deepspeed_tpu_torch.models import GPT, GPT2_PRESETS
+    base = GPT2_PRESETS["gpt2-125m"]
+    model_fp32 = GPT(dataclasses.replace(base, dtype=torch.float32),
+                     seed=SEED)
+    prompts, outs = spec_traffic(base.vocab_size)
+    t0 = time.perf_counter()
+    refs, upto, runs = phase_spec_fp32(model_fp32, prompts, outs)
+    phase_spec_qos(model_fp32, prompts, refs, upto)
+    phase_spec_oom(model_fp32, prompts, refs, upto)
+    del model_fp32
+    torch.cuda.empty_cache()
+    model_bf16 = GPT(base, seed=SEED)
+    snap, counts, turns = phase_spec_bf16(model_bf16, prompts, outs, card)
+    del model_bf16
+    torch.cuda.empty_cache()
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return {"16a": runs, "16b": (snap, counts, turns),
+            "verify_launches_fp32": runs[
+                "16a speculative contiguous"][1]["flash_attention_verify"],
+            "verify_launches_bf16": counts["flash_attention_verify"]}
+
+
 PLANTED_FAULTS = (
     ("LayerNorm variance in the one-pass form E[x^2] - mean^2 (CTA-per-row "
      "forward)", "layernorm.cu",
@@ -6638,6 +7142,21 @@ PLANTED_FAULTS = (
        "  if (n_blocks <= 0) return 0;",
        "extern \"C\" int fused_lamb_apply(DS_LAMB_PARAMS) {\n"
        "  if (n_blocks <= 0 || true) return 0;"),), "--7a-only"),
+    # phase 16's gates against faults in the serving engine's Python
+    ("spec-qos: 16a: the verification mask col < idx + i (a query row "
+     "misses its own key)", "models/layers.py",
+     (("                <= last[:, None, :, None])",
+       "                < last[:, None, :, None])"),), "--spec-qos-only"),
+    ("spec-qos: 16c: a preempted request re-prefilled without its "
+     "generated tokens", "serving/engine.py",
+     (("            prompt = req.effective_prompt()\n",
+       "            prompt = req.prompt\n"),), "--spec-qos-only"),
+    ("spec-qos: 16c: recover() keeps the old device state",
+     "serving/engine.py",
+     (("        self._init_device_state()\n        self._account_memory()\n"
+       "        # requeue",
+       "        self._account_memory()\n        # requeue"),),
+     "--spec-qos-only"),
 )
 
 
@@ -6675,8 +7194,8 @@ def run_planted_faults(only=None):
     """Each fault of ``PLANTED_FAULTS`` (those whose source file name or
     description contains ``only``, when given) made in a copy of the checkout
     (``run_in_copy``) with the fault's flag (``--checks-only``,
-    ``--8c-only``, ``--7a-only``, ``--11b-only``, ``--gptj-only`` or
-    ``--published-only``); each copy must fail.
+    ``--8c-only``, ``--7a-only``, ``--11b-only``, ``--gptj-only``,
+    ``--published-only`` or ``--spec-qos-only``); each copy must fail.
     Logs each run's failing gate lines (and 8c's and 7a's readings)."""
     faults = [f for f in PLANTED_FAULTS
               if only is None or only in f[1] or only in f[0]]
@@ -6704,7 +7223,7 @@ def run_planted_faults(only=None):
         for ln in lines[:40]:
             log("    " + ln.strip()[:400])
     log(f"{caught} of {len(faults)} planted faults fail the kernel "
-        "checks, phase 7a, 8c, 11b, 12c or 15")
+        "checks, phase 7a, 8c, 11b, 12c, 15 or 16")
     if not faults or caught != len(faults):
         raise AssertionError("a planted kernel fault passed the checks")
 
@@ -6797,6 +7316,12 @@ def main():
         phase_fp16_serve(card)
         log("phase 14 passed (--fp16-serve-only: no other phase, no result)")
         return 0
+    if "--spec-qos-only" in sys.argv[1:]:
+        log("phase 16: the rest of serving (speculation, QoS, recovery, "
+            "OOM containment)")
+        phase_spec_qos_all(card)
+        log("phase 16 passed (--spec-qos-only: no other phase, no result)")
+        return 0
     if "--published-only" in sys.argv[1:]:
         log("phase 15: sparse BERT pretrained at its published settings")
         phase_published(card, defaults)
@@ -6837,6 +7362,7 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     check_flash(dev, gen)
+    check_flash_verify(dev, gen)
     check_decode(dev, gen)
     check_flash_dropout(dev, gen)
     check_flash_bwd(dev, gen)
@@ -6857,6 +7383,20 @@ def main():
             "timings, no end-to-end phases, no result)")
         return 0
     flash_t = time_flash(dev, gen)
+    # phase 16's verification shape: bf16 (16b) and fp32 (16a) at GPT-2's
+    # head dim in the kernels line, fp16 and d 256 (GPT-J-6B's 16 heads)
+    # logged
+    verify_t = {
+        "flash_attention_verify": time_flash_verify(dev, gen),
+        "flash_attention_verify_fp32": time_flash_verify(
+            dev, gen, dt=torch.float32)}
+    verify_log_t = {
+        "flash_attention_verify_fp16": time_flash_verify(
+            dev, gen, dt=torch.float16),
+        **{f"flash_attention_verify_d256{sfx}": time_flash_verify(
+            dev, gen, dt=dt, d=256, h=16)
+           for sfx, dt in (("", torch.bfloat16), ("_fp32", torch.float32),
+                           ("_fp16", torch.float16))}}
     decode_t = time_decode(dev, gen)
     train_t = time_flash_train(dev, gen)
     train_t["fused_adam"] = time_fused_adam(dev, gen)
@@ -6944,6 +7484,7 @@ def main():
         "paged_attention_d256_fp16": time_paged(dev, gen, False, d=256,
                                                 H=16, dt=torch.float16)}
     for name, t in (("flash_attention (serving prefill)", flash_t),
+                    *verify_t.items(), *verify_log_t.items(),
                     ("decode_attention", decode_t), *train_t.items(),
                     *((f"{k} (fp16)", t) for k, t in fp16_flash_t.items()),
                     *bf16g_t.items(),
@@ -7076,6 +7617,11 @@ def main():
         "block-sparse instances and the dropout kernel")
     published_counts, published = phase_published(card, defaults)
 
+    log("phase 16: GPT-2 125M served with speculation (k 4), QoS with "
+        "priority preemption, set_slot_cap, recover() and a real OOM "
+        "contained")
+    spec = phase_spec_qos_all(card)
+
     # flash_attention and decode_attention: the serving path's shapes and
     # launches; the other four: the training shape and phase 5a's launches
     flash_t["launches"] = counts["flash_attention"]
@@ -7179,12 +7725,26 @@ def main():
             t["bwd_launches"] = published_counts["dropout_bwd"]
         else:
             t["launches"] = published_counts[name[:-5]]
+    # phase 16's verification steps (16a fp32, 16b bf16), with the counters
+    # set to 0 just before each run: the flash launches of its
+    # verification iterations
+    verify_t["flash_attention_verify_fp32"]["launches"] = spec[
+        "verify_launches_fp32"]
+    verify_t["flash_attention_verify"]["launches"] = spec[
+        "verify_launches_bf16"]
     csrc, pallas = ("deepspeed_tpu_torch/ops/csrc/",
                     "deepspeed_tpu/ops/pallas/")
     sparse = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
     kernels = []
     for name, t, src, replaces in (
             ("flash_attention", flash_t, csrc + "flash_attention_fwd_bf16.cu",
+             pallas + "flash_attention.py:662"),
+            ("flash_attention_verify", verify_t["flash_attention_verify"],
+             csrc + "flash_attention_fwd_bf16.cu",
+             pallas + "flash_attention.py:662"),
+            ("flash_attention_verify_fp32",
+             verify_t["flash_attention_verify_fp32"],
+             csrc + "flash_attention_fwd.cu",
              pallas + "flash_attention.py:662"),
             ("decode_attention", decode_t, csrc + "decode_attention.cu",
              pallas + "decode_attention.py:118"),
@@ -7354,6 +7914,10 @@ def main():
                if "gptj_launches" in t else {}),
             **({"fake_quantize_ms": t["fake_quantize_ms"]}
                if "fake_quantize_ms" in t else {})})
+    for name, rows in spec["16b"][2].items():
+        log(f"phase 16b: {name}: " + ", ".join(
+            f"{tps:.1f} tokens/s, {ms:.3f} ms a decode iteration"
+            for tps, ms in rows) + f" [{card}]")
     r = published
     log(f"phase 15a: step wall {r['step_ms']:.2f} ms, "
         f"{r['tokens_per_s']:.0f} tokens/s, peak device memory "

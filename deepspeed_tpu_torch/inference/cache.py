@@ -2,8 +2,9 @@
 ``deepspeed_tpu/inference/cache.py``: ``cache_max_len`` :59,
 ``set_cache_index`` :88, ``make_row_cache`` :109, ``write_cache_row``
 :450; the page-pool walkers ``init_page_pool`` :137, ``quantize_page_pool``
-:162, ``_quantize_kv`` :182, ``gather_pages`` :195, ``scatter_token_pages``
-:293, ``scatter_chunk_pages`` :330, ``make_paged_view`` :421).
+:162, ``_quantize_kv`` :182, ``gather_pages`` :195, ``extract_token_kv``
+:264, ``scatter_token_pages`` :293, ``scatter_chunk_pages`` :330,
+``make_paged_view`` :421).
 
 One ``KVCache`` holds every layer: K and V are ``[L, B, H, S, d]`` in the
 compute dtype, so ``k[l]`` is layer l's ``[B, H, S, d]`` (the layout the
@@ -143,6 +144,20 @@ def gather_pages(pool: PagePool, page_table: torch.Tensor,
     return KVCache(one(pool.k, pool.k_scale), one(pool.v, pool.v_scale),
                    torch.zeros(slots, dtype=torch.int32,
                                device=pool.k.device))
+
+
+def extract_token_kv(cache: KVCache, positions: torch.Tensor):
+    """Row b's K and V at ``positions[b]`` of every layer: ``positions``
+    [B] gives ``[L, B, H, d]`` each, [B, s] (several tokens a row)
+    ``[L, B, s, H, d]`` — the tokens a gathered-view step wrote, for
+    ``scatter_token_pages``."""
+    pos = positions.long()
+    rows = torch.arange(pos.shape[0], device=pos.device).reshape(
+        (-1,) + (1,) * (pos.dim() - 1))
+    lidx = torch.arange(cache.k.shape[0], device=pos.device).reshape(
+        (-1,) + (1,) * pos.dim())
+    return (cache.k[lidx, rows[None], :, pos[None]],
+            cache.v[lidx, rows[None], :, pos[None]])
 
 
 def _write(pool: PagePool, name: str, index, value):

@@ -28,7 +28,7 @@ reproduced; the JAX package reproduces the port's when fed its masks
 """
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +66,8 @@ class GPTConfig:
     embed_ln: bool = False               # BLOOM word_embeddings_layernorm
     lm_head_bias: bool = False           # an untied head with a bias
     remat: str = "none"                  # key into REMAT_POLICIES
+    sparsity_config: Any = None          # block-sparse attention pattern
+                                         # (trained at max_seq_len)
 
     @property
     def ffn_dim(self):
@@ -116,7 +118,8 @@ class GPT(nn.Module):
                   attn_dropout_rate=cfg.attn_dropout_rate,
                   dropout_rate=cfg.dropout_rate, activation=cfg.activation,
                   rotary_dim=(cfg.rotary_dim or cfg.head_dim) if cfg.rotary
-                  else None)
+                  else None, sparsity_config=cfg.sparsity_config,
+                  sparsity_pattern_len=cfg.max_seq_len)
             for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.ln_epsilon)
         self.lm_head = (None if cfg.tie_embeddings else

@@ -21,10 +21,19 @@ built random layout.
 ``SelfAttention`` runs four ways: without a cache (a full forward), with
 a cache and a shared integer write position (prefill, and the classic
 equal-length decode), with a cache and a per-row ``[B]`` position
-tensor (the serving slot batch and ragged decode, one token per row), and
-with one layer of a paged view (``inference.cache.PagedLayer``: one token
-per slot attends straight over the page pool through ``paged_attention``;
-the layer hands the token's K/V back to the caller, who scatters it).
+tensor (the serving slot batch and ragged decode; several tokens a row
+are speculative verification), and with one layer of a paged view
+(``inference.cache.PagedLayer``: one token per slot attends straight over
+the page pool through ``paged_attention``; the layer hands the token's
+K/V back to the caller, who scatters it). With a cache, a query at global
+position p attends to the keys at positions <= p, whatever ``causal``
+says (layers.py:474-496): a bidirectional model is served causally, as
+the JAX package serves it. An external mask with the shared position
+(chunk-wide masks are scattered into the cache's key space at the write
+position) and a sparse model's trained block pattern (pinned to
+``sparsity_pattern_len``, rows and columns gathered per position,
+layers.py:416-456) are folded into the flash forward's bias; one token
+a row without either takes the decode kernel.
 Attention dropout (``attn_dropout_rate``) is live only in training mode
 (``module.train()``), only without a cache, and draws its keep bits from
 the counter hash with the layer's seed words (layers.py:517-565). The
@@ -57,6 +66,7 @@ import functools
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -72,10 +82,10 @@ from ..ops.transformer.rotary import rotary_tables, rotate
 from ..ops.wo_int8_matmul import wo_int8_matmul
 
 
-def _check_sparse_compat(sparsity_config, bias, causal):
+def _check_sparse_compat(sparsity_config, bias, causal, alibi=False):
     """The sparse path's config refusals (layers.py:165); ``bias`` holds
     the ALiBi bias when the layer has one."""
-    if bias is not None:
+    if alibi or bias is not None:
         raise ValueError("sparse attention does not take an additive "
                          "bias (disable alibi or sparsity_config)")
     if causal and getattr(sparsity_config, "attention",
@@ -163,6 +173,7 @@ class SelfAttention(nn.Module):
         self.dropout_rate, self.causal = dropout_rate, causal
         self.sparsity_config = sparsity_config
         self.sparsity_pattern_len = sparsity_pattern_len
+        self._decode_layouts = {}     # (pattern length, device) -> layout
         self.qkv = QDense(d_model, 3 * d_model, use_bias, dtype)
         self.out = QDense(d_model, d_model, use_bias, dtype)
         if alibi:
@@ -175,36 +186,35 @@ class SelfAttention(nn.Module):
         pair [B, H, S, head_dim], written in place, or its
         ``PagedLayer`` (paged decode; ``cache_index`` unused);
         ``cache_index`` the write position: an int shared by every row,
-        or an int [B] tensor (one token per row, clamped into the cache
-        like the reference's ``dynamic_update_slice``). ``dropout_seed``:
-        this layer's (s0, s1) words, needed when attention dropout is
-        live. ``rope``: the forward's ``rotary_tables`` (built from
-        ``positions`` when None)."""
+        or an int [B] tensor (each row writes its s tokens at its own
+        position, clamped into the cache like the reference's
+        ``dynamic_update_slice``). ``mask`` [b, 1|h, 1|s, keys] (True =
+        attend): with the shared position, ``keys`` is s (a chunk-wide
+        mask) or the cache capacity. ``dropout_seed``: this layer's (s0,
+        s1) words, needed when attention dropout is live. ``rope``: the
+        forward's ``rotary_tables`` (built from ``positions`` when
+        None)."""
         b, s, _ = x.shape
         q, k, v = self.project(x, positions, rope)
-        drop = self.dropout_rate > 0.0 and self.training
         if kv_cache is None:
             out = self.attend(q, k, v, mask, positions, dropout_seed)
-        elif self.sparsity_config is not None or not self.causal:
-            raise NotImplementedError(
-                "the KV cache serves causal dense attention; serving a "
-                "block-sparse or bidirectional model comes with a later "
-                "slice of the port")
-        elif drop:
+        elif self.dropout_rate > 0.0 and self.training:
             raise NotImplementedError(
                 "attention dropout with the KV cache: serve the model in "
                 "eval() mode (init_inference does)")
-        elif mask is not None:
-            raise NotImplementedError(
-                "an external attention mask with the KV cache comes with a "
-                "later slice of the port")
         elif isinstance(kv_cache, PagedLayer):
+            if mask is not None or self.sparsity_config is not None:
+                raise NotImplementedError(
+                    "paged-pool decode does not support external masks or "
+                    "block-sparse patterns")
             out = self._attend_pages(q, k, v, kv_cache)
-        elif s > 1:
-            out = self._attend_prefix(q, k, v, positions, kv_cache,
-                                      cache_index)
-        else:
+        elif not isinstance(cache_index, int):
+            out = self._attend_rows(q, k, v, mask, kv_cache, cache_index)
+        elif s == 1 and mask is None and self.sparsity_config is None:
             out = self._attend_token(q, k, v, kv_cache, cache_index)
+        else:
+            out = self._attend_prefix(q, k, v, positions, kv_cache,
+                                      cache_index, mask)
         return self.out(out.reshape(b, s, self.d_model))
 
     def project(self, x, positions=None, rope=None):
@@ -269,16 +279,14 @@ class SelfAttention(nn.Module):
         rel = (k_pos[None, :] - q_positions[:, None]).float()
         return (self.slopes[:, None, None] * rel[None])[None]
 
-    def _attend_prefix(self, q, k, v, positions, kv_cache, idx):
-        """Several tokens at the shared write position ``idx``: write
-        them, then attend over the cache prefix [0, idx + s) with the
-        causal diagonal shifted by idx — the same function as the
-        reference's mask ``cols <= idx + i`` over the whole capacity
-        (layers.py:478-496)."""
-        if not isinstance(idx, int):
-            raise NotImplementedError(
-                "per-row multi-token decode (speculative verification) "
-                "comes with a later slice of the port")
+    def _attend_prefix(self, q, k, v, positions, kv_cache, idx: int,
+                       mask=None):
+        """Tokens at the shared write position ``idx``: write them, then
+        attend over the cache prefix [0, idx + s) with the causal
+        diagonal shifted by idx — the same function as the reference's
+        mask ``cols <= idx + i`` over the whole capacity (layers.py:478-
+        496), the keys past the prefix being masked there. An external
+        ``mask`` and the sparse pattern are ANDed in."""
         kc, vc = kv_cache
         s = q.shape[1]
         n = idx + s
@@ -287,14 +295,100 @@ class SelfAttention(nn.Module):
                              f"capacity {kc.shape[2]}")
         kc[:, :, idx:n] = k.transpose(1, 2)
         vc[:, :, idx:n] = v.transpose(1, 2)
+        keep = None
+        if mask is not None:
+            keep = self._cache_key_mask(mask, idx, kc.shape[2])[..., :n]
+        if self.sparsity_config is not None:
+            rows = torch.arange(idx, n, device=q.device)
+            pattern = self._decode_pattern(rows, kc.shape[2])[..., :n]
+            keep = pattern if keep is None else keep & pattern
         bias = None
         if self.alibi:
             q_pos = (positions.reshape(-1)[-s:] if positions is not None
                      else torch.arange(s, device=q.device))
             bias = self._alibi_bias(q_pos, n)
         return attention(q, kc[:, :, :n].transpose(1, 2),
-                         vc[:, :, :n].transpose(1, 2), bias=bias,
+                         vc[:, :, :n].transpose(1, 2), bias=bias, mask=keep,
                          causal=True)
+
+    @staticmethod
+    def _cache_key_mask(mask, idx: int, capacity: int):
+        """``mask`` [b, 1|h, 1|s, keys] over the cache's key space: a
+        capacity-wide mask as it is, a chunk-wide one scattered at the
+        write position ``idx`` (clamped so it fits, as the reference's
+        ``dynamic_update_slice``) with every other key kept (layers.py
+        :485-491)."""
+        mask = mask.bool()
+        width = mask.shape[-1]
+        if width == capacity:
+            return mask
+        start = min(max(idx, 0), capacity - width)
+        full = mask.new_ones(mask.shape[:-1] + (capacity,))
+        full[..., start:start + width] = mask
+        return full
+
+    def _decode_pattern(self, rows, capacity: int):
+        """The trained block pattern at query positions ``rows`` [s] over
+        the cache's ``capacity`` keys: [1, H, s, capacity] bool
+        (layers.py:420-456). The layout is built at
+        ``sparsity_pattern_len`` (the trained length; random layouts
+        depend on it), rows and columns are gathered per position with
+        their block index clipped into the layout, and keys past the
+        pattern are masked. Element causality comes from the cache mask
+        it is ANDed with."""
+        cfg = self.sparsity_config
+        _check_sparse_compat(cfg, None, self.causal, self.alibi)
+        blk = cfg.block
+        plen = self.sparsity_pattern_len or -(-capacity // blk) * blk
+        key = (plen, rows.device)
+        lay = self._decode_layouts.get(key)
+        if lay is None:
+            lay = torch.from_numpy(
+                np.asarray(cfg.make_layout(plen)).astype(bool)).to(
+                    rows.device)                          # [H, nbp, nbp]
+            self._decode_layouts[key] = lay
+        nbp = lay.shape[-1]
+        cols = torch.arange(capacity, device=rows.device)
+        row_blocks = (rows // blk).clamp(0, nbp - 1)
+        col_blocks = (cols // blk).clamp(0, nbp - 1)
+        pattern = lay[:, row_blocks][:, :, col_blocks]    # [H, s, cap]
+        return (pattern & (cols < plen))[None]
+
+    def _attend_rows(self, q, k, v, mask, kv_cache, idx):
+        """Tokens at per-row write positions ``idx`` [B] (the serving slot
+        batch; s > 1 is speculative verification, layers.py:378-414 and
+        :469-496): row b writes its s tokens at [idx[b], idx[b] + s) in
+        one indexed write (the start clamped so the block fits), then one
+        token a row takes the decode kernel over each row's valid prefix,
+        and several attend over the whole capacity with the per-row mask
+        ``col <= idx[b] + i`` folded into the flash forward's bias (causal
+        off). External masks, sparse patterns and, with several tokens,
+        ALiBi are refused, as the reference refuses them."""
+        if mask is not None or self.sparsity_config is not None:
+            raise NotImplementedError(
+                "per-row cache_index decode does not support external "
+                "masks or block-sparse patterns (the dense cache path is "
+                "shared-scalar only)")
+        kc, vc = kv_cache
+        bsz, s = q.shape[:2]
+        if s == 1:
+            return self._attend_token(q, k, v, kv_cache, idx)
+        if self.alibi:
+            raise NotImplementedError(
+                "per-row multi-token decode (speculative verification) "
+                "does not support ALiBi; serve ALiBi models without "
+                "serving.speculation")
+        capacity = kc.shape[2]
+        steps = torch.arange(s, device=q.device)
+        start = idx.long().clamp(0, capacity - s)
+        rows = torch.arange(bsz, device=q.device)[:, None]
+        kc[rows, :, start[:, None] + steps] = k
+        vc[rows, :, start[:, None] + steps] = v
+        last = idx.long()[:, None] + steps                       # [B, s]
+        keep = (torch.arange(capacity, device=q.device)[None, None, None, :]
+                <= last[:, None, :, None])                   # [B, 1, s, S]
+        return attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                         mask=keep, causal=False)
 
     def _attend_pages(self, q, k, v, layer: PagedLayer):
         """One token per slot straight over the page pool (layers.py

@@ -7,7 +7,8 @@ the blocks this slice of the port runs (batch sizes, ``optimizer``,
 fp32 or bf16 gradient accumulation, ``activation_checkpointing``,
 ``progressive_layer_drop``, ``sparse_attention`` stored unread as in the
 JAX package, ``compression_training`` weight quantization and pruning,
-``quantize_training`` MoQ) and resolves the reference's batch
+``quantize_training`` MoQ, ``serving`` for ``ServingEngine.from_config``)
+and resolves the reference's batch
 arithmetic (train_batch_size = micro_batch * gradient_accumulation_steps
 * dp_world_size) with dp_world_size = 1: the port trains on one card.
 
@@ -164,8 +165,6 @@ LATER_SLICES = {
     "tensorboard": (_on, "the observability slice (monitors)"),
     "wandb": (_on, "the observability slice (monitors)"),
     "csv_monitor": (_on, "the observability slice (monitors)"),
-    "serving": (lambda b: b is not None,
-                "init_inference(...).serve(config), not initialize()"),
     "elasticity": (lambda b: bool(b), "the multi-GPU slice (elasticity)"),
     "autotuning": (lambda b: bool(b), "the autotuning slice"),
     "communication_data_type": (lambda b: b is not None,
@@ -259,6 +258,10 @@ class DeepSpeedConfig:
     # runtime/quantize.py MoQ), read by the engine as the JAX one does
     compression_training: Optional[Dict[str, Any]] = None
     quantize_training: Optional[Dict[str, Any]] = None
+    # the continuous-batching serving engine's block (serving/config.py
+    # ``ServingConfig``, nested blocks lifted there), read by
+    # ``ServingEngine.from_config``; absent means "not serving"
+    serving: Any = None
 
     _raw: Dict[str, Any] = field(default_factory=dict, repr=False)
 
@@ -280,7 +283,12 @@ class DeepSpeedConfig:
         kwargs: Dict[str, Any] = {"_raw": dict(d)}
         field_names = {f for f in cls.__dataclass_fields__}
         for k, v in d.items():
-            if k in cls._SUBCONFIGS:
+            if k == "serving" and v is not None:
+                # imported here: the serving package pulls in the model
+                # and kernel modules, which this module must not need
+                from ..serving.config import ServingConfig
+                kwargs[k] = dict_to_dataclass(ServingConfig, v, k)
+            elif k in cls._SUBCONFIGS:
                 if not isinstance(v, dict):
                     raise DeepSpeedConfigError(
                         f"Config section '{k}' must be a dict (e.g. "
@@ -350,6 +358,14 @@ class DeepSpeedConfig:
                 "loss scaling (unscale needs fp32 headroom)")
         if self.gradient_clipping < 0:
             raise DeepSpeedConfigError("gradient_clipping must be >= 0")
+        if self.serving is not None:
+            # at parse time, not at ServingEngine construction (JAX
+            # config.py:539-546); a fleet block still raises
+            # NotImplementedError from here
+            try:
+                self.serving.validate()
+            except ValueError as e:
+                raise DeepSpeedConfigError(f"serving: {e}") from e
 
     def to_dict(self):
         d = dataclass_to_dict(self)

@@ -1,19 +1,20 @@
 """Serving engine configuration (counterpart of
 ``deepspeed_tpu/serving/config.py``: ``QuantizeConfig`` :16,
-``ServingConfig`` with its ``paged`` / ``weights_int8`` / ``kv_int8``
-flags :231-244 and the nested-dict lifting :175-187). A ``qos``,
-``fleet`` or ``speculation`` block raises ``NotImplementedError``.
+``SpeculationConfig`` :62, ``ServingConfig`` with its ``paged`` /
+``weights_int8`` / ``kv_int8`` / ``qos_enabled`` / ``spec_enabled`` flags
+:231-259, the speculation headroom of ``cache_len`` :262 and the
+nested-dict lifting :175-187). A ``fleet`` block raises
+``NotImplementedError``.
 """
 
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 from .paging.config import PagingConfig
+from .qos import QosConfig
 
 _LATER_BLOCKS = {
-    "qos": "the QoS slice",
     "fleet": "the fleet slice",
-    "speculation": "the speculation slice",
 }
 
 
@@ -53,6 +54,47 @@ class QuantizeConfig:
 
 
 @dataclass
+class SpeculationConfig:
+    """Token-exact self-speculative decoding (the ``serving.speculation``
+    sub-block): a host-side n-gram proposer (``serving/speculation.py``)
+    matches the tail of each slot's ``prompt + generated`` sequence
+    against its own history and proposes up to ``max_spec_tokens``
+    continuation tokens an iteration; one batched verification step checks
+    them all and accepts the longest prefix that agrees with greedy
+    argmax, so the output stays the non-speculative engine's.
+
+    Greedy only: the acceptance rule is greedy argmax, so ``validate``
+    refuses the block on a sampling engine (temperature > 0)."""
+    enabled: bool = True
+    max_spec_tokens: int = 4         # k: proposals per slot an iteration
+                                     # (the QoS ladder sheds this to 0
+                                     # under pressure, before any request)
+    ngram_max: int = 3               # longest tail n-gram matched first
+    ngram_min: int = 1               # shortest n-gram worth matching
+
+    def validate(self, temperature: float) -> "SpeculationConfig":
+        if self.max_spec_tokens < 1:
+            raise ValueError(
+                f"serving.speculation.max_spec_tokens must be >= 1, got "
+                f"{self.max_spec_tokens}")
+        if self.ngram_min < 1:
+            raise ValueError(
+                f"serving.speculation.ngram_min must be >= 1, got "
+                f"{self.ngram_min}")
+        if self.ngram_max < self.ngram_min:
+            raise ValueError(
+                f"serving.speculation.ngram_max ({self.ngram_max}) must "
+                f"be >= ngram_min ({self.ngram_min})")
+        if self.enabled and temperature != 0.0:
+            raise ValueError(
+                "serving.speculation requires greedy sampling "
+                f"(temperature=0.0, got {temperature}): the acceptance "
+                "rule is greedy argmax, and speculating under a sampling "
+                "engine would silently change the output distribution")
+        return self
+
+
+@dataclass
 class ServingConfig:
     """Continuous-batching knobs. The engine owns ``num_slots`` KV-cache
     rows of ``max_len`` tokens; prompts are right-padded to a multiple of
@@ -75,18 +117,28 @@ class ServingConfig:
                                      # block-paged KV cache (serving/paging/);
                                      # absent or enabled=False keeps the
                                      # contiguous slot pool
-    qos: Any = None
+    qos: Optional[QosConfig] = None  # priority classes, SLO shedding, the
+                                     # degradation ladder, the watchdog
+                                     # (serving/qos.py); absent or
+                                     # enabled=False keeps the FIFO engine
     quantize: Optional[QuantizeConfig] = None
                                      # int8 weights and int8 KV pages
     fleet: Any = None
-    speculation: Any = None
+    speculation: Optional[SpeculationConfig] = None
+                                     # self-speculative decoding (serving/
+                                     # speculation.py); absent or
+                                     # enabled=False keeps one token a step
 
     def __post_init__(self):
         # nested blocks arrive as dicts from a JSON or dict config
         if isinstance(self.paging, dict):
             self.paging = PagingConfig(**self.paging)
+        if isinstance(self.qos, dict):
+            self.qos = QosConfig(**self.qos)
         if isinstance(self.quantize, dict):
             self.quantize = QuantizeConfig(**self.quantize)
+        if isinstance(self.speculation, dict):
+            self.speculation = SpeculationConfig(**self.speculation)
 
     def validate(self):
         for name, slice_name in _LATER_BLOCKS.items():
@@ -117,8 +169,12 @@ class ServingConfig:
                 f"{self.default_deadline_steps}")
         if self.paging is not None:
             self.paging.validate(self.cache_len)
+        if self.qos is not None:
+            self.qos.validate()
         if self.quantize is not None:
             self.quantize.validate(self.paged)
+        if self.speculation is not None:
+            self.speculation.validate(self.temperature)
         return self
 
     @property
@@ -137,15 +193,29 @@ class ServingConfig:
         return self.quantize is not None and self.quantize.kv == "int8"
 
     @property
+    def qos_enabled(self) -> bool:
+        """True when the QoS layer is configured AND enabled."""
+        return self.qos is not None and self.qos.enabled
+
+    @property
+    def spec_enabled(self) -> bool:
+        """True when self-speculative decoding is configured AND enabled."""
+        return self.speculation is not None and self.speculation.enabled
+
+    @property
     def cache_len(self) -> int:
         """Slot capacity: ``max_len`` plus the speculation headroom
-        ``pad``, rounded up to a multiple of 128, as the JAX package
-        computes it, so page tables, the pool size, the prefill buckets
-        and the paging validation are the JAX engine's at every
-        ``max_len``. ``pad`` is 0 until speculative decoding is ported.
-        Admission and the per-request budget read ``max_len``; the
-        kernels read only the valid tokens of a slot."""
-        pad = 0
+        ``pad`` (``max_spec_tokens`` when speculation is on, else 0),
+        rounded up to a multiple of 128, as the JAX package computes it,
+        so page tables, the pool size, the prefill buckets and the paging
+        validation are the JAX engine's at every ``max_len``. The
+        verification step writes k + 1 candidate tokens at a slot's
+        frontier before acceptance decides how many are real; the
+        headroom keeps those writes from clamping back into a live slot's
+        valid prefix (an active slot holds at most ``max_len - 2``
+        tokens). Admission and the per-request budget read ``max_len``;
+        the kernels read only the valid tokens of a slot."""
+        pad = self.speculation.max_spec_tokens if self.spec_enabled else 0
         return (self.max_len + pad + 127) // 128 * 128
 
     def bucket_lengths(self) -> Tuple[int, ...]:

@@ -30,9 +30,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ...inference.cache import (cache_page_len, gather_pages,
-                                init_page_pool, make_paged_view,
-                                scatter_chunk_pages, scatter_token_pages)
+from ...inference.cache import (cache_page_len, extract_token_kv,
+                                gather_pages, init_page_pool,
+                                make_paged_view, scatter_chunk_pages,
+                                scatter_token_pages)
 from ...inference.generation import _sample_impl
 from .allocator import NULL_PAGE, PageAllocator
 from .prefix import PrefixCache
@@ -62,10 +63,7 @@ def _paged_decode_iter_impl(model, pool, page_table, state, generator,
         cache.index = idx_w
         logits = model(state["last_token"][:, None], positions=positions,
                        cache=cache)
-        lidx = torch.arange(cache.k.shape[0], device=rows.device)[:, None]
-        pos = idx_w.long()[None]
-        tok_k = cache.k[lidx, rows[None], :, pos]
-        tok_v = cache.v[lidx, rows[None], :, pos]
+        tok_k, tok_v = extract_token_kv(cache, idx_w)
     nxt = _sample_impl(logits[:, -1, :], generator, mode)
 
     phys = page_table[rows, (idx_w // page_len).long()]
@@ -145,7 +143,11 @@ class PagedKVManager:
 
     def reset(self):
         """Build the device pool and every host-side ownership structure
-        from scratch."""
+        from scratch (at construction, and from the engine's
+        ``recover()``: JAX :401). The old pool is dropped first, so a
+        rebuild after an allocation failure reuses its memory instead of
+        holding two pools at once."""
+        self.pool = None
         self.pool = init_page_pool(self._model, self.num_pages,
                                    self.page_len, kv_int8=bool(self.kv_quant))
         self.allocator = PageAllocator(self.num_pages)

@@ -88,6 +88,41 @@ def test_the_checks_cover_the_checkpoint_and_dataloader_modules():
         assert name + ".py" in files
 
 
+def test_the_checks_cover_the_serving_qos_speculation_and_observability():
+    """The rest-of-serving slice's modules (QoS, speculation, the memory
+    accountant of the new observability package) are among the files and
+    modules the import checks walk."""
+    mods = {m.name for m in pkgutil.walk_packages(
+        deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")}
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("serving/qos", "serving/speculation", "observability/memory"):
+        assert "deepspeed_tpu_torch." + name.replace("/", ".") in mods
+        assert name + ".py" in files
+
+
+def test_cpu_speculation_and_qos_launch_no_kernel():
+    """A speculative, QoS-managed serve on the CPU (contiguous and paged)
+    runs the plain versions only: the verification step's flash forward
+    included."""
+    flash_attention.launches = decode_attention.launches = 0
+    paged_attention.launches = 0
+    model = GPT(GPTConfig(vocab_size=17, max_seq_len=64, d_model=128,
+                          n_layers=2, n_heads=2, dtype=torch.float32))
+    eng = init_inference(model, device="cpu")
+    for paging in (None, {"page_len": 16}):
+        srv = eng.serve({"num_slots": 2, "max_len": 48, "prefill_bucket": 16,
+                         "paging": paging, "qos": {},
+                         "speculation": {"max_spec_tokens": 3}})
+        reqs = [srv.submit([1, 2, 3] * 4, max_new_tokens=8, priority=p)
+                for p in (0, 2)]
+        srv.run()
+        assert all(len(r.output_tokens) == 8 for r in reqs)
+        assert srv.metrics.spec_proposed_tokens > 0
+    assert flash_attention.launches == 0
+    assert decode_attention.launches == 0
+    assert paged_attention.launches == 0
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")

@@ -161,8 +161,8 @@ def test_submit_validation_and_config_refusals(models):
     assert eng.metrics.snapshot()["requests_rejected"] == 2
     with pytest.raises(ValueError, match="max_seq_len"):
         ServingEngine(model, ServingConfig(num_slots=1, max_len=256))
-    with pytest.raises(NotImplementedError, match="QoS"):
-        ServingEngine(model, {"qos": {"enabled": True}})
+    with pytest.raises(NotImplementedError, match="fleet"):
+        ServingEngine(model, {"fleet": {"enabled": True}})
     cfg = ServingConfig(max_len=100, prefill_bucket=16)
     # the capacity rounds up to 128, as the JAX package's does
     assert cfg.cache_len == 128
